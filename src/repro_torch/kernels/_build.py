@@ -1,0 +1,94 @@
+"""Build the kernels' CUDA sources at first use and load them.
+
+Each ``csrc/*.cu`` compiles on its own, with a plain C interface, into
+a shared library under ``build/kernels/`` at the repository root, named
+by a hash of its source and flags so an edited kernel rebuilds.  All
+missing libraries build in parallel, one ``nvcc`` per source.  The
+libraries load with ctypes; nothing here includes PyTorch's headers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_KERNELS = Path(__file__).resolve().parent
+BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
+SOURCES = {
+    "spmv_ell": _KERNELS / "spmv" / "csrc" / "spmv_ell.cu",
+    "bfs_pull": _KERNELS / "frontier" / "csrc" / "bfs_pull.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel whose library is missing, all at once.
+    Returns each kernel's compiler log (``-Xptxas -v``: registers,
+    shared memory, spills); raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in SOURCES.items():
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, out, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, out, proc) in procs.items():
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return {name: (library_path(name).with_suffix(".log").read_text()
+                   if library_path(name).with_suffix(".log").exists()
+                   else "") for name in SOURCES}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _loaded.get(name)
+    if lib is None:
+        if not library_path(name).exists():
+            build_all()
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+def check(lib: ctypes.CDLL, prefix: str, code: int) -> None:
+    """Raise if a C entry point returned a non-zero cudaError_t."""
+    if code:
+        err = getattr(lib, f"{prefix}_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{prefix} launch failed: CUDA error {code} "
+                           f"({err(code).decode()})")

@@ -1,0 +1,64 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor anything of the JAX package ``repro``."""
+
+import ast
+import os
+import subprocess
+import sys
+
+from conftest import REPO, SRC
+
+PORT = os.path.join(SRC, "repro_torch")
+CHIP_SMOKE = os.path.join(REPO, "chip_smoke.py")
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = [CHIP_SMOKE]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, f) for f in names if f.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_sources_import_no_jax_or_reference():
+    files = _port_files()
+    assert len(files) > 20, files
+    bad = [(os.path.relpath(f, REPO), root) for f in files
+           for root in _imported_roots(f) if root in FORBIDDEN]
+    assert not bad, f"forbidden imports: {bad}"
+
+
+_IMPORT_ALL = r"""
+import importlib, importlib.util, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("IMPORTED", len(names))
+"""
+
+
+def test_importing_every_module_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL.format(smoke=CHIP_SMOKE)],
+        env=env, capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n = int(r.stdout.split("IMPORTED")[1])
+    assert n >= 20, r.stdout
