@@ -3,14 +3,23 @@
 
     python3 chip_smoke.py
 
-It drives the paper's main path -- bfs/bsp, bfs/fast, pagerank/bsp and
-pagerank/fast through ``GraphEngine.program`` on a urand graph cut into
-P vertex blocks stacked on the card -- and holds every CUDA kernel of
-that path against its plain-PyTorch version.  Phases, each of which
-raises on failure (the run then exits non-zero and prints no result):
+It drives the port's two main paths and holds every CUDA kernel of each
+against its plain-PyTorch version:
+
+- the paper's graph path: bfs/bsp, bfs/fast, pagerank/bsp and
+  pagerank/fast through ``GraphEngine.program`` on a urand graph cut
+  into P vertex blocks stacked on the card (kernels ``spmv_ell``,
+  ``bfs_pull``);
+- LM token serving: ``launch/serve.py::serve`` on TinyLlama-1.1B at full
+  width, weights drawn from a seeded ``torch.Generator`` on the card
+  (kernel ``flash_attention_fwd``, one launch per prefill layer).
+
+Phases, each of which raises on failure (the run then exits non-zero and
+prints no result):
 
   card     the card's name and power limit, as nvidia-smi gives them.
-  build    every kernel compiled from src/repro_torch/kernels/*/csrc.
+  build    every kernel compiled from src/repro_torch/kernels/*/csrc, all
+           at once (one nvcc per source).
   parity   each kernel against its plain version on the card: the shape
            sweeps of the JAX package's kernel tests, then every ELL bucket
            of the main-path graph.  bfs_pull must match exactly; spmv_ell
@@ -31,6 +40,27 @@ raises on failure (the run then exits non-zero and prints no result):
            plain version, its bound and, for spmv_ell, a torch.sparse CSR
            matvec of the same function (timed here only; the port never
            calls it).
+  llm-parity  flash_attention_fwd against its plain version (ref.py) on
+           the shapes of tests/test_kernels_flash.py (sweep x {causal,
+           causal + window 64, non-causal}, cross lengths, softcap 20,
+           D = 120 through ops), each in f32 and bf16, then at TinyLlama's
+           prefill shape; within 2e-5 (f32) and 2e-2 (bf16), the
+           tolerances of those tests.
+  llm-main serve() on TinyLlama-1.1B, batch 8, prompt 1024, gen 64, the
+           launch counters zeroed just before and read just after: 22
+           flash launches (one per layer of the prefill); generated tokens
+           in range.  The kernel at layer 0's real q, k, v within 2e-2 of
+           ref.py.  Prefill logits through the kernel against
+           forward_prefill(impl="naive") on the card, and decode step by
+           step over a 256-token prompt against prefill's last logits:
+           finite, the same argmax, and within LOGIT_MAX_TOL (largest) and
+           LOGIT_MEAN_TOL (mean) of each other.
+  llm-times prefill ms and decode tok/s (median of 3 serve runs after the
+           main-path run), and the flash kernel at the prefill shape beside
+           its bound, ref.py's time and scaled_dot_product_attention's
+           (timed here only; the port never calls it); then one serve call
+           with 8 decode steps under torch.profiler: device busy share and
+           the kernels that take most.
 
 The last three lines are the kernels' JSON record, the card line, and the
 result line ``{"ok": true, "device": {...}}``.
@@ -78,6 +108,26 @@ FRONTIER_SWEEP = ((256, 8, 512), (512, 16, 1024), (128, 4, 4096),
 
 SPMV_REPLACES = "src/repro/kernels/spmv/kernel.py:36"
 BFS_REPLACES = "src/repro/kernels/frontier/kernel.py:41"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:80"
+
+# LM serving at TinyLlama-1.1B's full width (all 22 layers)
+LLM_ARCH = "tinyllama-1.1b"
+LLM_BATCH, LLM_PROMPT, LLM_GEN = 8, 1024, 64
+LLM_DECODE_PROMPT = 256   # prefill-vs-decode check
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels_flash
+# Full-width logit checks.  The kernel path, the naive path and decode
+# compute the same bf16 logits (|logit| up to about 4) with other rounding
+# points (p rounded before or after normalising, other summation orders):
+# an attention output may differ by a bf16 ulp per layer, and the
+# difference grows with depth.  So each check bounds the largest difference
+# at 16 bf16 ulps of logits in [2, 4), the mean difference, which a wrong
+# mask or scale would raise everywhere, and the argmax of every row; the
+# kernel itself is held to 2e-2 on this run's real layer-0 q, k, v.
+LOGIT_MAX_TOL = 0.25
+LOGIT_MEAN_TOL = 0.03
+BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 dense tensor-core peak
+# (bh, s, d) sweep of tests/test_kernels_flash.py
+FLASH_SWEEP = ((2, 256, 128), (4, 512, 128), (1, 128, 256))
 
 
 def check(ok, msg: str) -> None:
@@ -109,6 +159,21 @@ class Port:
         from repro_torch.kernels.frontier.ref import bfs_pull_ref
         from repro_torch.kernels.spmv import kernel as spmv_kernel
         from repro_torch.kernels.spmv.ref import spmv_ell_ref
+        from repro_torch.configs import registry as arch_registry
+        from repro_torch.data import batch_at
+        from repro_torch.kernels.flash_attention import kernel as flash_kernel
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.flash_attention.ref import \
+            flash_attention_ref
+        from repro_torch import models
+        from repro_torch.launch.serve import serve
+        self.arch_registry = arch_registry
+        self.batch_at = batch_at
+        self.flash_kernel = flash_kernel
+        self.flash_ops = flash_ops
+        self.flash_attention_ref = flash_attention_ref
+        self.models = models
+        self.serve = serve
         self.torch = torch
         self.graph_workloads = graph_workloads
         self.GraphEngine = GraphEngine
@@ -130,13 +195,19 @@ class Port:
     def bfs_pull(self, *args):
         return self.frontier_kernel.bfs_pull(*args)
 
+    def flash(self, *args, **kw):
+        return self.flash_kernel.flash_attention_fwd(*args, **kw)
+
     def launches(self) -> dict:
         return {"spmv_ell": self.spmv_kernel.spmv_ell.launches,
-                "bfs_pull": self.frontier_kernel.bfs_pull.launches}
+                "bfs_pull": self.frontier_kernel.bfs_pull.launches,
+                "flash_attention_fwd":
+                    self.flash_kernel.flash_attention_fwd.launches}
 
     def reset_launches(self) -> None:
         self.spmv_kernel.spmv_ell.launches = 0
         self.frontier_kernel.bfs_pull.launches = 0
+        self.flash_kernel.flash_attention_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -181,11 +252,13 @@ def median_ms(torch, device, fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+def bound(bytes_moved: int, ops: int,
+          ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     """Least ms the H100 could take: bytes over HBM rate vs operations
-    over the CUDA-core rate, whichever is larger."""
+    over the peak rate for their type (the f32 CUDA-core rate unless
+    given), whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -576,8 +649,9 @@ def run(graph: str, parts_list, device) -> dict:
             for parts, (_, eng, garr) in engines.items()}
     main_launches = port.launches()
     log(f"[main] launches {main_launches}")
-    for name, count in main_launches.items():
-        check(count > 0, f"{name} never launched on the main path")
+    for name in ("spmv_ell", "bfs_pull"):
+        check(main_launches[name] > 0,
+              f"{name} never launched on the main path")
     for parts, res in main.items():
         for key, r in res.items():
             log(f"[main] parts={parts} {key:14s} rounds={r['rounds']:3d} "
@@ -675,10 +749,256 @@ def run(graph: str, parts_list, device) -> dict:
     return {"launches": main_launches, "parity_err": parity_err,
             "kernel_cells": kernel_cells, "parts": max(parts_list)}
 
+# ---------------------------------------------------------------------------
+# LM serving: flash_attention_fwd
+# ---------------------------------------------------------------------------
 
-def kernels_record(result: dict) -> dict:
-    """The contract record of each kernel, at the largest parts count:
-    spmv_ell at pagerank/bsp's ell_in buckets, bfs_pull at bfs/fast's."""
+def flash_bound(bh: int, sq: int, sk: int, d: int, itemsize: int,
+                causal: bool) -> tuple[float, str]:
+    """Least ms for one flash call: q, k, v read and o written once over
+    HBM rate, against q k^T and p @ v on the unmasked (query, key) pairs
+    (2 ops a multiply-add, D of each per pair and product) over the bf16
+    tensor-core peak."""
+    pairs = bh * (sum(min(q + 1, sk) for q in range(sq)) if causal
+                  else sq * sk)
+    return bound(itemsize * d * bh * (2 * sq + 2 * sk), 4 * d * pairs,
+                 BF16_TC_OPS_PER_S)
+
+
+class FlashParity:
+    """flash_attention_fwd against ref.py; keeps the max abs error."""
+
+    def __init__(self, port: Port, device):
+        self.port, self.device = port, device
+        self.err = {"float32": 0.0, "bfloat16": 0.0}
+        self.cases = 0
+
+    def randn(self, shape, dtype, gen):
+        torch = self.port.torch
+        return torch.randn(shape, generator=gen, device=self.device) \
+            .to(getattr(torch, dtype))
+
+    def one(self, got, want, dtype, what):
+        torch = self.port.torch
+        _sync(torch, self.device)
+        tol = FLASH_TOL[dtype]
+        check(got.dtype == want.dtype, f"flash {what}: dtype {got.dtype}")
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol, msg=lambda m: f"flash {what} "
+                                   f"{dtype}: {m}")
+        self.err[dtype] = max(self.err[dtype],
+                              float((got.float() - want.float()).abs().max()))
+        self.cases += 1
+
+    def run(self, prefill_shape):
+        port, torch = self.port, self.port.torch
+        gen = torch.Generator(device=self.device).manual_seed(SEED)
+        cases = [((bh, s, d), (bh, s, d), dict(causal=c, window=w))
+                 for bh, s, d in FLASH_SWEEP
+                 for c, w in ((True, 0), (True, 64), (False, 0))]
+        cases += [((2, 128, 128), (2, 512, 128), dict(causal=False)),
+                  ((1, 128, 128), (1, 128, 128),
+                   dict(causal=True, softcap=20.0))]
+        for dtype in ("float32", "bfloat16"):
+            for qs, ks, kw in cases:
+                q = self.randn(qs, dtype, gen)
+                k, v = self.randn(ks, dtype, gen), self.randn(ks, dtype, gen)
+                self.one(port.flash(q, k, v, **kw),
+                         port.flash_attention_ref(q, k, v, **kw), dtype,
+                         f"{qs}x{ks} {kw}")
+            # danube3's head dim 120 through ops, (B, S, H, D)
+            q, k, v = (self.randn((2, 128, 4, 120), dtype, gen)
+                       for _ in range(3))
+            want = port.flash_attention_ref(
+                *(t.transpose(1, 2).reshape(8, 128, 120) for t in (q, k, v)),
+                causal=True).reshape(2, 4, 128, 120).transpose(1, 2)
+            self.one(port.flash_ops.flash_attention(q, k, v, causal=True),
+                     want, dtype, "ops D=120")
+        q, k, v = (self.randn(prefill_shape, "bfloat16", gen)
+                   for _ in range(3))
+        self.one(port.flash(q, k, v, causal=True),
+                 port.flash_attention_ref(q, k, v, causal=True), "bfloat16",
+                 f"prefill shape {prefill_shape}")
+        return q, k, v
+
+
+def device_profile(port: Port, cfg, model, batch: int, prompt_len: int,
+                   device, gen: int = 8) -> dict:
+    """torch.profiler over one serve call with ``gen`` decode steps: the
+    device kernels' time, summed by name (one stream, so they do not
+    overlap), against serve's own synchronized prefill and decode time,
+    and the kernels that take most.  Tracing slows the host, so the busy
+    share is a lower bound on the untraced run's."""
+    torch = port.torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, stats = port.serve(cfg, batch=batch, prompt_len=prompt_len,
+                              gen=gen, device=device, params=model)
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    wall_ms = (stats["prefill_s"] + stats["decode_s"]) * 1e3
+    out = {"gen": gen, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms,
+           "prefill_ms": stats["prefill_s"] * 1e3,
+           "decode_ms": stats["decode_s"] * 1e3,
+           "top_kernels": [{"name": k[:80], "ms": ms, "calls": n}
+                           for k, ms, n in kernels[:10]]}
+    log(f"[profile] serve gen={gen} under torch.profiler: prefill "
+        f"{out['prefill_ms']:.1f} ms + decode {out['decode_ms']:.1f} ms, "
+        f"device kernels {busy_ms:.1f} ms ({out['device_busy_share']:.1%})")
+    for r in out["top_kernels"]:
+        log(f"[profile]   {r['ms']:9.3f} ms  x{r['calls']:<5d} {r['name']}")
+    return out
+
+
+def run_llm(port: Port, device, arch: str = LLM_ARCH, batch: int = LLM_BATCH,
+            prompt_len: int = LLM_PROMPT, gen: int = LLM_GEN,
+            decode_prompt: int = LLM_DECODE_PROMPT) -> dict:
+    """The LM phases: parity, the serve main path and its checks, times."""
+    torch, models = port.torch, port.models
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = port.arch_registry.get_arch(arch)
+    prefill_shape = (batch * cfg.num_heads, prompt_len, cfg.head_dim)
+
+    # -- llm-parity -----------------------------------------------------------
+    parity = FlashParity(port, device)
+    fq, fk, fv = parity.run(prefill_shape)
+    log(f"[llm-parity] flash_attention_fwd: {parity.cases} cases ok, "
+        f"max_abs_err {parity.err}")
+
+    # -- llm-main -------------------------------------------------------------
+    t0 = time.perf_counter()
+    model = models.Transformer(cfg, models.init_params(
+        models.param_spec(cfg), torch.Generator(device=device).manual_seed(0),
+        device))
+    _sync(torch, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[llm-main] {arch}: {n_params:,} f32 parameters "
+        f"({n_params * 4 / 1e9:.2f} GB) drawn on the device in "
+        f"{time.perf_counter() - t0:.1f} s")
+    port.reset_launches()
+    toks, stats = port.serve(cfg, batch=batch, prompt_len=prompt_len,
+                             gen=gen, device=device, params=model)
+    _sync(torch, device)
+    launches = port.launches()
+    log(f"[llm-main] serve batch={batch} prompt={prompt_len} gen={gen}: "
+        f"launches {launches}; prefill {stats['prefill_s'] * 1e3:.1f} ms, "
+        f"decode {stats['tok_per_s']:.1f} tok/s; sample "
+        f"{toks[0, :8].tolist()}")
+    check(launches["flash_attention_fwd"] == cfg.num_layers,
+          f"flash_attention_fwd launched {launches['flash_attention_fwd']} "
+          f"times in serve, want {cfg.num_layers} (one per prefill layer)")
+    check(tuple(toks.shape) == (batch, gen) and toks.dtype == torch.int32,
+          f"served tokens {tuple(toks.shape)} {toks.dtype}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "served tokens out of range")
+
+    with torch.inference_mode():
+        prompt = port.batch_at(0, global_batch=batch, seq_len=prompt_len,
+                               vocab_size=cfg.vocab_size).to(device)
+        # the kernel at layer 0's real q, k, v (kv heads repeated)
+        layers, blk = models.layers, model.segments[0][0]
+        h = layers.apply_norm(blk.ln1, models.model._embed(model, cfg, prompt),
+                              cfg.norm)
+        q, k, v = layers.attn_qkv(blk.attn, h, cfg,
+                                  torch.arange(prompt_len, device=device))
+        g = cfg.num_heads // cfg.num_kv_heads
+        q, k, v = (port.flash_ops._to_bh(t) for t in (
+            q, layers.repeat_kv(k, g), layers.repeat_kv(v, g)))
+        parity.one(port.flash(q, k, v, causal=True),
+                   port.flash_attention_ref(q, k, v, causal=True),
+                   "bfloat16", "layer-0 q, k, v")
+        del h, q, k, v
+
+        lg_k, _ = models.forward_prefill(model, cfg, {"tokens": prompt})
+        lg_n, _ = models.forward_prefill(model, cfg, {"tokens": prompt},
+                                         impl="naive")
+        short = prompt[:, :decode_prompt]
+        lg_p, _ = models.forward_prefill(model, cfg, {"tokens": short})
+        cache = models.init_cache(cfg, batch, decode_prompt, device=device)
+        for t in range(decode_prompt):
+            lg_d, cache = models.forward_decode(model, cfg,
+                                                short[:, t:t + 1], cache)
+        _sync(torch, device)
+        del cache
+        errs = {}
+        for what, a, b in (("prefill kernel vs naive", lg_k, lg_n),
+                           (f"decode vs prefill ({decode_prompt} tokens)",
+                            lg_d, lg_p)):
+            d = (a.float() - b.float()).abs()
+            errs[what] = {"max": float(d.max()), "mean": float(d.mean()),
+                          "argmax_equal": bool(torch.equal(a.argmax(-1),
+                                                           b.argmax(-1))),
+                          "max_logit": float(b.float().abs().max()),
+                          "finite": bool(torch.isfinite(a.float()).all())}
+            log(f"[llm-main] logits, {what}: {errs[what]}")
+        for what, e in errs.items():
+            check(e["finite"], f"{what}: logits not finite")
+            check(e["max"] <= LOGIT_MAX_TOL and e["mean"] <= LOGIT_MEAN_TOL
+                  and e["argmax_equal"],
+                  f"{what}: {e} beyond max {LOGIT_MAX_TOL}, mean "
+                  f"{LOGIT_MEAN_TOL} or argmax")
+        del lg_n
+    prefill_err = errs["prefill kernel vs naive"]["max"]
+    decode_err = errs[f"decode vs prefill ({decode_prompt} tokens)"]["max"]
+
+    # -- llm-times ------------------------------------------------------------
+    runs = [port.serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
+                       device=device, params=model)[1] for _ in range(3)]
+    prefill_ms = statistics.median(r["prefill_s"] for r in runs) * 1e3
+    tok_s = statistics.median(r["tok_per_s"] for r in runs)
+    b_ms, b_by = flash_bound(prefill_shape[0], prompt_len, prompt_len,
+                             cfg.head_dim, fq.element_size(), True)
+    sdpa_q, sdpa_k, sdpa_v = (
+        t.reshape(batch, cfg.num_heads, prompt_len, cfg.head_dim)
+        for t in (fq, fk, fv))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            sdpa_q, sdpa_k, sdpa_v, is_causal=True)
+
+    check(torch.allclose(library().reshape(prefill_shape).float(),
+                         port.flash(fq, fk, fv, causal=True).float(),
+                         atol=FLASH_TOL["bfloat16"],
+                         rtol=FLASH_TOL["bfloat16"]),
+          "scaled_dot_product_attention disagrees with the kernel")
+    flash = {"ms": kernel_ms(torch, device,
+                             lambda: port.flash(fq, fk, fv, causal=True)),
+             "plain_ms": kernel_ms(
+                 torch, device, lambda: port.flash_attention_ref(
+                     fq, fk, fv, causal=True), reps=5),
+             "library_ms": kernel_ms(torch, device, library),
+             "bound_ms": b_ms, "bound_by": b_by}
+    share = cfg.num_layers * flash["ms"] / prefill_ms
+    log(f"[times] llm {arch} batch={batch} prompt={prompt_len} gen={gen}: "
+        f"prefill {prefill_ms:.2f} ms, decode {tok_s:.1f} tok/s "
+        f"(runs {[round(r['prefill_s'] * 1e3, 2) for r in runs]} ms, "
+        f"{[round(r['tok_per_s'], 1) for r in runs]} tok/s)")
+    log(f"[times] flash_attention_fwd {prefill_shape} bf16 causal: kernel "
+        f"{flash['ms']:.4f} ms  plain {flash['plain_ms']:.4f} ms  bound "
+        f"{b_ms:.4f} ms ({b_by})  sdpa {flash['library_ms']:.4f} ms; "
+        f"{cfg.num_layers} layers = {share:.1%} of prefill")
+    profile = device_profile(port, cfg, model, batch, prompt_len, device)
+    log("[times] " + json.dumps({
+        "arch": arch, "prefill_ms": prefill_ms, "decode_tok_per_s": tok_s,
+        "profile": profile,
+        "flash": flash, "flash_share_of_prefill": share,
+        "prefill_logit_err": prefill_err, "decode_logit_err": decode_err}))
+    return {"launches": launches["flash_attention_fwd"],
+            "parity_err": max(parity.err.values()), "flash": flash}
+
+
+def kernels_record(result: dict, llm: dict) -> dict:
+    """The contract record of each kernel: spmv_ell at pagerank/bsp's
+    ell_in buckets and bfs_pull at bfs/fast's, at the largest parts
+    count; flash_attention_fwd at one TinyLlama prefill layer."""
     p = result["parts"]
     rows = []
     for name, src, replaces, cell_key in (
@@ -695,6 +1015,15 @@ def kernels_record(result: dict) -> dict:
                      "bound_ms": cell["bound_ms"],
                      "bound_by": cell["bound_by"],
                      "library_ms": cell["library_ms"]})
+    cell = llm["flash"]
+    rows.append({"name": "flash_attention_fwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                           "flash_attention_fwd.cu",
+                 "replaces": FLASH_REPLACES, "launches": llm["launches"],
+                 "max_abs_err": llm["parity_err"], "ms": cell["ms"],
+                 "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"],
+                 "bound_by": cell["bound_by"],
+                 "library_ms": cell["library_ms"]})
     return {"kernels": rows}
 
 
@@ -708,8 +1037,11 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}")
     result = run(GRAPH, PARTS, "cuda")
+    log(f"[graph done] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    llm = run_llm(Port(), "cuda")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(kernels_record(result)))
+    print(json.dumps(kernels_record(result, llm)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,15 @@
-from repro_torch.configs.base import GraphConfig
+from repro_torch.configs.base import (
+    GraphConfig,
+    LM_SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    shapes_for,
+)
 
-__all__ = ["GraphConfig"]
+__all__ = [
+    "GraphConfig",
+    "LM_SHAPES",
+    "ModelConfig",
+    "ShapeConfig",
+    "shapes_for",
+]

@@ -1,0 +1,25 @@
+"""Qwen2.5-32B: dense GQA with QKV bias.
+
+[hf:Qwen/Qwen2.5-0.5B; hf]
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b",
+    family="dense",
+    num_layers=64,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=27648,
+    vocab_size=152064,
+    attn_bias=True,
+    rope_theta=1_000_000.0,
+    norm="rmsnorm",
+    act="swiglu",
+    supports_long_context=False,   # pure full attention -> skip long_500k
+    notes="GQA, QKV bias",
+    source="hf:Qwen/Qwen2.5-0.5B",
+)

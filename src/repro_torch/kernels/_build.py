@@ -21,6 +21,8 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 SOURCES = {
     "spmv_ell": _KERNELS / "spmv" / "csrc" / "spmv_ell.cu",
     "bfs_pull": _KERNELS / "frontier" / "csrc" / "bfs_pull.cu",
+    "flash_attention_fwd": _KERNELS / "flash_attention" / "csrc"
+    / "flash_attention_fwd.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,28 @@
+"""Plain-PyTorch version of the flash attention kernel."""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """q (BH, Sq, D), k/v (BH, Sk, D) -> (BH, Sq, D) in v's dtype."""
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) \
+        * (q.shape[-1] ** -0.5)
+    if softcap and softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v)

@@ -1,0 +1,25 @@
+from repro_torch.models.model import (
+    Transformer,
+    build_plan,
+    forward_decode,
+    forward_prefill,
+    init_cache,
+    param_spec,
+)
+from repro_torch.models.params import (
+    init_params,
+    param_count,
+    params_from_arrays,
+)
+
+__all__ = [
+    "Transformer",
+    "build_plan",
+    "forward_decode",
+    "forward_prefill",
+    "init_cache",
+    "param_spec",
+    "init_params",
+    "param_count",
+    "params_from_arrays",
+]

@@ -1,0 +1,258 @@
+"""Core neural layers: norms, RoPE, GQA attention (full / sliding-window /
+local-global), and MLPs.
+
+Attention has two interchangeable implementations:
+  * ``naive``   -- materializes (Sq, Sk) scores; oracle for tests.
+  * ``chunked`` -- ``kernels.flash_attention.ops.flash_attention``: the
+                   Hopper kernel on CUDA tensors, the plain chunked
+                   online-softmax forward below on CPU tensors.
+
+Parameters are dicts of tensors (an ``nn.ParameterDict`` in the model).
+Every function keeps the reference's layouts and its cast points.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.params import spec
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm_spec(d):
+    return {"scale": spec((d,), (None,), init="ones")}
+
+
+def layernorm_spec(d):
+    return {"scale": spec((d,), (None,), init="ones"),
+            "bias": spec((d,), (None,), init="zeros")}
+
+
+def norm_spec(kind, d):
+    return rmsnorm_spec(d) if kind == "rmsnorm" else layernorm_spec(d)
+
+
+def apply_norm(p, x, kind="rmsnorm", eps=1e-6):
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"]
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x (B, S, H..., D), D even; positions (S,) or (B, S)."""
+    d = x.shape[-1]
+    d2 = d // 2
+    freqs = rope_freqs(d, theta, x.device)                  # (d2,)
+    ang = positions[..., None].float() * freqs              # (..., S, d2)
+    # broadcast angles over any head dims between S and D
+    for _ in range(x.dim() - ang.dim() - 1):
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :d2], x[..., d2:2 * d2]
+    xr1 = x1 * cos - x2 * sin
+    xr2 = x2 * cos + x1 * sin
+    return torch.cat([xr1, xr2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Masking
+# ---------------------------------------------------------------------------
+def attn_mask(q_pos, k_pos, *, causal: bool, window: int):
+    """Boolean (..., Sq, Sk) mask; True = attend."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                   dtype=torch.bool, device=qp.device)
+    if causal:
+        m &= kp <= qp
+    if window > 0:
+        m &= kp > qp - window
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Attention implementations
+# ---------------------------------------------------------------------------
+def _scores_softcap(s, softcap):
+    if softcap and softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    return s
+
+
+def attention_naive(q, k, v, *, q_pos, k_pos, causal, window, softcap=0.0):
+    """q/k/v: (B, S, H, D), kv heads pre-repeated -> (B, Sq, H, D)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = _scores_softcap(s, softcap)
+    mask = attn_mask(q_pos, k_pos, causal=causal, window=window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def _pick_chunk(s: int, target: int) -> int:
+    """Largest divisor of s that is <= target (falls back to s)."""
+    if s <= target:
+        return s
+    for c in range(target, 0, -1):
+        if s % c == 0:
+            return c
+    return s
+
+
+def flash_attention_chunked(q, k, v, *, causal, window, softcap,
+                            q_chunk=1024, kv_chunk=1024):
+    """Plain chunked online-softmax forward: the reference's
+    ``_flash_fwd_impl`` behind ``flash_attention_xla``, without the
+    log-sum-exp that its backward keeps.  As there, the accumulator is
+    kept in v's dtype (bf16 when serving); the CUDA kernel keeps it in
+    f32, as the Pallas kernel does.  q/k/v (B, S, H, D) -> (B, Sq, H, D)."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    qc = _pick_chunk(Sq, q_chunk)
+    kc = _pick_chunk(Sk, kv_chunk)
+    scale = D ** -0.5
+    outs = []
+    for qi in range(Sq // qc):
+        qcb = q[:, qi * qc:(qi + 1) * qc]
+        qp = qi * qc + torch.arange(qc, device=q.device)
+        m = torch.full((B, H, qc), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, qc), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, qc, D), dtype=v.dtype, device=q.device)
+        for ki in range(Sk // kc):
+            kcb = k[:, ki * kc:(ki + 1) * kc]
+            vcb = v[:, ki * kc:(ki + 1) * kc]
+            s = torch.einsum("bqhd,bkhd->bhqk", qcb.float(),
+                             kcb.float()) * scale
+            s = _scores_softcap(s, softcap)
+            kp = ki * kc + torch.arange(kc, device=q.device)
+            s = torch.where(attn_mask(qp, kp, causal=causal, window=window),
+                            s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhqk,bkhd->bhqd", p.to(vcb.dtype), vcb)
+            acc = acc * corr[..., None].to(acc.dtype) + pv
+            m = m_new
+        lmax = torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
+        outs.append((acc / lmax).transpose(1, 2))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (projections + rope + core)
+# ---------------------------------------------------------------------------
+def attn_spec(cfg):
+    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": spec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": spec((d, kh, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": spec((d, kh, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": spec((h, hd, d), ("heads", "head_dim", "embed"),
+                   scale=0.02 / max(1, cfg.num_layers) ** 0.5),
+    }
+    if cfg.attn_bias:
+        p["bq"] = spec((h, hd), ("heads", "head_dim"), init="zeros")
+        p["bk"] = spec((kh, hd), ("kv_heads", "head_dim"), init="zeros")
+        p["bv"] = spec((kh, hd), ("kv_heads", "head_dim"), init="zeros")
+    return p
+
+
+def attn_qkv(p, x, cfg, positions):
+    """Project and rope. Returns q (B,S,H,D), k/v (B,S,KH,D) (unrepeated)."""
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhe->bshe", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhe->bshe", x, p["wv"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def repeat_kv(k, groups: int):
+    """(B, S, KH, D) -> (B, S, KH*G, D)."""
+    if groups == 1:
+        return k
+    return torch.repeat_interleave(k, groups, dim=2)
+
+
+def attn_out(p, o, x_dtype):
+    """o: (B, S, H, D) -> (B, S, d_model)."""
+    return torch.einsum("bshe,hed->bsd", o, p["wo"].to(x_dtype))
+
+
+def attention_block(p, x, cfg, *, positions, causal=True, window=0,
+                    impl="chunked"):
+    """Full self-attention sub-block (no norm/residual).
+
+    Returns (out, (k, v)) with k/v in UNREPEATED (B, S, KH, D) form for
+    the decode cache.
+    """
+    g = cfg.num_heads // cfg.num_kv_heads
+    q, k, v = attn_qkv(p, x, cfg, positions)
+    if impl == "chunked":
+        # positions are arange in every full-sequence path
+        o = flash_attention(q, repeat_kv(k, g), repeat_kv(v, g),
+                            causal=causal, window=window,
+                            softcap=cfg.attn_logit_softcap)
+    else:
+        o = attention_naive(q, repeat_kv(k, g), repeat_kv(v, g),
+                            q_pos=positions, k_pos=positions, causal=causal,
+                            window=window, softcap=cfg.attn_logit_softcap)
+    return attn_out(p, o, x.dtype), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def mlp_spec(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "swiglu":
+        return {
+            "wi": spec((d, f), ("embed", "ffn")),
+            "wg": spec((d, f), ("embed", "ffn")),
+            "wo": spec((f, d), ("ffn", "embed"),
+                       scale=0.02 / max(1, cfg.num_layers) ** 0.5),
+        }
+    return {
+        "wi": spec((d, f), ("embed", "ffn")),
+        "wo": spec((f, d), ("ffn", "embed"),
+                   scale=0.02 / max(1, cfg.num_layers) ** 0.5),
+    }
+
+
+def apply_mlp(p, x, cfg):
+    h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
+    if cfg.act == "swiglu":
+        g = torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))
+        # jax.nn.silu(g) is g * sigmoid(g), and XLA expands the sigmoid
+        # to 1 / (1 + exp(-g)), rounding each step to g's dtype
+        h = g * (1 / (1 + torch.exp(-g))) * h
+    else:
+        h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))

@@ -1,0 +1,91 @@
+"""Parameter-spec system: declare shapes and logical axes once, derive
+materialized parameters from the same tree.
+
+A model definition builds a nested dict (lists for the segments) of
+``ParamSpec`` leaves.  ``init_params`` materializes it from a
+``torch.Generator``; ``params_from_arrays`` builds the model from the
+JAX package's parameter tree, so tests can hold the two against each
+other on the same weights.  The logical axes are kept for the sharding
+half of the reference's ``params.py``, which waits for a multi-card
+slice.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]   # logical axis name per dim (or None)
+    init: str = "normal"              # normal | zeros | ones
+    scale: float = 0.02
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def spec(shape, axes, init="normal", scale=0.02,
+         dtype=torch.float32) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), init, scale, dtype)
+
+
+def tree_map_specs(fn: Callable, tree):
+    """Apply ``fn`` to every ParamSpec leaf of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_specs(fn, v) for v in tree)
+    return fn(tree)
+
+
+def param_count(spec_tree) -> int:
+    if isinstance(spec_tree, dict):
+        return sum(param_count(v) for v in spec_tree.values())
+    if isinstance(spec_tree, (list, tuple)):
+        return sum(param_count(v) for v in spec_tree)
+    return math.prod(spec_tree.shape)
+
+
+def init_params(spec_tree, generator: torch.Generator,
+                device: torch.device | str):
+    """Materialize a spec tree into real fp32 parameters on ``device``:
+    normal x ``scale``, zeros or ones.  ``generator`` lives on ``device``;
+    its draws follow the tree's order."""
+
+    def make(s: ParamSpec):
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=s.dtype, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=s.dtype, device=device)
+        if s.init != "normal":
+            raise ValueError(f"init {s.init!r} belongs to a family the port "
+                             "does not run yet")
+        return torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                           device=device).mul_(s.scale).to(s.dtype)
+
+    return tree_map_specs(make, spec_tree)
+
+
+def params_from_arrays(cfg, tree):
+    """The port's ``Transformer`` on the CPU holding the values of the JAX
+    package's parameter tree ``tree`` (numpy arrays, the layers of a
+    segment stacked on axis 0)."""
+    from repro_torch.models.model import Transformer
+
+    def convert(t):
+        if isinstance(t, dict):
+            return {k: convert(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [convert(v) for v in t]
+        return torch.from_numpy(np.array(t, dtype=np.float32))
+
+    return Transformer(cfg, convert(tree))

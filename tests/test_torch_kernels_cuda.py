@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.frontier.kernel import bfs_pull
 from repro_torch.kernels.frontier.ref import bfs_pull_ref
 from repro_torch.kernels.spmv.kernel import spmv_ell
@@ -44,3 +47,64 @@ def test_cuda_kernels_match_plain(batch):
         assert torch.equal(bfs_pull(idx, bits, unv),
                            bfs_pull_ref(idx, bits, unv))
     torch.cuda.synchronize()
+
+
+# (bh, sq, sk, d, causal, window, softcap): the sweep of
+# tests/test_kernels_flash.py, head dims 64/120/256, ragged and cross
+# lengths, and Sq > Sk + window (rows with no key in their window)
+FLASH_CASES = [
+    (bh, s, s, d, causal, window, 0.0)
+    for bh, s, d in [(2, 256, 128), (4, 512, 128), (1, 128, 256)]
+    for causal, window in [(True, 0), (True, 64), (False, 0)]
+] + [
+    (2, 128, 512, 128, False, 0, 0.0), (1, 128, 128, 128, True, 0, 20.0),
+    (3, 200, 200, 64, True, 0, 0.0), (2, 300, 300, 120, True, 64, 0.0),
+    (2, 77, 333, 256, False, 32, 0.0), (2, 512, 128, 64, True, 64, 0.0),
+    (2, 128, 512, 64, True, 0, 0.0), (1, 1, 1, 8, True, 0, 0.0),
+]
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_matches_plain(case, dtype, tol):
+    """On a card: flash_attention_fwd against ref.py, at the tolerances
+    of tests/test_kernels_flash.py (f32 2e-5; bf16 2e-2, one bf16 ulp of
+    outputs near 4 is 1.6e-2)."""
+    _needs_card()
+    bh, sq, sk, d, causal, window, softcap = case
+    g = torch.Generator(device="cuda").manual_seed(sq * 1000 + d)
+    q, k, v = [torch.randn((bh, n, d), generator=g, device="cuda")
+               .to(dtype) for n in (sq, sk, sk)]
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_ops_head_dim_120():
+    """danube3's head dim 120 through ops, (B, S, H, D) in and out."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(120)
+    q, k, v = [torch.randn((2, 128, 4, 120), generator=g, device="cuda")
+               for _ in range(3)]
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(*(t.transpose(1, 2).reshape(8, 128, 120)
+                                 for t in (q, k, v)), causal=True)
+    torch.testing.assert_close(
+        got, want.reshape(2, 4, 128, 120).transpose(1, 2),
+        atol=2e-5, rtol=2e-5)
