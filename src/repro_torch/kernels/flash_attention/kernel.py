@@ -11,13 +11,15 @@ q's dtype.
 Bound on the H100 SXM (data-sheet peaks, 700 W limit) at TinyLlama-1.1B
 prefill: bytes (0.040 ms for q, k, v and o), with the bf16 tensor-core
 time for the same work (0.035 ms) close behind.  The CUDA source
-describes the design.
+describes the two designs, chosen by dtype: bf16 runs on the tensor
+cores (wgmma, TMA, warp-specialised), f32 on the CUDA cores.
 
 It takes f32 or bf16, any head dim D that is a multiple of 8 up to 256
-(no padding: the scale is the true ``1/sqrt(D)``), and any Sq, Sk.  For
-CPU tensors the wrapper runs the plain version (``ref.py``); for CUDA
-tensors it launches the kernel or raises.  ``flash_attention_fwd.launches``
-counts kernel launches.
+(the scale is the true ``1/sqrt(D)``), and any Sq, Sk.  For CPU tensors
+the wrapper runs the plain version (``ref.py``); for CUDA tensors it
+launches the kernel or raises.  ``flash_attention_fwd.launches`` counts
+kernel launches, ``flash_attention_fwd.launches_tc`` those of them that
+ran the bf16 tensor-core design.
 """
 
 from __future__ import annotations
@@ -85,6 +87,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("bf16 q, k, v must start on 16-byte boundaries "
+                         "(TMA loads them)")
     lib = _library()
     bh, sq, d = q.shape
     o = torch.empty_like(q)
@@ -95,7 +101,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attention_fwd", code)
     flash_attention_fwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_fwd.launches_tc += 1
     return o
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_tc = 0

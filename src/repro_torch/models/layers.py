@@ -125,8 +125,10 @@ def flash_attention_chunked(q, k, v, *, causal, window, softcap,
     """Plain chunked online-softmax forward: the reference's
     ``_flash_fwd_impl`` behind ``flash_attention_xla``, without the
     log-sum-exp that its backward keeps.  As there, the accumulator is
-    kept in v's dtype (bf16 when serving); the CUDA kernel keeps it in
-    f32, as the Pallas kernel does.  q/k/v (B, S, H, D) -> (B, Sq, H, D)."""
+    kept in v's dtype (bf16 when serving).  The CUDA kernel keeps it in
+    f32 and adds each tile's p @ v to it unrounded; the Pallas kernel
+    keeps an f32 accumulator too, but rounds each tile's bf16 p @ v to
+    bf16 before adding it.  q/k/v (B, S, H, D) -> (B, Sq, H, D)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     qc = _pick_chunk(Sq, q_chunk)

@@ -124,6 +124,31 @@ def test_chunked_forward_matches_xla(dtype, causal, window, softcap):
     np.testing.assert_allclose(_f32(got), want, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("d", [120, 136])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_unpadded_head_dims_match_pallas(d, causal, window):
+    """S = 200 (not a multiple of the CUDA kernel's 128-row q tile or its
+    k tiles) at D = 120 and 136, which the bf16 CUDA kernel pads to 128
+    and 256 columns: ref.py and ops against the Pallas kernel, one block
+    of 200 rows and keys."""
+    arrs = _inputs(d + window, [(2, 200, d)] * 3)
+    want = _f32(jax_fwd(*_jax(arrs), causal=causal, window=window,
+                        block_q=200, block_k=200, interpret=True))
+    _check_port(arrs, want, 2e-5, causal=causal, window=window)
+
+
+def test_wrapper_counts_both_designs():
+    """The wrapper keeps a count of all launches and one of the bf16
+    tensor-core design's; CPU tensors launch nothing."""
+    assert isinstance(flash_attention_fwd.launches, int)
+    assert isinstance(flash_attention_fwd.launches_tc, int)
+    before = (flash_attention_fwd.launches, flash_attention_fwd.launches_tc)
+    q = torch.zeros((1, 16, 8), dtype=torch.bfloat16)
+    flash_attention_fwd(q, q, q)
+    assert (flash_attention_fwd.launches,
+            flash_attention_fwd.launches_tc) == before
+
+
 @pytest.mark.parametrize("shapes,dtype,match", [
     ([(2, 16, 12)] * 3, torch.float32, "multiple of 8"),
     ([(2, 16, 264)] * 3, torch.float32, "multiple of 8"),

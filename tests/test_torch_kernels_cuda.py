@@ -51,7 +51,12 @@ def test_cuda_kernels_match_plain(batch):
 
 # (bh, sq, sk, d, causal, window, softcap): the sweep of
 # tests/test_kernels_flash.py, head dims 64/120/256, ragged and cross
-# lengths, and Sq > Sk + window (rows with no key in their window)
+# lengths, and Sq > Sk + window (rows with no key in their window); then
+# the edges of the bf16 design's tiles (128-row q tiles, k tiles of 128,
+# 64 or 32 keys, head dims padded to 64/128/256): several q tiles at S = 1000
+# and 1024, Sq != Sk both ways, a window ending inside a tile, Sq > Sk +
+# window - 1, head dims on each side of every padded width, softcap
+# under causal masking
 FLASH_CASES = [
     (bh, s, s, d, causal, window, 0.0)
     for bh, s, d in [(2, 256, 128), (4, 512, 128), (1, 128, 256)]
@@ -61,7 +66,12 @@ FLASH_CASES = [
     (3, 200, 200, 64, True, 0, 0.0), (2, 300, 300, 120, True, 64, 0.0),
     (2, 77, 333, 256, False, 32, 0.0), (2, 512, 128, 64, True, 64, 0.0),
     (2, 128, 512, 64, True, 0, 0.0), (1, 1, 1, 8, True, 0, 0.0),
-]
+] + [
+    (2, 1000, 1000, 64, True, 0, 0.0), (2, 1024, 1024, 128, True, 0, 0.0),
+    (2, 700, 300, 64, True, 0, 0.0), (2, 300, 700, 128, True, 0, 0.0),
+    (2, 500, 500, 64, True, 100, 0.0), (2, 600, 200, 64, True, 50, 0.0),
+    (2, 400, 400, 128, True, 0, 30.0),
+] + [(2, 200, 200, d, True, 0, 0.0) for d in (8, 72, 120, 136, 200, 256)]
 
 
 def _needs_card():
@@ -93,6 +103,23 @@ def test_cuda_flash_matches_plain(case, dtype, tol):
                                softcap=softcap)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_counts_tensor_core_launches():
+    """Each bf16 call on the card adds one to ``launches_tc`` (the
+    tensor-core design); an f32 call adds to ``launches`` only."""
+    _needs_card()
+    x = torch.randn((2, 256, 64), device="cuda")
+    for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+        before = (flash_attention_fwd.launches,
+                  flash_attention_fwd.launches_tc)
+        t = x.to(dtype)
+        flash_attention_fwd(t, t, t, causal=True)
+        torch.cuda.synchronize()
+        assert (flash_attention_fwd.launches,
+                flash_attention_fwd.launches_tc) == (before[0] + 1,
+                                                     before[1] + tc)
 
 
 @pytest.mark.cuda
