@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 It drives the port's two main paths and holds every CUDA kernel of each
 against its plain-PyTorch version:
@@ -19,29 +19,42 @@ prints no result):
 
   card     the card's name and power limit, as nvidia-smi gives them.
   build    every kernel compiled from src/repro_torch/kernels/*/csrc, all
-           at once (one nvcc per source); registers and spill stores of
+           at once (one nvcc per source), and, with --parent DIR, the
+           graph kernels of the checkout at DIR (the first design, one
+           launch a bucket, or this one's bucket-table interface; any
+           other fails at load); registers and spill stores of
            each kernel instantiation, any ptxas warning, and any note
            that ptxas serialized a kernel's wgmma products.
   parity   each kernel against its plain version on the card: the shape
            sweeps of the JAX package's kernel tests, then every ELL bucket
-           of the main-path graph.  bfs_pull must match exactly; spmv_ell
-           within rtol = atol = 1e-5, because the kernel adds a row's
-           slots in another order than the plain version.
+           of the main-path graph one by one, then each ELL structure in
+           one multi-bucket call.  Both graph kernels must match exactly
+           (spmv_ell adds a row's slots left to right, as ref.py does:
+           equal bits).
   main     the four programs once in local-ops mode ``auto`` (the
            kernels) at each parts count, launch counters zeroed just
-           before and read just after: both kernels must have launched.
-           BFS parents must equal the min-id in-neighbor one BFS level up
-           (levels from a scipy sparse BFS) for both variants and every
-           parts count; ranks must be within 1e-4 relative of a float64
-           scipy power iteration of the same round count; rounds must be
-           equal across parts counts.
+           before and read just after: spmv_ell must launch once per
+           spmv_pull or scatter_combine(add) call (a round of
+           pagerank/bsp or pagerank/fast) and bfs_pull once per
+           frontier_pull call (a round of bfs/fast).  BFS parents must
+           equal the min-id in-neighbor one BFS level up (levels from a
+           scipy sparse BFS) for both variants and every parts count;
+           ranks must be within 1e-4 relative of a float64 scipy power
+           iteration of the same round count; rounds must be equal across
+           parts counts.
   plain    the same programs in mode ``ell`` (no kernels) on the card:
-           parents bit-identical, ranks within 1e-5 relative, rounds equal.
+           parents and ranks bit-identical, rounds equal.
   times    per-program ms in both modes (median of 3 after a warm-up run),
-           and each kernel at the main path's bucket shapes beside its
-           plain version, its bound and, for spmv_ell, a torch.sparse CSR
+           and each kernel at the main path's inputs beside its plain
+           version, its bound and, for spmv_ell, a torch.sparse CSR
            matvec of the same function (timed here only; the port never
-           calls it).
+           calls it): spmv_ell over one call's buckets per structure,
+           with each bucket alone (rows, K, ms, gathers per second);
+           bfs_pull over one bfs/fast run, round by round (push ``u`` or
+           pull ``l``, live rows, ms).  With --parent, the same
+           per-bucket and per-round lines of the parent's kernels on the
+           same inputs, each result first held against the plain version
+           (spmv_ell within SPMV_TOL, bfs_pull exactly).
   llm-parity  flash_attention_fwd against its plain version (ref.py) on
            the shapes of tests/test_kernels_flash.py (sweep x {causal,
            causal + window 64, non-causal}, cross lengths, softcap 20,
@@ -99,9 +112,10 @@ SEED = 42
 GRAPH = "urand22"        # 4M vertices, 67M edges: the paper's urand family
 PARTS = (1, 4)           # vertex blocks, all stacked on the one card
 
-SPMV_TOL = 1e-5          # rtol = atol, kernel vs plain (summation order)
+SPMV_TOL = 1e-5          # rtol = atol, cuSPARSE CSR matvec vs the kernel
 PR_F64_TOL = 1e-4        # max rel err of ranks vs float64 power iteration
-PR_PLAIN_TOL = 1e-5      # max rel diff of ranks, kernel vs plain mode
+HBM_SECTOR = 32          # bytes an HBM gather moves at the least
+L2_BYTES = 50 * 2 ** 20  # H100 L2 cache
 
 # NVIDIA H100 SXM published peaks (data sheet; at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -181,11 +195,13 @@ class Port:
             partition_graph, registry
         from repro_torch.core.partitioned import pack_bits
         from repro_torch.graphs import generate_edges
-        from repro_torch.kernels import _build
+        from repro_torch.kernels import _build, _ell
         from repro_torch.kernels.frontier import kernel as frontier_kernel
-        from repro_torch.kernels.frontier.ref import bfs_pull_ref
+        from repro_torch.kernels.frontier.ref import bfs_pull_buckets_ref, \
+            bfs_pull_ref
         from repro_torch.kernels.spmv import kernel as spmv_kernel
-        from repro_torch.kernels.spmv.ref import spmv_ell_ref
+        from repro_torch.kernels.spmv.ref import spmv_ell_buckets_ref, \
+            spmv_ell_ref
         from repro_torch.configs import registry as arch_registry
         from repro_torch.data import batch_at
         from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -210,17 +226,26 @@ class Port:
         self.pack_bits = pack_bits
         self.generate_edges = generate_edges
         self.build = _build
+        self.ell = _ell
         self.frontier_kernel = frontier_kernel
         self.spmv_kernel = spmv_kernel
         self.bfs_pull_ref = bfs_pull_ref
+        self.bfs_pull_buckets_ref = bfs_pull_buckets_ref
         self.spmv_ell_ref = spmv_ell_ref
+        self.spmv_ell_buckets_ref = spmv_ell_buckets_ref
 
     # the wrappers are read through their modules at each call
     def spmv_ell(self, *args, **kw):
         return self.spmv_kernel.spmv_ell(*args, **kw)
 
+    def spmv_ell_buckets(self, *args, **kw):
+        return self.spmv_kernel.spmv_ell_buckets(*args, **kw)
+
     def bfs_pull(self, *args):
         return self.frontier_kernel.bfs_pull(*args)
+
+    def bfs_pull_buckets(self, *args, **kw):
+        return self.frontier_kernel.bfs_pull_buckets(*args, **kw)
 
     def flash(self, *args, **kw):
         return self.flash_kernel.flash_attention_fwd(*args, **kw)
@@ -387,19 +412,134 @@ def card_line() -> str:
     return out.strip()
 
 
-def buckets(meta, flat):
+def nonempty_buckets(port: Port, buckets, flat):
     """(row0, rows, (P, rows, K) view) of each non-empty ELL bucket."""
-    off = r0 = 0
-    for rows, k in meta.buckets:
+    for r0, rows, k, blk in port.ell.bucket_views(flat, buckets):
         if k:
-            yield r0, rows, flat[:, off:off + rows * k].reshape(
-                flat.shape[0], rows, k)
-        off += rows * k
-        r0 += rows
+            yield r0, rows, blk
+
+
+SPMV_DESIGN = ("persistent grid, one launch per call; a thread per row "
+               "(a warp per row past K = 64), 32 gathers in flight, "
+               "16-byte index loads, slot-order __fadd_rn sums, L2 "
+               "evict_last x / evict_first indices")
+BFS_DESIGN = ("persistent grid, one launch per call; a thread per row "
+              "(a warp per row past K = 64), ballot skip of tiles with no "
+              "live row, 16 word loads in flight, L2 evict_last bitmap / "
+              "evict_first ids")
+
+
+class Parent:
+    """The graph kernels of another checkout, on the same inputs as this
+    checkout's.  Two C interfaces are known: the first design's, which
+    exports no ``*_interface`` version and takes one bucket a launch
+    (declared here), and this checkout's bucket table, run through this
+    checkout's launchers.  ``bind`` raises on any other version, so a
+    parent whose interface this script does not know fails at load."""
+
+    def __init__(self, port: Port, root: str):
+        csrc = Path(root).resolve() / "src" / "repro_torch" / "kernels"
+        self.port = port
+        self.src = {"parent_spmv_ell": csrc / "spmv" / "csrc" / "spmv_ell.cu",
+                    "parent_bfs_pull": csrc / "frontier" / "csrc"
+                    / "bfs_pull.cu"}
+        for path in self.src.values():
+            if not path.exists():
+                raise SystemExit(f"chip_smoke: {path} not found")
+        self.spmv_lib = self.bfs_lib = None
+        self.table = False
+
+    def extra_builds(self):
+        return tuple(self.src.items())
+
+    def load(self):
+        import ctypes as c
+        build = self.port.build
+        self.spmv_lib = build.load("parent_spmv_ell", self.src["parent_spmv_ell"])
+        self.bfs_lib = build.load("parent_bfs_pull", self.src["parent_bfs_pull"])
+        versioned = [hasattr(self.spmv_lib, "spmv_ell_interface"),
+                     hasattr(self.bfs_lib, "bfs_pull_interface")]
+        if any(versioned):
+            self.port.spmv_kernel.bind(self.spmv_lib)
+            self.port.frontier_kernel.bind(self.bfs_lib)
+            self.table = True
+            return
+        self.spmv_lib.spmv_ell_launch.argtypes = [
+            c.c_void_p, c.c_longlong, c.c_void_p, c.c_longlong, c.c_void_p,
+            c.c_longlong, c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int,
+            c.c_void_p]
+        self.bfs_lib.bfs_pull_launch.argtypes = [
+            c.c_void_p, c.c_longlong, c.c_void_p, c.c_longlong, c.c_void_p,
+            c.c_longlong, c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_void_p]
+
+    def _stream(self):
+        return self.port.torch.cuda.current_stream().cuda_stream
+
+    def spmv(self, flat, x, buckets, skip):
+        """The parent's spmv_ell over a bucket table (skip form; x may
+        have part stride 0) as (row0, (P, rows) output) blocks: one for
+        a table launch, one a non-empty bucket for the first interface."""
+        torch = self.port.torch
+        p = flat.shape[0]
+        if self.table:
+            y = torch.empty((p, sum(r for r, _ in buckets)),
+                            device=flat.device)
+            self.port.spmv_kernel.launch(self.spmv_lib, flat, None, x, y,
+                                         tuple(buckets), skip)
+            return [(0, y)]
+        out = []
+        for r0, rows, blk in nonempty_buckets(self.port, buckets, flat):
+            y = torch.empty((p, rows), device=flat.device)
+            code = self.spmv_lib.spmv_ell_launch(
+                blk.data_ptr(), blk.stride(0), None, 0, x.data_ptr(),
+                x.stride(0), y.data_ptr(), p, rows, blk.shape[2], skip,
+                self._stream())
+            self.port.build.check(self.spmv_lib, "spmv_ell", code)
+            out.append((r0, y))
+        return out
+
+    def flags(self, unv):
+        """The flags as the parent takes them: int32 for the first
+        interface."""
+        return unv if self.table else unv.to(self.port.torch.int32)
+
+    def bfs(self, flat, bits_g, unv, buckets, skip):
+        """The parent's bfs_pull over a bucket table (bits_g with a zero
+        guard word, which the first interface reads for the sentinel;
+        unv from ``flags``) as (row0, (P, rows) parents) blocks."""
+        torch = self.port.torch
+        p = flat.shape[0]
+        if self.table:
+            out = torch.empty((p, sum(r for r, _ in buckets)),
+                              dtype=torch.int32, device=flat.device)
+            self.port.frontier_kernel.launch(self.bfs_lib, flat, bits_g, unv,
+                                             out, tuple(buckets), skip)
+            return [(0, out)]
+        res = []
+        for r0, rows, blk in nonempty_buckets(self.port, buckets, flat):
+            out = torch.empty((p, rows), dtype=torch.int32,
+                              device=flat.device)
+            code = self.bfs_lib.bfs_pull_launch(
+                blk.data_ptr(), blk.stride(0), bits_g.data_ptr(),
+                bits_g.stride(0), unv[:, r0:].data_ptr(), unv.stride(0),
+                out.data_ptr(), p, rows, blk.shape[2], self._stream())
+            self.port.build.check(self.bfs_lib, "bfs_pull", code)
+            res.append((r0, out))
+        return res
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal shapes and bit patterns (float32 compared as int32)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = (t.contiguous().view(torch.int32) for t in (a, b))
+    return torch.equal(a, b)
 
 
 class Parity:
-    """Kernel-vs-plain comparisons; keeps each kernel's max abs error."""
+    """Kernel-vs-plain comparisons, bit for bit; keeps each kernel's max
+    abs error (0 when they pass)."""
 
     def __init__(self, port: Port, device):
         self.port, self.device = port, device
@@ -407,30 +547,43 @@ class Parity:
         self.err = {"spmv_ell": 0.0, "bfs_pull": 0.0}
         self.cases = {"spmv_ell": 0, "bfs_pull": 0}
 
-    def spmv(self, idx, val, x, skip=None):
+    def _same(self, name, got, want, what):
         torch = self.torch
-        got = self.port.spmv_ell(idx, val, x, skip=skip)
-        want = self.port.spmv_ell_ref(idx, val, x, skip=skip)
         _sync(torch, self.device)
-        torch.testing.assert_close(got, want, rtol=SPMV_TOL, atol=SPMV_TOL)
-        self._note("spmv_ell", (got - want).abs().max().item())
+        if not same_bits(torch, got, want):
+            bad = int((got != want).sum()) if got.shape == want.shape else -1
+            err = ((got.double() - want.double()).abs().max().item()
+                   if got.shape == want.shape else float("nan"))
+            raise AssertionError(f"{name} differs from its plain version in "
+                                 f"{bad} rows (max abs {err:.3e}) at {what}")
+        self.err[name] = max(self.err[name], float(
+            (got.double() - want.double()).abs().max().item()))
+        self.cases[name] += 1
+
+    def spmv(self, idx, val, x, skip=None):
+        got = self.port.spmv_ell(idx, val, x, skip=skip)
+        self._same("spmv_ell", got,
+                   self.port.spmv_ell_ref(idx, val, x, skip=skip),
+                   tuple(idx.shape))
         return got
+
+    def spmv_table(self, flat, x, buckets, skip):
+        self._same("spmv_ell", self.port.spmv_ell_buckets(
+            flat, None, x, buckets, skip=skip),
+            self.port.spmv_ell_buckets_ref(flat, None, x, buckets,
+                                           skip=skip), f"table {buckets}")
 
     def frontier(self, nbr, bits, unv):
-        torch = self.torch
         got = self.port.bfs_pull(nbr, bits, unv)
-        want = self.port.bfs_pull_ref(nbr, bits, unv)
-        _sync(torch, self.device)
-        if not torch.equal(got, want):
-            bad = int((got != want).sum())
-            raise AssertionError(f"bfs_pull differs from its plain version "
-                                 f"in {bad} rows at {tuple(nbr.shape)}")
-        self._note("bfs_pull", 0.0)
+        self._same("bfs_pull", got, self.port.bfs_pull_ref(nbr, bits, unv),
+                   tuple(nbr.shape))
         return got
 
-    def _note(self, name, err):
-        self.err[name] = max(self.err[name], float(err))
-        self.cases[name] += 1
+    def frontier_table(self, flat, bits, unv, buckets, skip):
+        self._same("bfs_pull", self.port.bfs_pull_buckets(
+            flat, bits, unv, buckets, skip=skip),
+            self.port.bfs_pull_buckets_ref(flat, bits, unv, buckets,
+                                           skip=skip), f"table {buckets}")
 
     def sweep(self, rng):
         """The JAX package's kernel-test cases, unbatched and as strided
@@ -488,26 +641,55 @@ class Parity:
             t(words.astype(np.int32)),
             torch.ones((1, 128), dtype=torch.int32, device=dev))
         check(bool((out == 5).all()), "min-id parent selection")
+        # a multi-bucket table: widths 40 to 0, rows no multiple of 32, a
+        # strided batch of parts sharing x (part stride 0), sentinels
+        table = ((64, 40), (96, 24), (45, 16), (50, 8), (20, 0))
+        n_cols, slots = 5000, sum(r * k for r, k in table)
+        store = t(rng.integers(0, n_cols, (3, slots + 8)).astype(np.int32))
+        store[:, 1::9] = n_cols
+        flat = store[:, 4:4 + slots]
+        x = t(rng.normal(size=(1, n_cols)).astype(np.float32)).expand(3, -1)
+        self.spmv_table(flat, x, table, n_cols)
+        bits = t(rng.integers(-2 ** 31, 2 ** 31, (1, n_cols // 32 + 1))
+                 .astype(np.int32)).expand(3, -1)
+        unv = t(rng.integers(0, 2, (3, sum(r for r, _ in table)))
+                .astype(np.uint8))
+        unv[:, 64:96] = 0                       # an all-dead warp tile
+        self.frontier_table(flat, bits, unv, table, n_cols)
+        self.frontier_table(flat, bits, unv.to(torch.int32), table, n_cols)
 
     def graph_buckets(self, g, garr, rng):
-        """Every ELL bucket the main path hands a kernel: ell_in (spmv and
-        bfs_pull) and ell_dst (spmv), on random x, bits and flags."""
+        """Every ELL bucket the main path hands a kernel, alone: ell_in
+        (spmv and bfs_pull) and ell_dst (spmv); then each structure in one
+        multi-bucket call as the main path makes it (x with no pad slot,
+        the bitmap with no guard word, uint8 flags).  Random x, bits and
+        flags."""
         torch, dev = self.torch, self.device
         p = g.parts
         shapes = []
+        bits_g = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, g.n // 32 + 1),
+                               dtype=torch.int32, device=dev)
         for name in ("ell_in", "ell_dst"):
             meta = g.ell_meta[name]
-            x = torch.rand((p, meta.sentinel + 1), device=dev)
-            bits = torch.randint(-2 ** 31, 2 ** 31 - 1,
-                                 (p, g.n // 32 + 1), dtype=torch.int32,
-                                 device=dev)
-            unv = torch.randint(0, 2, (p, meta.n_rows), dtype=torch.int32,
+            flat = garr[f"{name}_idx"]
+            # ell_in gathers all-gathered contributions (one vector for
+            # every part, as broadcast_global gives it); ell_dst per-edge
+            # values of each part
+            x = torch.rand((1 if name == "ell_in" else p, meta.sentinel),
+                           device=dev).expand(p, -1)
+            unv = torch.randint(0, 2, (p, meta.n_rows), dtype=torch.uint8,
                                 device=dev)
-            for r0, rows, blk in buckets(meta, garr[f"{name}_idx"]):
+            for r0, rows, blk in nonempty_buckets(self.port, meta.buckets,
+                                                  flat):
                 self.spmv(blk, None, x, skip=meta.sentinel)
                 if name == "ell_in":
-                    self.frontier(blk, bits, unv[:, r0:r0 + rows])
+                    self.frontier(blk, bits_g.expand(p, -1),
+                                  unv[:, r0:r0 + rows].to(torch.int32))
                 shapes.append((name, tuple(blk.shape)))
+            self.spmv_table(flat, x, meta.buckets, meta.sentinel)
+            if name == "ell_in":
+                self.frontier_table(flat, bits_g[:, :-1].expand(p, -1), unv,
+                                    meta.buckets, meta.sentinel)
         return shapes
 
 
@@ -529,54 +711,61 @@ def run_programs(port: Port, eng, garr, mode: str) -> dict:
     return res
 
 
-def kernel_times(port: Port, g, garr, level: np.ndarray, device) -> dict:
-    """Each kernel at this graph's shapes, beside its plain version, its
-    bound and its library call: spmv_ell over one local-ops call's
-    buckets (one PageRank round), bfs_pull over every call of one
-    bfs/fast run."""
+def rate(gathers: int, ms: float) -> str:
+    """Gathers per second, in G/s."""
+    return f"{gathers / ms / 1e6:.1f} G/s"
+
+
+def kernel_times(port: Port, g, garr, level: np.ndarray, device,
+                 parent: Parent | None) -> dict:
+    """Each kernel at this graph's main-path inputs, beside its plain
+    version, its bound and its library call: spmv_ell over one local-ops
+    call (one PageRank round) per structure, whole and bucket by bucket;
+    bfs_pull over every call of one bfs/fast run, round by round.  With
+    ``parent``, the parent's kernels on the same inputs, each result
+    checked before it is timed."""
     torch = port.torch
     p, n = g.parts, g.n
     out = {}
-    rng = torch.Generator(device=device).manual_seed(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
 
     for name in ("ell_in", "ell_dst"):
         meta = g.ell_meta[name]
-        blks = [b for _, _, b in buckets(meta, garr[f"{name}_idx"])]
-        n_cols = meta.sentinel + 1
-        x = torch.rand((p, n_cols), device=device, generator=rng)
-        rows = sum(b.shape[1] for b in blks)
-        slots = sum(b.shape[1] * b.shape[2] for b in blks)
+        flat, skip, rows = garr[f"{name}_idx"], meta.sentinel, meta.n_rows
+        # as the main path: ell_in gathers one all-gathered vector (part
+        # stride 0), ell_dst each part's per-edge values; no pad slot
+        x = torch.rand((1 if name == "ell_in" else p, skip), device=device,
+                       generator=gen).expand(p, -1)
+        gathers = int((flat != skip).sum())
 
-        def kern(blks=blks, x=x, skip=meta.sentinel):
-            return torch.cat([port.spmv_ell(b, None, x, skip=skip)
-                              for b in blks], dim=1)
+        def kern(flat=flat, x=x, meta=meta):
+            return port.spmv_ell_buckets(flat, None, x, meta.buckets,
+                                         skip=meta.sentinel)
 
-        def plain(blks=blks, x=x, skip=meta.sentinel):
-            return torch.cat([port.spmv_ell_ref(b, None, x, skip=skip)
-                              for b in blks], dim=1)
+        def plain(flat=flat, x=x, meta=meta):
+            return port.spmv_ell_buckets_ref(flat, None, x, meta.buckets,
+                                             skip=meta.sentinel)
 
-        # the same y as one CSR matvec over the stacked parts
-        # (block-diagonal: part q's columns offset by q * n_cols)
+        # the same y as one CSR matvec: rows of part q at q * rows, its
+        # columns at q * n_cols unless x is one vector for all parts
+        shared = x.stride(0) == 0
         r_idx, c_idx = [], []
-        r0 = 0
-        for b in blks:
-            _, br, bk = b.shape
-            keep = b != meta.sentinel
-            part = torch.arange(p, device=device)[:, None, None]
+        part = torch.arange(p, device=device)[:, None, None]
+        for r0, br, blk in nonempty_buckets(port, meta.buckets, flat):
+            keep = blk != skip
             row = part * rows + r0 + torch.arange(
                 br, device=device)[None, :, None]
-            r_idx.append(row.expand(p, br, bk)[keep])
-            c_idx.append((b.long() + part * n_cols)[keep])
-            r0 += br
+            r_idx.append(row.expand(blk.shape)[keep])
+            c_idx.append((blk.long() + (0 if shared else part * skip))[keep])
         with warnings.catch_warnings():     # torch.sparse's beta notices
             warnings.simplefilter("ignore", UserWarning)
             coo = torch.sparse_coo_tensor(
                 torch.stack([torch.cat(r_idx), torch.cat(c_idx)]),
-                torch.ones(sum(t.numel() for t in r_idx), device=device),
-                (p * rows, p * n_cols))
+                torch.ones(gathers, device=device),
+                (p * rows, skip if shared else p * skip))
             csr = coo.coalesce().to_sparse_csr()
         del coo, r_idx, c_idx
-        xf = x.reshape(-1)
+        xf = x[0] if shared else x.reshape(-1)
 
         def library(csr=csr, xf=xf):
             return csr @ xf
@@ -584,74 +773,167 @@ def kernel_times(port: Port, g, garr, level: np.ndarray, device) -> dict:
         y = kern()
         torch.testing.assert_close(library().reshape(p, rows), y,
                                    rtol=SPMV_TOL, atol=SPMV_TOL)
-        b_ms, b_by = bound(4 * (p * slots + p * n_cols + p * rows), p * slots)
-        out[f"spmv_ell/{name}"] = {
-            "ms": kernel_ms(torch, device, kern),
-            "plain_ms": kernel_ms(torch, device, plain, reps=5),
-            "library_ms": kernel_ms(torch, device, library),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "timed_launches": len(blks), "rows": p * rows,
-            "slots": p * slots}
+        idx_bytes = 4 * flat.numel()
+        b_ms, b_by = bound(idx_bytes + x.untyped_storage().nbytes()
+                           + 4 * p * rows, gathers)
+        cell = {"ms": kernel_ms(torch, device, kern),
+                "plain_ms": kernel_ms(torch, device, plain, reps=5),
+                "library_ms": kernel_ms(torch, device, library),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "timed_launches": len(port.ell.launch_tables(meta.buckets)),
+                "rows": p * rows, "slots": flat.numel(), "gathers": gathers}
         del csr
+        if x.untyped_storage().nbytes() > L2_BYTES:
+            # x past L2: each gather moves a 32-byte HBM sector at least
+            cell["sector_bound_ms"] = (idx_bytes + HBM_SECTOR * gathers
+                                       + 4 * p * rows) / HBM_BYTES_PER_S * 1e3
+        log(f"[times] parts={p} spmv_ell/{name}: one call {cell['ms']:.4f} ms"
+            f" ({rate(gathers, cell['ms'])}, {gathers:,} gathers)")
+        buckets_out = []
+        # the parent's results are held against the plain version (within
+        # SPMV_TOL: the first design adds a row's slots in another order)
+        want = plain() if parent is not None else None
+        for r0, br, blk in nonempty_buckets(port, meta.buckets, flat):
+            gb = int((blk != skip).sum())
+            line = {"rows": p * br, "K": blk.shape[2], "gathers": gb,
+                    "ms": kernel_ms(torch, device,
+                                    lambda blk=blk, x=x, skip=skip:
+                                    port.spmv_ell(blk, None, x, skip=skip))}
+            msg = (f"[bucket] parts={p} spmv_ell/{name} rows={p * br} "
+                   f"K={blk.shape[2]}: new {line['ms']:.4f} ms "
+                   f"({rate(gb, line['ms'])})")
+            if parent is not None:
+                one = (blk.flatten(1), x, ((br, blk.shape[2]),), skip)
+                (_, got), = parent.spmv(*one)
+                torch.testing.assert_close(
+                    got, want[:, r0:r0 + br], rtol=SPMV_TOL, atol=SPMV_TOL,
+                    msg=lambda m: f"the parent's spmv_ell at {blk.shape}: {m}")
+                line["old_ms"] = kernel_ms(
+                    torch, device, lambda one=one: parent.spmv(*one))
+                msg += f"; old {line['old_ms']:.4f} ms " \
+                       f"({rate(gb, line['old_ms'])})"
+            buckets_out.append(line)
+            log(msg)
+        cell["buckets"] = buckets_out
+        if parent is not None:
+            call = (flat, x, meta.buckets, skip)
+            for r0, got in parent.spmv(*call):
+                torch.testing.assert_close(
+                    got, want[:, r0:r0 + got.shape[1]], rtol=SPMV_TOL,
+                    atol=SPMV_TOL,
+                    msg=lambda m: f"the parent's spmv_ell/{name}: {m}")
+            cell["old_ms"] = kernel_ms(torch, device,
+                                       lambda call=call: parent.spmv(*call))
+            log(f"[times] parts={p} spmv_ell/{name}: the parent's "
+                f"{cell['old_ms']:.4f} ms")
+        out[f"spmv_ell/{name}"] = cell
 
-    # bfs_pull over one bfs/fast run: each round's calls rebuilt from the
+    # bfs_pull over one bfs/fast run: each round's call rebuilt from the
     # BFS levels.  Round r reads the bitmap of level r - 1; a push round
     # (previous count under the pull threshold) passes the activated rows
     # (level r), a pull round every row not yet visited (level >= r).
     meta = g.ell_meta["ell_in"]
+    flat = garr["ell_in_idx"]
     thresh = max(1, int(n * port.registry.get_spec("bfs", "fast")
                         .defaults["pull_threshold"]))
     lvl = np.full(n, INT_INF, np.int64)
     lvl[:level.size] = np.where(level >= 0, level, INT_INF)
     lvl = torch.from_numpy(lvl).to(device)
     perm = garr["ell_in_perm"].long()
-    blks = list(buckets(meta, garr["ell_in_idx"]))
-    n_rows = sum(rows for _, rows, _ in blks)
-    rounds, live_slots, modes = [], 0, ""
+    views = list(port.ell.bucket_views(flat, meta.buckets))
+    # per ELL row: its width and its filled (non-sentinel) slots
+    width = torch.cat([torch.full((p, rows), k, device=device)
+                       for _, rows, k, _ in views], dim=1)
+    fill = torch.cat([(blk != n).sum(dim=2) if k else
+                      torch.zeros((p, rows), dtype=torch.int64,
+                                  device=device)
+                      for _, rows, k, blk in views], dim=1)
+    rounds = []
     for r in range(1, int(level.max()) + 2):
         push = int((lvl == r - 1).sum()) < thresh
         rows_in = (lvl == r) if push else (lvl >= r)
         bits = port.pack_bits(lvl == r - 1)
-        bits = torch.cat([bits, bits.new_zeros(1)]).expand(p, -1) \
-            .contiguous()
-        unv = torch.gather(rows_in.reshape(p, g.n_local).to(torch.int32), 1,
+        unv = torch.gather(rows_in.reshape(p, g.n_local).to(torch.uint8), 1,
                            perm)
-        calls = [(blk, bits, unv[:, r0:r0 + rows]) for r0, rows, blk in blks]
-        live_slots += sum(int(u.sum()) * blk.shape[2] for blk, _, u in calls)
-        rounds.append(calls)
-        modes += "u" if push else "l"
+        rounds.append({"mode": "u" if push else "l",
+                       "bits": bits[None].expand(p, -1), "unv": unv,
+                       "bits_g": torch.cat([bits, bits.new_zeros(1)])[None]
+                       .expand(p, -1),
+                       "live_rows": int(unv.sum()),
+                       "gathers": int((fill * unv).sum()),
+                       "live_slots": int((width * unv).sum())})
+
+    def call(rd):
+        return port.bfs_pull_buckets(flat, rd["bits"], rd["unv"],
+                                     meta.buckets, skip=n)
 
     def kern():
-        return [port.bfs_pull(*c) for calls in rounds for c in calls]
+        return [call(rd) for rd in rounds]
 
     def plain():
-        return [port.bfs_pull_ref(*c) for calls in rounds for c in calls]
+        return [port.bfs_pull_buckets_ref(flat, rd["bits"], rd["unv"],
+                                          meta.buckets, skip=n)
+                for rd in rounds]
 
     check(all(torch.equal(a, b) for a, b in zip(kern(), plain())),
           "bfs_pull differs from its plain version on the BFS rounds")
-    b_ms, b_by = bound(len(rounds) * (4 * p * (g.n // 32 + 1)
-                                      + 2 * 4 * p * n_rows)
+    per_round = []
+    for i, rd in enumerate(rounds, 1):
+        line = {k: rd[k] for k in ("mode", "live_rows", "gathers",
+                                   "live_slots")}
+        line["ms"] = kernel_ms(torch, device, lambda rd=rd: call(rd))
+        msg = (f"[round] parts={p} bfs_pull round {i} {rd['mode']} "
+               f"live_rows={rd['live_rows']:,} gathers={rd['gathers']:,}: "
+               f"new {line['ms']:.4f} ms ({rate(rd['gathers'], line['ms'])})")
+        if parent is not None:
+            old = (flat, rd["bits_g"], parent.flags(rd["unv"]), meta.buckets,
+                   n)
+            want = call(rd)
+            check(all(torch.equal(got, want[:, r0:r0 + got.shape[1]])
+                      for r0, got in parent.bfs(*old)),
+                  f"the parent's bfs_pull differs in round {i}")
+            line["old_ms"] = kernel_ms(torch, device,
+                                       lambda old=old: parent.bfs(*old))
+            msg += (f"; old {line['old_ms']:.4f} ms "
+                    f"({rate(rd['gathers'], line['old_ms'])})")
+        per_round.append(line)
+        log(msg)
+    live_slots = sum(rd["live_slots"] for rd in rounds)
+    gathers = sum(rd["gathers"] for rd in rounds)
+    n_rows = meta.n_rows
+    b_ms, b_by = bound(len(rounds) * (4 * (n // 32) + 5 * p * n_rows)
                        + 4 * live_slots, live_slots)
-    out["bfs_pull/ell_in"] = {
-        "ms": kernel_ms(torch, device, kern),
-        "plain_ms": kernel_ms(torch, device, plain, reps=5),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "timed_launches": len(rounds) * len(blks), "rows": p * n_rows,
-        "live_slots": live_slots, "rounds": modes}
+    cell = {"ms": kernel_ms(torch, device, kern),
+            "plain_ms": kernel_ms(torch, device, plain, reps=5),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "timed_launches": len(rounds) * len(
+                port.ell.launch_tables(meta.buckets)),
+            "rows": p * n_rows, "live_slots": live_slots,
+            "gathers": gathers,
+            "rounds": "".join(rd["mode"] for rd in rounds),
+            "per_round": per_round}
+    if parent is not None:
+        cell["old_ms"] = sum(line["old_ms"] for line in per_round)
+    log(f"[times] parts={p} bfs_pull: one run {cell['ms']:.4f} ms "
+        f"({rate(gathers, cell['ms'])}, {gathers:,} gathers)")
+    out["bfs_pull/ell_in"] = cell
     return out
 
 
-def run(graph: str, parts_list, device) -> dict:
+def run(graph: str, parts_list, device, parent_root: str | None = None) \
+        -> dict:
     port = Port()
     torch = port.torch
     rng = np.random.default_rng(SEED)
     port.localops.set_mode("auto")
+    on_card = torch.device(device).type == "cuda"
+    parent = Parent(port, parent_root) if parent_root else None
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = port.build.build_all() if torch.device(device).type == "cuda" \
-        else {}
-    log(f"[build] {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
+    extra = parent.extra_builds() if parent is not None else ()
+    logs = port.build.build_all(extra) if on_card else {}
+    log(f"[build] {len(logs)} builds in {time.perf_counter() - t0:.1f} s")
     cxxfilt = os.path.join(os.path.dirname(port.build._nvcc()), "cu++filt") \
         if logs else ""
     for name, text in logs.items():
@@ -661,6 +943,9 @@ def run(graph: str, parts_list, device) -> dict:
         for line in text.splitlines():
             if "warning" in line.lower() or "serialized" in line:
                 log(f"[build] {name}: {line.strip()}")
+
+    if parent is not None:
+        parent.load()
 
     # -- parity: test sweeps -------------------------------------------------
     parity = Parity(port, device)
@@ -702,13 +987,33 @@ def run(graph: str, parts_list, device) -> dict:
             for parts, (_, eng, garr) in engines.items()}
     main_launches = port.launches()
     log(f"[main] launches {main_launches}")
-    for name in ("spmv_ell", "bfs_pull"):
-        check(main_launches[name] > 0,
-              f"{name} never launched on the main path")
+    # one launch per local-ops call (more only past MAX_BUCKETS buckets):
+    # spmv_pull is a pagerank/bsp round, scatter_combine(add) a
+    # pagerank/fast round, frontier_pull a bfs/fast round
+    want = {"spmv_ell": 0, "bfs_pull": 0}
     for parts, res in main.items():
+        g = engines[parts][0]
+        tables = {k: len(port.ell.launch_tables(g.ell_meta[k].buckets))
+                  for k in ("ell_in", "ell_dst")}
+        per_prog = {"bfs/bsp": {},
+                    "bfs/fast": {"bfs_pull": tables["ell_in"]},
+                    "pagerank/bsp": {"spmv_ell": tables["ell_in"]},
+                    "pagerank/fast": {"spmv_ell": tables["ell_dst"]}}
         for key, r in res.items():
             log(f"[main] parts={parts} {key:14s} rounds={r['rounds']:3d} "
                 f"launches={r['launches']}")
+            for name in want:
+                calls = r["rounds"] * per_prog[key].get(name, 0)
+                want[name] += calls
+                check(r["launches"][name] == calls,
+                      f"parts={parts} {key}: {name} launched "
+                      f"{r['launches'][name]} times, want {calls} (one per "
+                      f"local-ops call)")
+    for name, calls in want.items():
+        check(main_launches[name] == calls > 0,
+              f"{name}: {main_launches[name]} main-path launches, want "
+              f"{calls}")
+    log(f"[main] one launch per local-ops call: {want}")
 
     t0 = time.perf_counter()
     level = bfs_levels(edges, n, ROOT)
@@ -763,15 +1068,15 @@ def run(graph: str, parts_list, device) -> dict:
                 f"plain parts={parts} {key}: rounds {r['rounds']} vs "
                 f"kernel {k['rounds']}")
             check(sum(r["launches"].values()) == 0, "plain mode launched")
-            if key.startswith("bfs"):
-                check(np.array_equal(r["field"], k["field"]),
-                    f"plain parts={parts} {key}: parents differ")
-            else:
-                err = max_rel(r["field"], k["field"].astype(np.float64))
-                check(err < PR_PLAIN_TOL,
-                    f"plain parts={parts} {key}: rel diff {err:.3e}")
-    log("[plain] mode ell on the card: parents bit-identical, ranks within "
-        f"{PR_PLAIN_TOL} rel, rounds equal")
+            a, b = np.asarray(r["field"]), np.asarray(k["field"])
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and a.tobytes() == b.tobytes(),
+                  f"plain parts={parts} {key}: "
+                  + ("parents" if key.startswith("bfs") else "ranks")
+                  + " differ from the kernels' (max abs "
+                  f"{np.abs(a.astype(np.float64) - b).max():.3e})")
+    log("[plain] mode ell on the card: parents and ranks bit-identical to "
+        "the kernels', rounds equal")
 
     # -- times ---------------------------------------------------------------
     program_ms = {}
@@ -790,13 +1095,18 @@ def run(graph: str, parts_list, device) -> dict:
                 f" ms")
     kernel_cells = {}
     for parts, (g, _, garr) in engines.items():
-        for key, cell in kernel_times(port, g, garr, level, device).items():
+        for key, cell in kernel_times(port, g, garr, level, device,
+                                      parent).items():
             kernel_cells[f"{key}/parts={parts}"] = cell
             log(f"[times] parts={parts} {key:16s} kernel {cell['ms']:.4f} ms"
                 f"  plain {cell['plain_ms']:.4f} ms  bound "
-                f"{cell['bound_ms']:.4f} ms ({cell['bound_by']})  library "
-                f"{cell['library_ms']} ms  timed launches "
-                f"{cell['timed_launches']}")
+                f"{cell['bound_ms']:.4f} ms ({cell['bound_by']})"
+                + (f"  sector bound {cell['sector_bound_ms']:.4f} ms"
+                   if "sector_bound_ms" in cell else "")
+                + f"  library {cell['library_ms']} ms  timed launches "
+                f"{cell['timed_launches']}"
+                + (f"  old design {cell['old_ms']:.4f} ms"
+                   if "old_ms" in cell else ""))
     log("[times] " + json.dumps({"graph": graph, "programs": program_ms,
                                  "kernels": kernel_cells}, default=str))
     return {"launches": main_launches, "parity_err": parity_err,
@@ -1104,20 +1414,21 @@ def kernels_record(result: dict, llm: dict) -> dict:
     count; flash_attention_fwd at one TinyLlama prefill layer."""
     p = result["parts"]
     rows = []
-    for name, src, replaces, cell_key in (
+    for name, src, replaces, cell_key, design in (
             ("spmv_ell", "src/repro_torch/kernels/spmv/csrc/spmv_ell.cu",
-             SPMV_REPLACES, f"spmv_ell/ell_in/parts={p}"),
+             SPMV_REPLACES, f"spmv_ell/ell_in/parts={p}", SPMV_DESIGN),
             ("bfs_pull", "src/repro_torch/kernels/frontier/csrc/bfs_pull.cu",
-             BFS_REPLACES, f"bfs_pull/ell_in/parts={p}")):
+             BFS_REPLACES, f"bfs_pull/ell_in/parts={p}", BFS_DESIGN)):
         cell = result["kernel_cells"][cell_key]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces,
+        rows.append({"name": name, "route": "cuda", "design": design,
+                     "source": src, "replaces": replaces,
                      "launches": result["launches"][name],
                      "max_abs_err": result["parity_err"][name],
                      "ms": cell["ms"], "plain_ms": cell["plain_ms"],
                      "bound_ms": cell["bound_ms"],
                      "bound_by": cell["bound_by"],
-                     "library_ms": cell["library_ms"]})
+                     "library_ms": cell["library_ms"],
+                     "gathers_per_s": cell["gathers"] / cell["ms"] * 1e3})
     cell = llm["flash"]
     rows.append({"name": "flash_attention_fwd", "route": "cuda",
                  "design": "wgmma (bf16 tensor cores, TMA k/v ring)",
@@ -1132,6 +1443,12 @@ def kernels_record(result: dict, llm: dict) -> dict:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=None,
+                    help="checkout whose graph kernels to time beside "
+                         "these (per bucket and per BFS round)")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1140,7 +1457,7 @@ def main() -> int:
     t0 = time.perf_counter()
     card = card_line()
     log(f"[card] {card}")
-    result = run(GRAPH, PARTS, "cuda")
+    result = run(GRAPH, PARTS, "cuda", args.parent)
     log(f"[graph done] {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     llm = run_llm(Port(), "cuda")

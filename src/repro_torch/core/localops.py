@@ -21,10 +21,14 @@ Each primitive has THREE implementations:
                 blocked-ELL layout (``core/graph.py``), results returned
                 to row order through the inverse-permutation GATHER.
   * ``kernel``  the CUDA kernels in ``repro_torch/kernels/{spmv,frontier}``,
-                one launch per ELL bucket for all P parts (f32 additive
-                combines route through the SpMV kernel, frontier tests
-                through the BFS pull kernel; min/max/or combines have no
-                kernel and stay on the ell path).
+                one launch per call over every ELL bucket and all P parts
+                (f32 additive combines route through the SpMV kernel,
+                frontier tests through the BFS pull kernel; min/max/or
+                combines have no kernel and stay on the ell path).  The
+                kernels never read a sentinel slot, so this route passes
+                x, the bitmap and the edge values without a pad slot, and
+                it gives the ell path's bits (both add a row's slots left
+                to right).
 
 Mode resolution: the ``REPRO_LOCALOPS`` env var (or :func:`set_mode`)
 picks ``auto`` (default: the kernels for CUDA tensors, ``ell`` for CPU
@@ -41,6 +45,10 @@ from contextlib import contextmanager
 import torch
 
 from repro_torch.core.graph import EllMeta
+from repro_torch.kernels._ell import bucket_views
+# row sums slot by slot, left to right: the order the JAX package's CPU
+# row reduction adds in (the same bits), and the SpMV kernel's
+from repro_torch.kernels.spmv.ref import sum_slots as _sum_slots
 
 INT_INF = 2 ** 30
 
@@ -105,37 +113,15 @@ def _has_ell(g: dict, ell: EllMeta) -> bool:
     return f"{ell.name}_idx" in g
 
 
-def _buckets(ell: EllMeta, flat: torch.Tensor):
-    """Yield (row0, rows, width, (P, rows, width) idx view) per bucket."""
-    off = 0
-    r0 = 0
-    for rows, k in ell.buckets:
-        blk = flat[:, off:off + rows * k].reshape(
-            flat.shape[0], rows, k) if k else None
-        yield r0, rows, k, blk
-        off += rows * k
-        r0 += rows
-
-
 def _gather_rows(x: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
     """x (P, m), blk (P, rows, k) int32 -> x[p, blk[p]] (P, rows, k)."""
     p, rows, k = blk.shape
     return torch.gather(x, 1, blk.reshape(p, rows * k)).reshape(p, rows, k)
 
 
-def _to_rows(outs: list, inv: torch.Tensor) -> torch.Tensor:
-    """Concatenate per-bucket (P, rows) results, back to row order."""
-    return torch.gather(torch.cat(outs, dim=1), 1, inv)
-
-
-def _sum_slots(a: torch.Tensor) -> torch.Tensor:
-    """(P, rows, k) -> (P, rows) f32 sums taken slot by slot, left to
-    right: the order the JAX package's CPU row reduction adds in, so
-    both give the same bits."""
-    acc = a[..., 0].clone()
-    for s in range(1, a.shape[-1]):
-        acc += a[..., s]
-    return acc
+def _to_rows(y: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """(P, n_rows) results in ELL row order, back to row order."""
+    return torch.gather(y, 1, inv)
 
 
 def _scatter_add(out: torch.Tensor, key: torch.Tensor,
@@ -179,19 +165,21 @@ def spmv_pull(g: dict, ell: EllMeta, x: torch.Tensor, *,
         return _scatter_add(out, dstl, gathered)
 
     idx = g[f"{ell.name}_idx"]
+    if impl == "kernel":
+        from repro_torch.kernels.spmv.kernel import spmv_ell_buckets
+        return _to_rows(spmv_ell_buckets(idx, None, x, ell.buckets,
+                                         skip=ell.sentinel),
+                        g[f"{ell.name}_inv"])
     xk = _with_pad(x, 0.0)                     # sentinel slot reads 0
     outs = []
-    for _, rows, k, blk in _buckets(ell, idx):
+    for _, rows, k, blk in bucket_views(idx, ell.buckets):
         if k == 0:
             outs.append(torch.zeros((x.shape[0], rows), dtype=torch.float32,
                                     device=x.device))
-        elif impl == "kernel":
-            from repro_torch.kernels.spmv.kernel import spmv_ell
-            outs.append(spmv_ell(blk, None, xk, skip=ell.sentinel))
         else:
             outs.append(_sum_slots(torch.where(blk != ell.sentinel,
                                                _gather_rows(xk, blk), 0.0)))
-    return _to_rows(outs, g[f"{ell.name}_inv"])
+    return _to_rows(torch.cat(outs, dim=1), g[f"{ell.name}_inv"])
 
 
 # ---------------------------------------------------------------------------
@@ -226,26 +214,25 @@ def frontier_pull(g: dict, ell: EllMeta, bits: torch.Tensor,
 
     idx = g[f"{ell.name}_idx"]
     unv_ell = torch.gather(unvisited, 1, g[f"{ell.name}_perm"])
+    if impl == "kernel":
+        # the kernel reads one-byte flags and treats sentinel n as a miss
+        from repro_torch.kernels.frontier.kernel import bfs_pull_buckets
+        return _to_rows(bfs_pull_buckets(idx, bits, unv_ell, ell.buckets,
+                                         skip=n),
+                        g[f"{ell.name}_inv"])
     # sentinel n indexes one word past the bitmap: append a zero guard
     bits_g = _with_pad(bits, 0)
-    if impl == "kernel":
-        from repro_torch.kernels.frontier.kernel import bfs_pull
-        unv_ell = unv_ell.to(torch.int32)
     outs = []
-    for r0, rows, k, blk in _buckets(ell, idx):
+    for r0, rows, k, blk in bucket_views(idx, ell.buckets):
         if k == 0:
             outs.append(torch.full((bits.shape[0], rows), INT_INF,
                                    dtype=torch.int32, device=bits.device))
             continue
-        unv_b = unv_ell[:, r0:r0 + rows]
-        if impl == "kernel":
-            outs.append(bfs_pull(blk, bits_g, unv_b))
-        else:
-            word = _gather_rows(bits_g, blk >> 5)
-            hit = ((word >> (blk & 31)) & 1) == 1
-            cand = torch.where(hit, blk, INT_INF).amin(dim=2)
-            outs.append(torch.where(unv_b, cand, INT_INF))
-    return _to_rows(outs, g[f"{ell.name}_inv"])
+        word = _gather_rows(bits_g, blk >> 5)
+        hit = ((word >> (blk & 31)) & 1) == 1
+        cand = torch.where(hit, blk, INT_INF).amin(dim=2)
+        outs.append(torch.where(unv_ell[:, r0:r0 + rows], cand, INT_INF))
+    return _to_rows(torch.cat(outs, dim=1), g[f"{ell.name}_inv"])
 
 
 # ---------------------------------------------------------------------------
@@ -296,19 +283,23 @@ def scatter_combine(g: dict, ell: EllMeta, vals: torch.Tensor, op: str, *,
         return acc[:, :ell.n_rows]
 
     idx = g[f"{ell.name}_idx"]
+    if op == "add" and vals.dtype == torch.float32 and impl == "kernel":
+        # a skipped sentinel slot adds +0.0, as the ell path's pad does
+        # when it carries identity 0.0; empty rows come back as 0.0
+        if identity != 0.0:
+            raise ValueError(f"scatter_combine(add) on the kernel route "
+                             f"needs identity 0.0, got {identity!r}")
+        from repro_torch.kernels.spmv.kernel import spmv_ell_buckets
+        return _to_rows(spmv_ell_buckets(idx, None, vals, ell.buckets,
+                                         skip=ell.sentinel),
+                        g[f"{ell.name}_inv"])
     # sentinel E indexes the pad slot, which carries the identity
     vpad = _with_pad(vals, identity)
-    kernel_add = (op == "add" and vals.dtype == torch.float32
-                  and impl == "kernel")
-    if kernel_add:
-        from repro_torch.kernels.spmv.kernel import spmv_ell
     outs = []
-    for _, rows, k, blk in _buckets(ell, idx):
+    for _, rows, k, blk in bucket_views(idx, ell.buckets):
         if k == 0:
             outs.append(torch.full((parts, rows), identity,
                                    dtype=vals.dtype, device=vals.device))
-        elif kernel_add:
-            outs.append(spmv_ell(blk, None, vpad, skip=ell.sentinel))
         else:
             outs.append(_REDUCERS[op](_gather_rows(vpad, blk)))
-    return _to_rows(outs, g[f"{ell.name}_inv"])
+    return _to_rows(torch.cat(outs, dim=1), g[f"{ell.name}_inv"])

@@ -2,9 +2,11 @@
 
 Each ``csrc/*.cu`` compiles on its own, with a plain C interface, into
 a shared library under ``build/kernels/`` at the repository root, named
-by a hash of its source and flags so an edited kernel rebuilds.  All
-missing libraries build in parallel, one ``nvcc`` per source.  The
-libraries load with ctypes; nothing here includes PyTorch's headers.
+by a hash of its source and flags so an edited kernel rebuilds.  A
+measurement may build another checkout's source beside them under a
+label of its own.  All missing libraries build in parallel, one
+``nvcc`` per source.  The libraries load with ctypes; nothing here
+includes PyTorch's headers.
 """
 
 from __future__ import annotations
@@ -40,49 +42,60 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    src = SOURCES[name]
+def _target(label: str, src: Path) -> Path:
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / f"{label}-{digest}.so"
 
 
-def build_all() -> dict[str, str]:
-    """Compile every kernel whose library is missing, all at once.
-    Returns each kernel's compiler log (``-Xptxas -v``: registers,
-    shared memory, spills); raises if any build fails."""
+def library_path(name: str) -> Path:
+    return _target(name, SOURCES[name])
+
+
+def build_all(extra=()) -> dict[str, str]:
+    """Compile every kernel whose library is missing, all at once, and
+    with them each ``(label, source)`` of ``extra`` (another checkout's
+    source, for a measurement).  Returns each build's compiler log
+    (``-Xptxas -v``: registers, shared memory, spills) by kernel name or
+    label; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {name: (library_path(name), src) for name, src in SOURCES.items()}
+    for label, src in extra:
+        jobs[label] = (_target(label, Path(src)), Path(src))
     procs = {}
-    for name, src in SOURCES.items():
-        out = library_path(name)
+    for label, (out, src) in jobs.items():
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (tmp, out, subprocess.Popen(
+        procs[label] = (tmp, out, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
-    for name, (tmp, out, proc) in procs.items():
+    for label, (tmp, out, proc) in procs.items():
         log, _ = proc.communicate()
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{label} (nvcc exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return {name: (library_path(name).with_suffix(".log").read_text()
-                   if library_path(name).with_suffix(".log").exists()
-                   else "") for name in SOURCES}
+    logs = {}
+    for label, (out, _) in jobs.items():
+        log = out.with_suffix(".log")
+        logs[label] = log.read_text() if log.exists() else ""
+    return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if missing."""
-    lib = _loaded.get(name)
+def load(name: str, src=None) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (or of the build labelled
+    ``name`` of ``src``), built first if missing."""
+    path = library_path(name) if src is None else _target(name, Path(src))
+    lib = _loaded.get(str(path))
     if lib is None:
-        if not library_path(name).exists():
-            build_all()
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        if not path.exists():
+            build_all(() if src is None else ((name, src),))
+        lib = _loaded[str(path)] = ctypes.CDLL(str(path))
     return lib
 
 

@@ -9,36 +9,43 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels._ell import launch_tables
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.frontier.kernel import bfs_pull
-from repro_torch.kernels.frontier.ref import bfs_pull_ref
-from repro_torch.kernels.spmv.kernel import spmv_ell
-from repro_torch.kernels.spmv.ref import spmv_ell_ref
+from repro_torch.kernels.frontier.kernel import bfs_pull, bfs_pull_buckets
+from repro_torch.kernels.frontier.ref import bfs_pull_buckets_ref, \
+    bfs_pull_ref
+from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_buckets
+from repro_torch.kernels.spmv.ref import spmv_ell_buckets_ref, spmv_ell_ref
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes and bit patterns (float32 compared as int32)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 4])
 def test_cuda_kernels_match_plain(batch):
-    """On a card: each kernel against its plain version, strided batch
-    rows included (how localops hands it ELL buckets)."""
+    """On a card: each kernel against its plain version, bit for bit,
+    strided batch rows included (a row start off 16-byte alignment takes
+    the scalar index loads), widths from 1 to a hub's 1024."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU build")
     rng = np.random.default_rng(batch)
     for rows, k, n_cols in [(256, 8, 512), (512, 16, 1024), (128, 1, 128),
-                            (384, 24, 999), (128, 200, 5000)]:
+                            (384, 24, 999), (128, 200, 5000),
+                            (100, 1024, 4096), (77, 3, 300)]:
         flat = torch.from_numpy(rng.integers(
             0, n_cols, (batch, rows * k + 5)).astype(np.int32)).cuda()
         idx = flat[:, 2:2 + rows * k].reshape(batch, rows, k)
         val = torch.randn((batch, rows, k), device="cuda")
         x = torch.randn((batch, n_cols), device="cuda")
-        torch.testing.assert_close(spmv_ell(idx, val, x),
-                                   spmv_ell_ref(idx, val, x),
-                                   rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(spmv_ell(idx, None, x, skip=7),
-                                   spmv_ell_ref(idx, None, x, skip=7),
-                                   rtol=1e-5, atol=1e-5)
+        assert _same_bits(spmv_ell(idx, val, x), spmv_ell_ref(idx, val, x))
+        assert _same_bits(spmv_ell(idx, None, x, skip=7),
+                          spmv_ell_ref(idx, None, x, skip=7))
         bits = torch.from_numpy(rng.integers(
             -2 ** 31, 2 ** 31, (batch, n_cols // 32 + 1)).astype(
                 np.int32)).cuda()
@@ -47,6 +54,66 @@ def test_cuda_kernels_match_plain(batch):
         assert torch.equal(bfs_pull(idx, bits, unv),
                            bfs_pull_ref(idx, bits, unv))
     torch.cuda.synchronize()
+
+
+# bucket tables: widths 8, 16, 24, 40 and 1024, rows that are no multiple
+# of 32, an empty run
+BUCKET_TABLES = [((64, 40), (96, 24), (128, 16), (256, 8)),
+                 ((7, 1024), (33, 40), (45, 24), (31, 16), (50, 8),
+                  (20, 0)),
+                 ((1, 8),),
+                 # more buckets than one launch's table holds (as a
+                 # skewed graph's ELL can have): one launch per 64
+                 tuple((5 + i % 3, 8 * (1 + i % 9)) for i in range(70))
+                 + ((3, 128), (4, 0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [1, 3, 4])
+@pytest.mark.parametrize("table", range(len(BUCKET_TABLES)))
+def test_cuda_bucket_kernels_match_plain(table, parts):
+    """On a card: each multi-bucket kernel, one launch per 64 buckets,
+    equals its plain version bit for bit, over a strided batch of parts: spmv_ell in the
+    skip form (x shared by all parts, stride 0, no pad slot) and the val
+    form; bfs_pull with uint8 and int32 flags, an all-dead warp tile and
+    the sentinel never read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    buckets = BUCKET_TABLES[table]
+    rng = np.random.default_rng(10 * table + parts)
+    n_cols = 20000
+    slots = sum(r * k for r, k in buckets)
+    rows = sum(r for r, _ in buckets)
+    store = torch.from_numpy(rng.integers(
+        0, n_cols, (parts, slots + 16)).astype(np.int32)).cuda()
+    store[:, 3::7] = n_cols                      # sentinel slots
+    idx = store[:, 8:8 + max(slots, 1)]          # part stride slots + 16
+    x = torch.randn((1, n_cols), device="cuda").expand(parts, -1)
+    launches = len(launch_tables(buckets))
+    before = spmv_ell.launches
+    got = spmv_ell_buckets(idx, None, x, buckets, skip=n_cols)
+    torch.cuda.synchronize()
+    assert spmv_ell.launches == before + launches
+    assert _same_bits(got, spmv_ell_buckets_ref(idx, None, x, buckets,
+                                                skip=n_cols))
+    safe = torch.where(idx == n_cols, 0, idx)
+    val = torch.randn(idx.shape, device="cuda")
+    assert _same_bits(spmv_ell_buckets(safe, val, x, buckets),
+                      spmv_ell_buckets_ref(safe, val, x, buckets))
+    bits = torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, (1, n_cols // 32)).astype(np.int32)).cuda() \
+        .expand(parts, -1)
+    unv = torch.from_numpy(rng.integers(0, 2, (parts, rows))
+                           .astype(np.uint8)).cuda()
+    unv[:, :32] = 0                              # an all-dead warp tile
+    for flags in (unv, unv.to(torch.int32), unv.bool()):
+        before = bfs_pull.launches
+        got = bfs_pull_buckets(idx, bits, flags, buckets, skip=n_cols)
+        torch.cuda.synchronize()
+        assert bfs_pull.launches == before + launches
+        assert torch.equal(got, bfs_pull_buckets_ref(idx, bits, flags,
+                                                     buckets, skip=n_cols))
+        assert bool((got[:, :32] == 2 ** 30).all())
 
 
 # (bh, sq, sk, d, causal, window, softcap): the sweep of

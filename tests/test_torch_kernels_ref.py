@@ -153,6 +153,43 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         bfs_pull(idx, bits.float(), unv)
     with pytest.raises(ValueError):
-        bfs_pull(idx, bits, unv.bool())
+        bfs_pull(idx, bits, unv.float())      # flags: bool, uint8 or int32
+    for flags in (unv.bool(), unv.to(torch.uint8)):
+        assert torch.equal(bfs_pull(idx, bits, flags),
+                           bfs_pull(idx, bits, unv))
     with pytest.raises(ValueError):
         bfs_pull(idx[:, :0], bits, unv[:, :0])
+
+
+@pytest.mark.parametrize("name", ["spmv_ell", "bfs_pull"])
+@pytest.mark.parametrize("version", [None, 1, 3])
+def test_bind_rejects_other_c_interfaces(name, version):
+    """A library built from another checkout binds only if it reports
+    this checkout's C interface; the first design reports none."""
+    from types import SimpleNamespace
+    from repro_torch.kernels.frontier import kernel as frontier_kernel
+    from repro_torch.kernels.spmv import kernel as spmv_kernel
+    mod = spmv_kernel if name == "spmv_ell" else frontier_kernel
+    lib = SimpleNamespace(_name="parent", **{f"{name}_launch":
+                                              SimpleNamespace()})
+    if version is not None:
+        setattr(lib, f"{name}_interface", lambda: version)
+    with pytest.raises(RuntimeError, match="C interface"):
+        mod.bind(lib)
+    setattr(lib, f"{name}_interface", lambda: mod.INTERFACE)
+    assert mod.bind(lib) is lib
+    assert getattr(lib, f"{name}_launch").argtypes
+
+
+@pytest.mark.parametrize("name", ["spmv_ell", "bfs_pull"])
+def test_c_interface_version_matches_wrapper(name):
+    """The version a kernel's C source reports is the one its wrapper
+    binds."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.frontier import kernel as frontier_kernel
+    from repro_torch.kernels.spmv import kernel as spmv_kernel
+    mod = spmv_kernel if name == "spmv_ell" else frontier_kernel
+    src = _build.SOURCES[name].read_text()
+    found = re.findall(rf"int {name}_interface\(\) {{ return (\d+); }}", src)
+    assert found == [str(mod.INTERFACE)]
