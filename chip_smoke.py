@@ -10,6 +10,10 @@ against its plain-PyTorch version:
   pagerank/fast through ``GraphEngine.program`` on a urand graph cut
   into P vertex blocks stacked on the card (kernels ``spmv_ell``,
   ``bfs_pull``);
+- the rest of the BSP suite: sssp, cc, kcore and betweenness on the same
+  partitions, triangles on an 8192-vertex urand graph, and bfs/fast, sssp
+  and betweenness batched over four roots (kernel ``spmv_ell`` on
+  betweenness's two combines, ``bfs_pull`` on batched bfs/fast);
 - LM token serving: ``launch/serve.py::serve`` on TinyLlama-1.1B at full
   width, weights drawn from a seeded ``torch.Generator`` on the card
   (kernel ``flash_attention_fwd``, one launch per prefill layer).
@@ -27,10 +31,11 @@ prints no result):
            that ptxas serialized a kernel's wgmma products.
   parity   each kernel against its plain version on the card: the shape
            sweeps of the JAX package's kernel tests, then every ELL bucket
-           of the main-path graph one by one, then each ELL structure in
-           one multi-bucket call.  Both graph kernels must match exactly
-           (spmv_ell adds a row's slots left to right, as ref.py does:
-           equal bits).
+           of the main-path graph one by one (ell_in, ell_dst, ell_out and
+           ell_src for spmv_ell, ell_in for bfs_pull), then each ELL
+           structure in one multi-bucket call.  Both graph kernels must
+           match exactly (spmv_ell adds a row's slots left to right, as
+           ref.py does: equal bits).
   main     the four programs once in local-ops mode ``auto`` (the
            kernels) at each parts count, launch counters zeroed just
            before and read just after: spmv_ell must launch once per
@@ -48,13 +53,34 @@ prints no result):
            and each kernel at the main path's inputs beside its plain
            version, its bound and, for spmv_ell, a torch.sparse CSR
            matvec of the same function (timed here only; the port never
-           calls it): spmv_ell over one call's buckets per structure,
-           with each bucket alone (rows, K, ms, gathers per second);
+           calls it): spmv_ell over one call's buckets per structure
+           (ell_in, ell_dst, and ell_out as a betweenness backward round
+           calls it), with each bucket alone (rows, K, ms, gathers per
+           second);
            bfs_pull over one bfs/fast run, round by round (push ``u`` or
            pull ``l``, live rows, ms).  With --parent, the same
            per-bucket and per-round lines of the parent's kernels on the
            same inputs, each result first held against the plain version
            (spmv_ell within SPMV_TOL, bfs_pull exactly).
+  bsp      host references first (numpy / scipy, one CSR of the graph):
+           Dijkstra under the synthesized weights, min-id weakly connected
+           components, threshold peeling of the undirected multigraph, a
+           float64 Brandes.  Then sssp, cc, kcore and betweenness in mode
+           auto at each parts count, launch counters zeroed just before and
+           read just after: spmv_ell launches once a round per launch
+           table, forward rounds over ell_dst plus backward rounds over
+           ell_out (the phases' rounds from a phase-wise run), the other
+           programs launch nothing.  Outputs bit-identical to mode ell;
+           sssp within 1e-5 relative (1e-4 absolute) of Dijkstra, labels,
+           cores, kmax and peeling rounds exact, betweenness dist exact,
+           sigma within 1e-6 relative (path counts below 2^24, exact in
+           float32), bc within 1e-4 relative and absolute.  Triangles at 8192 vertices,
+           parts 1 and 4: counts and total equal scipy's A o (A @ A).  Per
+           program ms in both modes.  Then bfs/fast, sssp and betweenness
+           batched over roots 0-3 (counters zeroed around the batched
+           calls): each row and its rounds equal the single-source run
+           with that root, and the batched call launches what those runs
+           launched.
   llm-parity  flash_attention_fwd against its plain version (ref.py) on
            the shapes of tests/test_kernels_flash.py (sweep x {causal,
            causal + window 64, non-causal}, cross lengths, softcap 20,
@@ -114,6 +140,15 @@ PARTS = (1, 4)           # vertex blocks, all stacked on the one card
 
 SPMV_TOL = 1e-5          # rtol = atol, cuSPARSE CSR matvec vs the kernel
 PR_F64_TOL = 1e-4        # max rel err of ranks vs float64 power iteration
+
+# the rest of the BSP suite (triangles on its own graph) and multi-source
+BSP_PROGRAMS = ("sssp", "cc", "kcore", "betweenness")
+TRI_N = 8192             # the largest graph triangles' n_budget admits
+MULTI = (("bfs", "fast"), ("sssp", "default"), ("betweenness", "default"))
+MULTI_ROOTS = (0, 1, 2, 3)
+SSSP_RTOL, SSSP_ATOL = 1e-5, 1e-4     # tests/oracle.py's sssp check
+SIGMA_RTOL = 1e-6        # path counts (tests/oracle.py)
+BC_TOL = 1e-4            # rtol = atol of dependencies (tests/oracle.py)
 HBM_SECTOR = 32          # bytes an HBM gather moves at the least
 L2_BYTES = 50 * 2 ** 20  # H100 L2 cache
 
@@ -192,9 +227,9 @@ class Port:
         import torch
         from repro_torch.configs import graph_workloads
         from repro_torch.core import GraphEngine, localops, \
-            partition_graph, registry
+            partition_graph, registry, run_program
         from repro_torch.core.partitioned import pack_bits
-        from repro_torch.graphs import generate_edges
+        from repro_torch.graphs import generate_edges, urand_edges
         from repro_torch.kernels import _build, _ell
         from repro_torch.kernels.frontier import kernel as frontier_kernel
         from repro_torch.kernels.frontier.ref import bfs_pull_buckets_ref, \
@@ -225,6 +260,8 @@ class Port:
         self.partition_graph = partition_graph
         self.pack_bits = pack_bits
         self.generate_edges = generate_edges
+        self.urand_edges = urand_edges
+        self.run_program = run_program
         self.build = _build
         self.ell = _ell
         self.frontier_kernel = frontier_kernel
@@ -320,23 +357,29 @@ def bound(bytes_moved: int, ops: int,
 # host references (numpy / scipy, independent of the port)
 # ---------------------------------------------------------------------------
 
-def bfs_levels(edges: np.ndarray, n: int, root: int) -> np.ndarray:
-    """BFS level of every vertex from ``root`` (-1 if unreached), one
-    sparse in-neighbor matvec per level."""
+def out_matrix(edges: np.ndarray, n: int):
+    """The graph as one scipy CSR matrix, src -> dst, parallel edges
+    summed as multiplicities (float64): built once for every host
+    check."""
     import scipy.sparse as sp
-    src, dst = edges[:, 0], edges[:, 1]
-    into = sp.csr_matrix((np.ones(src.size, np.int32), (dst, src)),
+    return sp.csr_matrix((np.ones(len(edges)), (edges[:, 0], edges[:, 1])),
                          shape=(n, n))
+
+
+def bfs_levels(m, root: int) -> np.ndarray:
+    """BFS level of every vertex from ``root`` (-1 if unreached), one
+    sparse in-neighbor matvec (``m.T``) per level."""
+    n = m.shape[0]
     level = np.full(n, -1, np.int64)
     level[root] = 0
-    frontier = np.zeros(n, np.int32)
-    frontier[root] = 1
+    frontier = np.zeros(n)
+    frontier[root] = 1.0
     d = 0
     while frontier.any():
         d += 1
-        new = ((into @ frontier) > 0) & (level < 0)
+        new = ((m.T @ frontier) > 0) & (level < 0)
         level[new] = d
-        frontier = new.astype(np.int32)
+        frontier = new.astype(np.float64)
     return level
 
 
@@ -357,20 +400,19 @@ def min_level_parents(edges: np.ndarray, n: int, root: int,
     return parents
 
 
-def pagerank_f64(edges: np.ndarray, n: int, rounds: set) -> dict:
+def pagerank_f64(m, rounds: set) -> dict:
     """Float64 power iteration of the port's update (rank0 = 1/n,
     rank = (1-alpha)/n + alpha * sum of in-neighbors' rank/out_degree,
     no dangling redistribution); the ranks after each count in
     ``rounds``."""
-    import scipy.sparse as sp
-    src, dst = edges[:, 0], edges[:, 1]
-    out_deg = np.bincount(src, minlength=n).astype(np.float64)
-    m = sp.csr_matrix((1.0 / out_deg[src], (dst, src)), shape=(n, n))
+    n = m.shape[0]
+    out_deg = np.asarray(m.sum(axis=1)).ravel()
+    inv = np.where(out_deg > 0, 1.0 / np.maximum(out_deg, 1.0), 0.0)
     base = (1.0 - ALPHA) / n
     r = np.full(n, 1.0 / n)
     out = {}
     for t in range(1, max(rounds) + 1):
-        r = base + ALPHA * (m @ r)
+        r = base + ALPHA * (m.T @ (r * inv))
         if t in rounds:
             out[t] = r.copy()
     return out
@@ -379,6 +421,109 @@ def pagerank_f64(edges: np.ndarray, n: int, rounds: set) -> dict:
 def max_rel(a: np.ndarray, b: np.ndarray) -> float:
     """Elementwise max |a - b| / |b| (b has no zeros: ranks >= base)."""
     return float(np.max(np.abs(a.astype(np.float64) - b) / np.abs(b)))
+
+
+def sssp_dijkstra(m, root: int) -> np.ndarray:
+    """Distances from ``root`` by scipy's Dijkstra under the port's
+    synthesized weights ``1 + (src * 2654435761 ^ dst * 40503) % 2**16 /
+    2**16`` (uint32 hash; its low 16 bits, exact in int64).  Parallel
+    edges have equal weights, so the deduplicated pairs of ``m``'s
+    pattern carry exactly the minimum weight of each pair (a CSR built
+    from the edge list would add them); inf where unreached."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+    n = m.shape[0]
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(m.indptr))
+    h = (rows * 2654435761) ^ (m.indices.astype(np.int64) * 40503)
+    w = sp.csr_matrix((1.0 + (h & 0xFFFF) / 65536.0, m.indices, m.indptr),
+                      shape=(n, n))
+    return dijkstra(w, directed=True, indices=root)
+
+
+def undirected_matrix(m):
+    """The undirected multigraph (m + m.T, self-loops dropped) as CSR."""
+    u = (m + m.T).tocsr()
+    u.setdiag(0)
+    u.eliminate_zeros()
+    return u
+
+
+def min_id_components(u) -> np.ndarray:
+    """Per vertex, the smallest vertex id of its weakly connected
+    component (strong components of the symmetric ``u``)."""
+    from scipy.sparse.csgraph import connected_components
+    _, labels = connected_components(u, directed=True, connection="strong")
+    _, first = np.unique(labels, return_index=True)
+    return first[labels]
+
+
+def core_numbers(u) -> tuple[np.ndarray, int]:
+    """Core numbers of the undirected multigraph ``u`` by threshold
+    peeling, and the peeling's round count: each round removes every
+    alive vertex of degree <= k (core k) and, through its CSR row,
+    decrements its neighbors once; a round that removes nothing advances
+    k."""
+    n = u.shape[0]
+    deg = np.asarray(u.sum(axis=1)).ravel().astype(np.int64)
+    alive = np.ones(n, bool)
+    core = np.zeros(n, np.int64)
+    k = rounds = 0
+    while alive.any():
+        rounds += 1
+        kill = np.flatnonzero(alive & (deg <= k))
+        if kill.size:
+            core[kill] = k
+            alive[kill] = False
+            sub = u[kill]
+            deg -= np.bincount(sub.indices, weights=sub.data,
+                               minlength=n).astype(np.int64)
+        else:
+            k += 1
+    return core, rounds
+
+
+def brandes_f64(m, root: int):
+    """Float64 Brandes from ``root`` on the directed multigraph ``m``
+    (multiplicities are parallel shortest paths): (delta with delta(root)
+    = 0, sigma, dist with INT_INF where unreached), one sparse matvec per
+    level each way."""
+    n = m.shape[0]
+    dist = np.full(n, INT_INF, np.int64)
+    dist[root] = 0
+    sigma = np.zeros(n)
+    sigma[root] = 1.0
+    level = 0
+    while True:
+        fr = dist == level
+        if not fr.any():
+            break
+        pushed = m.T @ (sigma * fr)
+        newly = (pushed > 0) & (dist == INT_INF)
+        dist[newly] = level + 1
+        sigma[newly] = pushed[newly]
+        level += 1
+    delta = np.zeros(n)
+    for lvl in range(level - 1, -1, -1):
+        coef = np.where(dist == lvl + 1, (1.0 + delta)
+                        / np.maximum(sigma, 1.0), 0.0)
+        at = dist == lvl
+        delta[at] = (sigma * (m @ coef))[at]
+    delta[root] = 0.0
+    return delta, sigma, dist
+
+
+def triangle_counts(edges: np.ndarray, n: int) -> tuple[np.ndarray, int]:
+    """Per-vertex triangles of the simple undirected graph (A o (A @ A),
+    row sums halved) and the total, from scipy."""
+    import scipy.sparse as sp
+    a = sp.csr_matrix((np.ones(len(edges)), (edges[:, 0], edges[:, 1])),
+                      shape=(n, n))
+    a = ((a + a.T) > 0).astype(np.float64).tocsr()
+    a.setdiag(0)
+    a.eliminate_zeros()
+    per = np.asarray(a.multiply(a @ a).sum(axis=1)).ravel() / 2
+    per = per.astype(np.int64)
+    return per, int(per.sum()) // 3
 
 
 # ---------------------------------------------------------------------------
@@ -659,22 +804,22 @@ class Parity:
         self.frontier_table(flat, bits, unv.to(torch.int32), table, n_cols)
 
     def graph_buckets(self, g, garr, rng):
-        """Every ELL bucket the main path hands a kernel, alone: ell_in
-        (spmv and bfs_pull) and ell_dst (spmv); then each structure in one
-        multi-bucket call as the main path makes it (x with no pad slot,
-        the bitmap with no guard word, uint8 flags).  Random x, bits and
-        flags."""
+        """Every ELL bucket a path hands a kernel, alone: ell_in (spmv and
+        bfs_pull), ell_dst, ell_out (betweenness's two combines) and
+        ell_src (spmv); then each structure in one multi-bucket call as
+        the paths make it (x with no pad slot, the bitmap with no guard
+        word, uint8 flags).  Random x, bits and flags."""
         torch, dev = self.torch, self.device
         p = g.parts
         shapes = []
         bits_g = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, g.n // 32 + 1),
                                dtype=torch.int32, device=dev)
-        for name in ("ell_in", "ell_dst"):
+        for name in ("ell_in", "ell_dst", "ell_out", "ell_src"):
             meta = g.ell_meta[name]
             flat = garr[f"{name}_idx"]
             # ell_in gathers all-gathered contributions (one vector for
-            # every part, as broadcast_global gives it); ell_dst per-edge
-            # values of each part
+            # every part, as broadcast_global gives it); the edge-position
+            # structures per-edge values of each part
             x = torch.rand((1 if name == "ell_in" else p, meta.sentinel),
                            device=dev).expand(p, -1)
             unv = torch.randint(0, 2, (p, meta.n_rows), dtype=torch.uint8,
@@ -720,7 +865,8 @@ def kernel_times(port: Port, g, garr, level: np.ndarray, device,
                  parent: Parent | None) -> dict:
     """Each kernel at this graph's main-path inputs, beside its plain
     version, its bound and its library call: spmv_ell over one local-ops
-    call (one PageRank round) per structure, whole and bucket by bucket;
+    call per structure (a PageRank round over ell_in or ell_dst, a
+    betweenness backward round over ell_out), whole and bucket by bucket;
     bfs_pull over every call of one bfs/fast run, round by round.  With
     ``parent``, the parent's kernels on the same inputs, each result
     checked before it is timed."""
@@ -729,11 +875,13 @@ def kernel_times(port: Port, g, garr, level: np.ndarray, device,
     out = {}
     gen = torch.Generator(device=device).manual_seed(SEED)
 
-    for name in ("ell_in", "ell_dst"):
+    for name in ("ell_in", "ell_dst", "ell_out"):
         meta = g.ell_meta[name]
         flat, skip, rows = garr[f"{name}_idx"], meta.sentinel, meta.n_rows
-        # as the main path: ell_in gathers one all-gathered vector (part
-        # stride 0), ell_dst each part's per-edge values; no pad slot
+        # as the paths: ell_in gathers one all-gathered vector (part
+        # stride 0), ell_dst (pagerank/fast, betweenness forward) and
+        # ell_out (betweenness backward) each part's per-edge values; no
+        # pad slot
         x = torch.rand((1 if name == "ell_in" else p, skip), device=device,
                        generator=gen).expand(p, -1)
         gathers = int((flat != skip).sum())
@@ -1016,7 +1164,8 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
     log(f"[main] one launch per local-ops call: {want}")
 
     t0 = time.perf_counter()
-    level = bfs_levels(edges, n, ROOT)
+    m = out_matrix(edges, n)
+    level = bfs_levels(m, ROOT)
     want_parents = min_level_parents(edges, n, ROOT, level)
     reached = int((level >= 0).sum())
     log(f"[check] scipy BFS: {reached:,} reached, {int(level.max())} levels, "
@@ -1043,7 +1192,7 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
     t0 = time.perf_counter()
     pr_rounds = {first[k]["rounds"] for k in ("pagerank/bsp",
                                               "pagerank/fast")}
-    want_ranks = pagerank_f64(edges, n, pr_rounds)
+    want_ranks = pagerank_f64(m, pr_rounds)
     pr_err = {}
     for parts, res in main.items():
         for key in ("pagerank/bsp", "pagerank/fast"):
@@ -1109,8 +1258,293 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
                    if "old_ms" in cell else ""))
     log("[times] " + json.dumps({"graph": graph, "programs": program_ms,
                                  "kernels": kernel_cells}, default=str))
+
+    # -- the rest of the BSP suite and multi-source -----------------------
+    bsp = run_bsp(port, m, engines, device)
     return {"launches": main_launches, "parity_err": parity_err,
-            "kernel_cells": kernel_cells, "parts": max(parts_list)}
+            "kernel_cells": kernel_cells, "parts": max(parts_list),
+            "bsp_launches": bsp["launches"],
+            "multi_launches": bsp["multi_launches"]}
+
+def suite_fields(eng, prog, outs) -> dict:
+    """Output name -> host value (vertex fields gathered to numpy)."""
+    p = prog.program
+    return {nm: (eng.gather_vertex_field(o) if isv else o)
+            for nm, o, isv in zip(p.output_names, outs, p.output_is_vertex)}
+
+
+def run_suite(port: Port, eng, garr, mode: str, algos) -> dict:
+    """Each program once under local-ops ``mode`` (rooted ones from ROOT);
+    per program its fields, rounds, kernel launches and program."""
+    torch = port.torch
+    res = {}
+    with port.localops.using(mode):
+        progs = {a: eng.program(a) for a in algos}
+    for algo, prog in progs.items():
+        args = (ROOT,) * len(prog.spec.inputs)
+        before = port.launches()
+        *outs, rounds = prog(garr, *args)
+        _sync(torch, eng.device)
+        after = port.launches()
+        res[algo] = {"fields": suite_fields(eng, prog, outs),
+                     "rounds": rounds, "prog": prog, "args": args,
+                     "launches": {k: after[k] - before[k] for k in after}}
+    return res
+
+
+def same_fields(a: dict, b: dict) -> bool:
+    """Equal names, and each value bit for bit (numpy) or equal (host
+    scalar)."""
+    return a.keys() == b.keys() and all(
+        (isinstance(a[k], np.ndarray) and a[k].dtype == b[k].dtype
+         and a[k].tobytes() == b[k].tobytes())
+        or (not isinstance(a[k], np.ndarray) and a[k] == b[k]) for k in a)
+
+
+def close(what: str, got, want, rtol: float, atol: float) -> float:
+    """Raise unless |got - want| <= atol + rtol |want| everywhere; the
+    largest |got - want| / |want| over nonzero ``want``."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    with np.errstate(invalid="ignore"):
+        diff = np.where(got == want, 0.0, diff)       # equal infinities
+    bad = int((diff > atol + rtol * np.abs(want)).sum())
+    nz = np.abs(want) > 0
+    rel = float((diff[nz] / np.abs(want[nz])).max()) if nz.any() else 0.0
+    check(bad == 0, f"{what}: {bad} entries beyond rtol {rtol:.2e} atol "
+                    f"{atol:.2e} (max rel {rel:.3e}, max abs "
+                    f"{float(diff.max()):.3e})")
+    return rel
+
+
+def program_times(port: Port, eng, garr, runs: dict) -> dict:
+    """Median ms of 3 synchronized calls of each run's program (the
+    checked call was the warm-up)."""
+    torch = port.torch
+    return {algo: median_ms(torch, eng.device,
+                            lambda r=r: r["prog"](garr, *r["args"]))
+            for algo, r in runs.items()}
+
+
+def run_bsp(port: Port, m, engines: dict, device) -> dict:
+    """The rest of the BSP suite on the card: sssp, cc, kcore and
+    betweenness on the main path's partitions, triangles on a TRI_N-vertex
+    urand graph, each in local-ops modes auto and ell; then bfs/fast,
+    sssp and betweenness batched over MULTI_ROOTS.  Checks against
+    independent host references (numpy / scipy), bit-identity between the
+    modes, spmv_ell's launch count on betweenness, and batched rows
+    against single-source runs."""
+    torch = port.torch
+    t_phase = time.perf_counter()
+
+    # -- host references -------------------------------------------------
+    t0 = time.perf_counter()
+    u = undirected_matrix(m)
+    want_dist = sssp_dijkstra(m, ROOT)
+    want_labels = min_id_components(u)
+    want_core, want_kcore_rounds = core_numbers(u)
+    want_bc, want_sigma, want_bdist = brandes_f64(m, ROOT)
+    del u
+    levels = int(want_bdist[want_bdist < INT_INF].max())
+    log(f"[bsp] host references in {time.perf_counter() - t0:.1f} s: "
+        f"dijkstra {int(np.isfinite(want_dist).sum()):,} reached; "
+        f"{len(np.unique(want_labels)):,} components; kmax "
+        f"{int(want_core.max())} in {want_kcore_rounds} peeling rounds; "
+        f"Brandes {levels} levels, max sigma {want_sigma.max():.4g}")
+
+    # -- the programs in mode auto: the path, counts zeroed around it ----
+    algos = BSP_PROGRAMS
+    port.reset_launches()
+    auto = {parts: run_suite(port, eng, garr, "auto", algos)
+            for parts, (_, eng, garr) in engines.items()}
+    launches = port.launches()
+    log(f"[bsp] launches {launches}")
+
+    # -- mode ell: bit-identical; the betweenness phases split -----------
+    plain, errs, want_spmv = {}, {}, 0
+    for parts, (g, eng, garr) in engines.items():
+        plain[parts] = run_suite(port, eng, garr, "ell", algos)
+        tables = {k: len(port.ell.launch_tables(g.ell_meta[k].buckets))
+                  for k in ("ell_dst", "ell_out")}
+        fwd, back = auto[parts]["betweenness"]["prog"].program.phases
+        with port.localops.using("ell"):
+            (dist1, sigma1), r_f = port.run_program(fwd, garr, ROOT)
+            _, r_b = port.run_program(back, garr, dist1, sigma1)
+        for algo in algos:
+            a, p = auto[parts][algo], plain[parts][algo]
+            check(a["rounds"] == p["rounds"],
+                  f"parts={parts} {algo}: rounds {a['rounds']} (auto) vs "
+                  f"{p['rounds']} (ell)")
+            check(same_fields(a["fields"], p["fields"]),
+                  f"parts={parts} {algo}: outputs differ between modes auto "
+                  f"and ell")
+            check(sum(p["launches"].values()) == 0, "mode ell launched")
+            calls = r_f * tables["ell_dst"] + r_b * tables["ell_out"] \
+                if algo == "betweenness" else 0
+            want_spmv += calls
+            check(a["launches"]["spmv_ell"] == calls
+                  and a["launches"]["bfs_pull"] == 0,
+                  f"parts={parts} {algo}: launches {a['launches']}, want "
+                  f"spmv_ell {calls} and bfs_pull 0")
+        check(r_f + r_b == auto[parts]["betweenness"]["rounds"],
+              f"parts={parts} betweenness: phases {r_f} + {r_b} rounds")
+        log(f"[bsp] parts={parts} betweenness: {r_f} forward x "
+            f"{tables['ell_dst']} + {r_b} backward x {tables['ell_out']} "
+            f"spmv_ell launches, as counted; all programs bit-identical "
+            f"between modes auto and ell")
+
+        # -- against the host references -----------------------------------
+        f = auto[parts]
+        dist = f["sssp"]["fields"]["dist"]
+        errs[f"sssp/{parts}"] = close(
+            f"parts={parts} sssp dist vs dijkstra",
+            np.where(dist >= 1e29, np.inf, dist), want_dist, SSSP_RTOL,
+            SSSP_ATOL)
+        check(np.array_equal(f["cc"]["fields"]["labels"], want_labels),
+              f"parts={parts} cc: labels differ from the min vertex id of "
+              f"each weakly connected component")
+        kc = f["kcore"]
+        cap = kc["prog"].program.max_rounds
+        check(want_kcore_rounds <= cap,
+              f"parts={parts} kcore stopped at max_rounds={cap} with "
+              f"vertices alive (host peeling takes {want_kcore_rounds})")
+        check(np.array_equal(kc["fields"]["core"], want_core)
+              and kc["fields"]["kmax"] == int(want_core.max())
+              and kc["rounds"] == want_kcore_rounds,
+              f"parts={parts} kcore: cores, kmax {kc['fields']['kmax']} or "
+              f"rounds {kc['rounds']} differ from host peeling "
+              f"({int(want_core.max())}, {want_kcore_rounds} rounds)")
+        bc = f["betweenness"]["fields"]
+        check(np.array_equal(bc["dist"], want_bdist),
+              f"parts={parts} betweenness: dist differs from host BFS")
+        # sigma: path counts are integers, exact in float32 below 2**24
+        check(want_sigma.max() < 2 ** 24,
+              f"max sigma {want_sigma.max():.4g} past float32's exact "
+              f"integers: SIGMA_RTOL needs the float32 error bound")
+        errs[f"sigma/{parts}"] = close(
+            f"parts={parts} betweenness sigma vs float64 Brandes",
+            bc["sigma"], want_sigma, SIGMA_RTOL, 0.0)
+        errs[f"bc/{parts}"] = close(
+            f"parts={parts} betweenness bc vs float64 Brandes", bc["bc"],
+            want_bc, BC_TOL, BC_TOL)
+        check(bc["bc"][ROOT] == 0.0, "betweenness: delta_s(s) != 0")
+        log(f"[bsp] parts={parts}: sssp == dijkstra (max rel "
+            f"{errs[f'sssp/{parts}']:.3e}), cc == min-id components, kcore "
+            f"== host peeling, betweenness sigma max rel "
+            f"{errs[f'sigma/{parts}']:.3e} (tol {SIGMA_RTOL}), bc max rel "
+            f"{errs[f'bc/{parts}']:.3e} (tol {BC_TOL})")
+    check(launches["spmv_ell"] == want_spmv > 0
+          and launches["bfs_pull"] == 0,
+          f"bsp path: spmv_ell {launches['spmv_ell']} launches, want "
+          f"{want_spmv}; bfs_pull {launches['bfs_pull']}, want 0")
+
+    # -- triangles on a graph inside its n_budget --------------------------
+    tri_edges = port.urand_edges(TRI_N, 16 * TRI_N, SEED)
+    want_tri, want_total = triangle_counts(tri_edges, TRI_N)
+    tri = {}
+    for parts in engines:
+        g_t = port.partition_graph(tri_edges, TRI_N, parts)
+        check(g_t.n <= port.registry.get_spec("triangles").n_budget,
+              f"triangles: n={g_t.n} past its n_budget")
+        eng_t = port.GraphEngine(g_t, device=device)
+        garr_t = eng_t.device_graph()
+        a = run_suite(port, eng_t, garr_t, "auto", ("triangles",))
+        p = run_suite(port, eng_t, garr_t, "ell", ("triangles",))
+        ta, tp = a["triangles"], p["triangles"]
+        check(ta["rounds"] == tp["rounds"] == parts
+              and same_fields(ta["fields"], tp["fields"])
+              and sum(ta["launches"].values()) == 0,
+              f"triangles parts={parts}: modes differ, or a kernel ran")
+        check(np.array_equal(ta["fields"]["triangles"], want_tri)
+              and ta["fields"]["total"] == want_total,
+              f"triangles parts={parts}: counts differ from scipy A o (A @ "
+              f"A) (total {ta['fields']['total']} vs {want_total})")
+        tri[parts] = {"rounds": ta["rounds"],
+                      "ms": program_times(port, eng_t, garr_t, a)
+                      ["triangles"],
+                      "plain_ms": program_times(port, eng_t, garr_t, p)
+                      ["triangles"]}
+        log(f"[bsp] parts={parts} triangles n={TRI_N}: total {want_total:,}"
+            f" == scipy, per vertex equal; auto {tri[parts]['ms']:.2f} ms, "
+            f"ell {tri[parts]['plain_ms']:.2f} ms, rounds "
+            f"{tri[parts]['rounds']}")
+        del eng_t, garr_t
+
+    # -- times -------------------------------------------------------------
+    times = {}
+    for parts, (_, eng, garr) in engines.items():
+        ka = program_times(port, eng, garr, auto[parts])
+        kp = program_times(port, eng, garr, plain[parts])
+        for algo in algos:
+            times[f"{algo}/parts={parts}"] = cell = {
+                "rounds": auto[parts][algo]["rounds"], "ms": ka[algo],
+                "plain_ms": kp[algo],
+                "launches": auto[parts][algo]["launches"]["spmv_ell"]}
+            log(f"[times] parts={parts} {algo:14s} rounds={cell['rounds']:3d}"
+                f" kernels {cell['ms']:9.2f} ms   plain "
+                f"{cell['plain_ms']:9.2f} ms")
+    for parts, cell in tri.items():
+        times[f"triangles/n={TRI_N}/parts={parts}"] = cell
+
+    # -- multi-source: batched rows against single-source runs -------------
+    single = {}
+    for parts, (_, eng, garr) in engines.items():
+        for algo, variant in MULTI:
+            prog = eng.program(algo, variant)
+            for r in MULTI_ROOTS:
+                before = port.launches()
+                *outs, rounds = prog(garr, r)
+                _sync(torch, eng.device)
+                after = port.launches()
+                single[parts, algo, r] = (
+                    suite_fields(eng, prog, outs), rounds,
+                    {k: after[k] - before[k] for k in after})
+    port.reset_launches()
+    batched = {}
+    for parts, (_, eng, garr) in engines.items():
+        for algo, variant in MULTI:
+            prog = eng.program(algo, variant, batch=len(MULTI_ROOTS))
+            before = port.launches()
+            *outs, rounds = prog(garr, MULTI_ROOTS)
+            _sync(torch, eng.device)
+            after = port.launches()
+            batched[parts, algo] = (prog, outs, rounds,
+                                    {k: after[k] - before[k] for k in after})
+    multi_launches = port.launches()
+    log(f"[multi] launches {multi_launches}")
+    for (parts, algo), (prog, outs, rounds, launched) in batched.items():
+        eng, garr = engines[parts][1], engines[parts][2]
+        rows = {nm: eng.gather_batched_vertex_field(o)
+                for nm, o in zip(prog.program.output_names, outs)}
+        want_launched = {}
+        for i, r in enumerate(MULTI_ROOTS):
+            fields, r_rounds, r_launched = single[parts, algo, r]
+            check(rounds[i] == r_rounds and same_fields(
+                {nm: v[i] for nm, v in rows.items()}, fields),
+                f"parts={parts} {algo} batched row {i} (root {r}) differs "
+                f"from its single-source run")
+            for k, v in r_launched.items():
+                want_launched[k] = want_launched.get(k, 0) + v
+        check(launched == want_launched,
+              f"parts={parts} {algo} batched launches {launched}, want the "
+              f"single-source runs' {want_launched}")
+        ms = median_ms(torch, eng.device,
+                       lambda: prog(garr, MULTI_ROOTS))
+        name = f"{prog.spec.label}_x{len(MULTI_ROOTS)}"
+        times[f"{name}/parts={parts}"] = {
+            "rounds": rounds, "ms": ms, "launches": launched}
+        log(f"[multi] parts={parts} {name}: rows and "
+            f"rounds {rounds} == single-source runs, launches {launched}; "
+            f"{ms:.2f} ms ({ms / len(MULTI_ROOTS):.2f} ms/query)")
+    for name in ("spmv_ell", "bfs_pull"):
+        check(multi_launches[name] > 0,
+              f"multi-source path: {name} never launched")
+    secs = time.perf_counter() - t_phase
+    log("[times] " + json.dumps({"bsp": times, "errors": errs,
+                                 "seconds": secs}, default=str))
+    log(f"[bsp done] {secs:.1f} s")
+    return {"launches": launches, "multi_launches": multi_launches}
+
 
 # ---------------------------------------------------------------------------
 # LM serving: flash_attention_fwd
@@ -1411,8 +1845,13 @@ def run_llm(port: Port, device, arch: str = LLM_ARCH, batch: int = LLM_BATCH,
 def kernels_record(result: dict, llm: dict) -> dict:
     """The contract record of each kernel: spmv_ell at pagerank/bsp's
     ell_in buckets and bfs_pull at bfs/fast's, at the largest parts
-    count; flash_attention_fwd at one TinyLlama prefill layer."""
+    count; flash_attention_fwd at one TinyLlama prefill layer.  A graph
+    kernel's launches are those of every path it runs on (the main path,
+    the rest of the BSP suite, multi-source), each counted from zero
+    around its run."""
     p = result["parts"]
+    paths = {"graph-main": result["launches"], "bsp-suite":
+             result["bsp_launches"], "multi-source": result["multi_launches"]}
     rows = []
     for name, src, replaces, cell_key, design in (
             ("spmv_ell", "src/repro_torch/kernels/spmv/csrc/spmv_ell.cu",
@@ -1422,7 +1861,9 @@ def kernels_record(result: dict, llm: dict) -> dict:
         cell = result["kernel_cells"][cell_key]
         rows.append({"name": name, "route": "cuda", "design": design,
                      "source": src, "replaces": replaces,
-                     "launches": result["launches"][name],
+                     "launches": sum(c[name] for c in paths.values()),
+                     "launches_by_path": {k: c[name]
+                                          for k, c in paths.items()},
                      "max_abs_err": result["parity_err"][name],
                      "ms": cell["ms"], "plain_ms": cell["plain_ms"],
                      "bound_ms": cell["bound_ms"],

@@ -10,9 +10,11 @@ point is :meth:`GraphEngine.program`:
 
 ``program()`` resolves the (algo, variant) pair through
 ``core/registry.py``, binds the program to the engine's exchange
-context, and interns the callable keyed on algorithm + params + graph
-shapes + (device, parts) + layout and local-ops mode: repeated calls
-return the SAME object.
+context, and interns the callable keyed on algorithm + params + batch +
+graph shapes + (device, parts) + layout and local-ops mode: repeated
+calls return the SAME object.  ``batch=B`` builds the multi-source
+variant: the call takes B values per input (e.g. B roots) and vertex
+outputs gain a batch dim, ``(P, B, n_local)``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 from repro_torch.core import localops, registry
 from repro_torch.core.graph import GraphShards
 from repro_torch.core.partitioned import StackedComm
-from repro_torch.core.superstep import SuperstepProgram, run_program
+from repro_torch.core.superstep import PhasedProgram, SuperstepProgram, \
+    run_program, run_program_batched
 
 
 class CompiledProgram:
@@ -33,21 +36,35 @@ class CompiledProgram:
 
     ``__call__(garr, *inputs)`` runs the shared superstep loop and returns
     ``(*outputs, rounds)``; vertex outputs are ``(P, n_local)`` tensors.
-    The local-ops mode that was active when the program was built is the
-    one its calls run under, as it is part of the cache key.
+    With ``batch=B`` each input is a length-B sequence, vertex outputs
+    are ``(P, B, n_local)`` and ``rounds`` a length-B list.  The local-ops
+    mode that was active when the program was built is the one its calls
+    run under, as it is part of the cache key.
     """
 
-    def __init__(self, spec: registry.ProgramSpec, program: SuperstepProgram,
-                 mode: str, static_iters: int = 0):
+    def __init__(self, spec: registry.ProgramSpec,
+                 program: SuperstepProgram | PhasedProgram, mode: str,
+                 static_iters: int = 0, batch: int | None = None):
         self.spec = spec
         self.program = program
         self.mode = mode
         self.static_iters = static_iters
+        self.batch = batch
 
     def __call__(self, garr: dict, *inputs):
         with localops.using(self.mode):
-            outs, rounds = run_program(self.program, garr, *inputs,
-                                       static_iters=self.static_iters)
+            if self.batch is None:
+                outs, rounds = run_program(self.program, garr, *inputs,
+                                           static_iters=self.static_iters)
+            else:
+                for x in inputs:
+                    if len(x) != self.batch:
+                        raise ValueError(
+                            f"{self.program.key} built for batch="
+                            f"{self.batch}, got {len(x)} values")
+                outs, rounds = run_program_batched(
+                    self.program, garr, *inputs,
+                    static_iters=self.static_iters)
         return (*outs, rounds)
 
     def __repr__(self):
@@ -81,18 +98,27 @@ class GraphEngine:
         self.comm = StackedComm(self.g.parts, self.device)
 
     def program(self, algo: str, variant: str | None = None, *,
-                static_iters: int = 0, **params) -> CompiledProgram:
+                static_iters: int = 0, batch: int | None = None,
+                **params) -> CompiledProgram:
         """Resolve, build and cache an algorithm program.
 
         ``static_iters > 0`` replaces the early-exit loop with a fixed
-        trip count.  Params are normalized against the spec's defaults
-        so an explicitly spelled default hits the same cache entry.
+        trip count.  ``batch=B`` builds the multi-source variant (only
+        for programs with per-query inputs), with the spec's
+        ``batch_defaults`` under explicit params.  Params are normalized
+        against the spec's defaults so an explicitly spelled default hits
+        the same cache entry.
         """
         spec = registry.get_spec(algo, variant)
-        params = {**spec.defaults, **params}
+        if batch is not None and not spec.inputs:
+            raise ValueError(
+                f"{spec.key} takes no per-query inputs; batch={batch} has "
+                f"nothing to batch over")
+        batch_over = spec.batch_defaults if batch is not None else {}
+        params = {**spec.defaults, **batch_over, **params}
         g = self.g
         mode = localops.get_mode()
-        key = (spec.algo, spec.variant, static_iters,
+        key = (spec.algo, spec.variant, static_iters, batch,
                tuple(sorted(params.items())),
                (g.n, g.n_orig, g.parts, g.n_local, g.e_max),
                g.layout_signature(),
@@ -102,7 +128,7 @@ class GraphEngine:
         if hit is not None:
             return hit
         compiled = CompiledProgram(spec, spec.build(g, self.comm, **params),
-                                   mode, static_iters)
+                                   mode, static_iters, batch)
         self._cache[key] = compiled
         return compiled
 
@@ -113,6 +139,11 @@ class GraphEngine:
     def gather_vertex_field(self, arr: torch.Tensor) -> np.ndarray:
         """(P, n_local) stacked -> (n_orig,) numpy."""
         return arr.reshape(-1)[: self.g.n_orig].cpu().numpy()
+
+    def gather_batched_vertex_field(self, arr: torch.Tensor) -> np.ndarray:
+        """(P, B, n_local) batched -> (B, n_orig) numpy."""
+        b = arr.transpose(0, 1).reshape(arr.shape[1], -1)
+        return b[:, : self.g.n_orig].cpu().numpy()
 
     def scatter_vertex_field(self, arr, dtype=None) -> torch.Tensor:
         """(n_orig,) host values -> (P, n_local) vertex field on the

@@ -16,6 +16,8 @@ transpose and reduce over the parts dim:
       BFS): the all_to_all + min becomes ``.amin(0)``.
   * broadcast_global -- all-gather a (P, n_local) field into a full (n,)
       replica on every part (pull-mode reads).
+  * shift -- the ring permutation: part i sends its payload to part
+      (i + 1) mod P (the ``ppermute`` ring of triangle counting).
   * psum_scalar -- the global all-reduce of one scalar per part.  It is
       the round's barrier and its one device-to-host sync: it returns a
       host number, which halt tests and branch decisions read.
@@ -26,7 +28,7 @@ kernels do not shift uint32.
 
 Every exchange routes its OUTGOING payload through ``_tap``, which adds
 one part's payload bytes to ``StackedComm.wire`` under ``(phase, op)``
-— the same ops (``sum`` / ``or`` / ``min`` / ``bcast``) and the same
+— the same ops (``sum`` / ``or`` / ``min`` / ``bcast`` / ``perm``) and the same
 per-part figure the JAX package's telemetry wire tap records.
 ``psum_scalar`` is not tapped: the halt scalar is control plane.
 """
@@ -102,14 +104,16 @@ class StackedComm:
         """(P, n) proposed updates -> (P, n_local) owner sums.
 
         Parts add in source order, one after the other, as the JAX
-        package's psum_scatter does across CPU devices; a bf16 payload
-        accumulates in float32 and rounds once to bf16, as it does
-        there."""
+        package's psum_scatter does across CPU devices.  Integer and
+        float32 payloads add in their own dtype (integers exact, wrapping
+        on overflow); a bf16 payload accumulates in float32 and rounds
+        once to bf16, as it does there."""
         self._tap("sum", acc_global)
         blocks = self._blocks(acc_global)
-        acc = blocks[0].float()
+        wide = acc_global.dtype == torch.bfloat16
+        acc = blocks[0].float() if wide else blocks[0].clone()
         for p in range(1, self.parts):
-            acc = acc + blocks[p].float()
+            acc += blocks[p]
         return acc.to(acc_global.dtype)
 
     def exchange_or(self, mask_global: torch.Tensor) -> torch.Tensor:
@@ -133,6 +137,12 @@ class StackedComm:
         """(P, n_local) -> (P, n): each part holds the full replica."""
         self._tap("bcast", local_vals)
         return local_vals.reshape(1, -1).expand(self.parts, -1)
+
+    def shift(self, x: torch.Tensor) -> torch.Tensor:
+        """(P, ...) per-part payloads -> the same with part i's payload
+        at part (i + 1) mod P: one step of the ring."""
+        self._tap("perm", x)
+        return torch.roll(x, 1, dims=0)
 
     def own_slice(self, x_global: torch.Tensor) -> torch.Tensor:
         """(P, n) replicated or per-part -> (P, n_local): each part's own

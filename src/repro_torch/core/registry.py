@@ -5,8 +5,11 @@ Every engine entry point (``GraphEngine.program``, the launcher)
 enumerates programs from here instead of hard-coding algorithm names,
 so adding a workload is ONE registration plus an algorithm module.
 
-Registered pairs: ``bfs/bsp``, ``bfs/fast``, ``pagerank/bsp`` and
-``pagerank/fast``, with the defaults of the JAX package's registry.
+Registered pairs, in the JAX package's order and with its defaults:
+``bfs/bsp``, ``bfs/fast``, ``pagerank/bsp``, ``pagerank/fast``,
+``sssp``, ``cc``, ``triangles``, ``kcore`` and ``betweenness``
+(single-variant algorithms use the ``"default"`` variant and may be
+addressed by bare algo name).
 """
 
 from __future__ import annotations
@@ -14,11 +17,16 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
+from repro_torch.core import betweenness as _bc
 from repro_torch.core import bfs as _bfs
+from repro_torch.core import cc as _cc
+from repro_torch.core import kcore as _kcore
 from repro_torch.core import pagerank as _pr
+from repro_torch.core import sssp as _sssp
+from repro_torch.core import triangles as _tri
 from repro_torch.core.graph import GraphShards
 from repro_torch.core.partitioned import StackedComm
-from repro_torch.core.superstep import SuperstepProgram
+from repro_torch.core.superstep import PhasedProgram, SuperstepProgram
 
 
 @dataclass(frozen=True)
@@ -32,12 +40,17 @@ class ProgramSpec:
 
     algo: str
     variant: str
-    make: Callable[..., SuperstepProgram]
+    make: Callable[..., SuperstepProgram | PhasedProgram]
     inputs: tuple[str, ...]              # per-query inputs ("root",) or ()
     defaults: dict = field(default_factory=dict)
     doc: str = ""
-    # param overrides for batched builds, carried as data: this package
-    # has no batched loop yet
+    # largest padded vertex count the implementation is sized for, or 0
+    # for unbounded.  The launcher skips over-budget programs (the
+    # O(n^2/P) triangle-counting bitmap).
+    n_budget: int = 0
+    # param overrides for batched (batch=B) builds, e.g. bfs/fast pins
+    # direction="pull" as the JAX package's vmapped build must.
+    # Explicit caller params always win.
     batch_defaults: dict = field(default_factory=dict)
 
     @property
@@ -51,7 +64,7 @@ class ProgramSpec:
         return program_label(self.algo, self.variant)
 
     def build(self, g: GraphShards, comm: StackedComm,
-              **params) -> SuperstepProgram:
+              **params) -> SuperstepProgram | PhasedProgram:
         unknown = set(params) - set(self.defaults)
         if unknown:
             raise TypeError(
@@ -170,4 +183,44 @@ register(ProgramSpec(
               "switch_factor": 1e3, "err_every": 5},
     doc="push-aggregate PageRank: fused reduce-scatter + adaptive bf16 "
         "error-feedback compression"),
+    default=True)
+
+register(ProgramSpec(
+    algo="sssp", variant="default",
+    make=lambda g, comm, **p: _sssp.sssp_program(g, comm, **p),
+    inputs=("root",), defaults={"max_rounds": 64, "weight_scale": 1.0},
+    doc="frontier-pruned Bellman-Ford with MIN-combine exchange; "
+        "weight_scale uniformly scales the synthesized weights (must "
+        "be finite and positive — serve admission rejects the rest)"),
+    default=True)
+
+register(ProgramSpec(
+    algo="cc", variant="default",
+    make=lambda g, comm, **p: _cc.cc_program(g, comm, **p),
+    inputs=(), defaults={"max_rounds": 64},
+    doc="label propagation over both edge directions"), default=True)
+
+register(ProgramSpec(
+    algo="triangles", variant="default",
+    make=lambda g, comm, **p: _tri.triangles_program(g.n, g.n_local, comm,
+                                                     **p),
+    inputs=(), defaults={},
+    doc="rotation triangle counting: bit-packed neighbor-set exchange "
+        "(ppermute ring, P supersteps), intersection as masked matmul",
+    n_budget=1 << 13), default=True)
+
+register(ProgramSpec(
+    algo="kcore", variant="default",
+    make=lambda g, comm, **p: _kcore.kcore_program(g, comm, **p),
+    inputs=(), defaults={"max_rounds": 512},
+    doc="iterative peeling (threshold form) with fused degree-decrement "
+        "exchange; degeneracy rides as a scalar output"), default=True)
+
+register(ProgramSpec(
+    algo="betweenness", variant="default",
+    make=lambda g, comm, **p: _bc.betweenness_program(g, comm, **p),
+    inputs=("root",), defaults={"max_levels": 64},
+    doc="Brandes single-source dependencies: path-counting forward BFS "
+        "then a dependency-accumulation backward sweep (the first "
+        "two-phase program; sum over batched sources for centrality)"),
     default=True)

@@ -7,20 +7,29 @@ exchanges of a ``partitioned.StackedComm``), and ONE shared function
 repeat:
 
   * an early-exit host loop when termination is data-dependent: step
-    until ``halt`` or ``max_rounds``.  A round's one device-to-host sync
-    is the step's ``psum_scalar``, which leaves its value on the host;
-    ``halt`` and the programs' branch decisions read that host value
-    and sync nothing more;
+    until ``halt`` or ``max_rounds``.  A round's device-to-host syncs
+    are the step's ``psum_scalar`` calls (one in most programs, two in
+    k-core), which leave their values on the host; ``halt`` and the
+    programs' branch decisions read those host values and sync nothing
+    more;
   * a fixed trip count when ``static_iters > 0`` (steps past
     convergence are no-ops by construction);
   * round accounting (the returned round count is loop state, not
     program state).
+
+A :class:`PhasedProgram` chains programs (each phase's outputs seed the
+next phase's ``init``; :func:`run_phases`), and
+:func:`run_program_batched` runs one program over B per-query inputs
+against one graph residency (multi-source queries).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Any, Callable
+
+import torch
 
 from repro_torch.core.partitioned import StackedComm
 
@@ -29,6 +38,8 @@ from repro_torch.core.partitioned import StackedComm
 class SuperstepProgram:
     """A distributed graph algorithm as data.
 
+      prepare(g) -> g        optional: derive loop-invariant edge data
+                             (e.g. SSSP weights) once, before ``init``
       init(g, *inputs) -> state
                              build the initial state from the per-query
                              inputs (e.g. a root vertex)
@@ -58,10 +69,46 @@ class SuperstepProgram:
     output_is_vertex: tuple[bool, ...]  # True: (P, n_local) vertex field
     comm: StackedComm
     max_rounds: int = 64
+    prepare: Callable[[dict], dict] = field(default=lambda g: g)
 
     @property
     def key(self) -> str:
         return f"{self.name}/{self.variant}"
+
+
+@dataclass(frozen=True)
+class PhasedProgram:
+    """A multi-phase algorithm: :class:`SuperstepProgram` phases run back
+    to back, each phase's ``outputs`` passed to the next phase's ``init``
+    (after the per-query ``inputs`` of phase 0).  Brandes betweenness is
+    the case: a path-counting forward BFS, then a backward sweep seeded
+    with its (dist, sigma).  ``output_names`` / ``output_is_vertex``
+    describe the last phase's outputs, which are the program's."""
+
+    name: str
+    variant: str
+    inputs: tuple[str, ...]
+    phases: tuple[SuperstepProgram, ...]
+    output_names: tuple[str, ...]
+    output_is_vertex: tuple[bool, ...]
+
+    @property
+    def key(self) -> str:
+        return f"{self.name}/{self.variant}"
+
+
+def run_phases(prog: PhasedProgram, g: dict, *inputs,
+               static_iters: int = 0):
+    """Run the phases of ``prog`` in order, phase i + 1 initialized with
+    phase i's outputs.  Returns the last phase's outputs and the total
+    round count (``len(phases) * static_iters`` on the fixed-trip
+    path)."""
+    chained, total = inputs, 0
+    for phase in prog.phases:
+        chained, rounds = run_program(phase, g, *chained,
+                                      static_iters=static_iters)
+        total += rounds
+    return chained, total
 
 
 def run_program(prog: SuperstepProgram, g: dict, *inputs,
@@ -69,8 +116,12 @@ def run_program(prog: SuperstepProgram, g: dict, *inputs,
     """The ONE shared superstep loop.
 
     Returns ``(outputs_tuple, rounds)`` where ``rounds`` is the number of
-    supersteps executed (== ``static_iters`` on the fixed-trip path).
+    supersteps executed (== ``static_iters`` on the fixed-trip path).  A
+    :class:`PhasedProgram` dispatches to :func:`run_phases`.
     """
+    if isinstance(prog, PhasedProgram):
+        return run_phases(prog, g, *inputs, static_iters=static_iters)
+    g = prog.prepare(g)
     comm = prog.comm
     comm.phase = "init"
     state = prog.init(g, *inputs)
@@ -88,3 +139,29 @@ def run_program(prog: SuperstepProgram, g: dict, *inputs,
     out = prog.outputs(state)
     comm.phase = "round"
     return out, rounds
+
+
+def run_program_batched(prog, g: dict, *batched_inputs,
+                        static_iters: int = 0):
+    """Multi-source loop: :func:`run_program` over B per-query inputs
+    (each a length-B sequence, e.g. B roots) against one graph residency.
+
+    Returns ``(outputs, rounds)``: vertex outputs stacked to
+    ``(P, B, n_local)``, other outputs as length-B lists, and ``rounds``
+    a length-B list.  The loop halts on host values, so the B queries
+    run one after another; a non-phased program's ``prepare`` runs once
+    for all of them.
+    """
+    if not isinstance(prog, PhasedProgram):
+        g = prog.prepare(g)
+        prog = dataclasses.replace(prog, prepare=lambda garr: garr)
+    queries = list(zip(*batched_inputs))
+    if not queries:
+        raise ValueError(f"{prog.key}: batched inputs are empty")
+    runs = [run_program(prog, g, *q, static_iters=static_iters)
+            for q in queries]
+    outs = tuple(
+        torch.stack([r[0][i] for r in runs], dim=1) if is_v
+        else [r[0][i] for r in runs]
+        for i, is_v in enumerate(prog.output_is_vertex))
+    return outs, [r[1] for r in runs]

@@ -2,14 +2,19 @@
 
 Generates a urand/rmat/smallworld graph, cuts it into P vertex blocks
 stacked on one device, runs every registered program (BFS and PageRank,
-each in its BSP baseline and its HPX-adapted fast variant), verifies the
-results against each other, and reports per-program times, rounds and
-kernel launch counts.  ``--layout coo`` is the escape hatch back to the
-COO scatter reference path; ``REPRO_LOCALOPS={auto,ref,ell,kernel}``
-further overrides the local-ops dispatch.
+each in its BSP baseline and its HPX-adapted fast variant, SSSP, CC,
+triangle counting, k-core, betweenness), verifies the results, and
+reports per-program times, rounds and kernel launch counts.  Programs
+whose ``n_budget`` the graph exceeds (the O(n^2/P) triangle-counting
+bitmap) are skipped with a note.  ``--multi-source B`` also runs the
+rooted non-bsp programs (bfs/fast, sssp, betweenness) batched over B
+roots against one graph residency.  ``--layout coo`` is the escape hatch
+back to the COO scatter reference path;
+``REPRO_LOCALOPS={auto,ref,ell,kernel}`` further overrides the local-ops
+dispatch.
 
   PYTHONPATH=src python -m repro_torch.launch.graph_analytics \\
-      --graph urand22 --parts 4
+      --graph urand22 --parts 4 --multi-source 4
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ def _timed(fn, args, device):
 
 def run(graph_name: str, parts: int, *, device: str | None = None,
         pr_iters: int = 50, verify: bool = True, seed: int = 42,
-        layout: str = "ell") -> dict:
+        multi_source: int = 0, layout: str = "ell") -> dict:
     gcfg = graph_workloads.ALL[graph_name]
     print(f"[graph] generating {graph_name}: 2^{gcfg.scale} vertices, "
           f"{gcfg.num_edges:,} edges ({gcfg.generator})")
@@ -67,12 +72,31 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
     for algo, variant in registry.available():
         spec = registry.get_spec(algo, variant)
         name = program_label(algo, variant)
+        if spec.n_budget and g.n > spec.n_budget:
+            print(f"[graph] {name:14s}   skipped (n={g.n:,} exceeds its "
+                  f"n_budget={spec.n_budget:,})")
+            continue
         params = {"iters": pr_iters} if algo == "pagerank" else {}
         prog = eng.program(algo, variant, **params)
         args = (garr,) + (root,) * len(spec.inputs)
         out, dt = _timed(prog, args, eng.device)
         results[name] = (out, dt)
         print(f"[graph] {name:14s} {dt * 1e3:9.1f} ms  rounds={out[-1]}")
+
+    if multi_source:
+        roots = list(range(multi_source))
+        for algo, variant in registry.available():
+            spec = registry.get_spec(algo, variant)
+            if not spec.inputs or variant == "bsp" or (
+                    spec.n_budget and g.n > spec.n_budget):
+                continue          # batch only the rooted non-bsp programs
+            prog = eng.program(algo, variant, batch=multi_source)
+            name = f"{program_label(algo, variant)}_x{multi_source}"
+            out, dt = _timed(prog, (garr, roots), eng.device)
+            results[name] = (out, dt)
+            print(f"[graph] {name:14s} {dt * 1e3:9.1f} ms "
+                  f"({dt * 1e3 / multi_source:7.1f} ms/query)  "
+                  f"rounds={out[-1]}")
     print(f"[kernels] launches: spmv_ell={spmv_ell.launches} "
           f"bfs_pull={bfs_pull.launches}")
 
@@ -87,6 +111,31 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
             r_fast = eng.gather_vertex_field(results["pagerank_fast"][0][0])
             rel = np.abs(r_bsp - r_fast).max() / r_bsp.max()
             print(f"[verify] PageRank bsp-vs-fast max rel diff: {rel:.2e}")
+        if "kcore" in results:
+            print(f"[verify] k-core degeneracy: {results['kcore'][0][1]}")
+        if "betweenness" in results:
+            bc0 = float(eng.gather_vertex_field(
+                results["betweenness"][0][0])[root])
+            print(f"[verify] betweenness delta_s(s) == 0: {bc0 == 0.0}")
+        if "triangles" in results:
+            tri = eng.gather_vertex_field(results["triangles"][0][0])
+            total = results["triangles"][0][1]
+            print(f"[verify] triangles sum/3 == total: "
+                  f"{int(tri.sum()) // 3 == total} ({total:,})")
+        if multi_source:
+            for name, label in (("bfs_fast", "BFS"), ("sssp", "SSSP"),
+                                ("betweenness", "betweenness")):
+                batched = f"{name}_x{multi_source}"
+                if name not in results or batched not in results:
+                    continue
+                single, rounds = results[name][0], results[name][0][-1]
+                out = results[batched][0]
+                same = rounds == out[-1][0] and all(
+                    np.array_equal(eng.gather_batched_vertex_field(b)[0],
+                                   eng.gather_vertex_field(s))
+                    for b, s in zip(out[:-1], single[:-1]))
+                print(f"[verify] multi-source {label} root0 == "
+                      f"single-source: {same}")
     return results
 
 
@@ -99,6 +148,9 @@ def main():
                     help="torch device; default cuda (raises without one)")
     ap.add_argument("--pr-iters", type=int, default=50)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--multi-source", type=int, default=0,
+                    help="also run the rooted non-bsp programs batched "
+                         "over this many roots (0, 1, ...)")
     ap.add_argument("--layout", choices=("ell", "coo"), default="ell",
                     help="edge layout for the superstep hot loops: "
                          "blocked-ELL (kernels on CUDA) or the COO "
@@ -106,7 +158,8 @@ def main():
     ap.add_argument("--no-verify", action="store_true")
     args = ap.parse_args()
     run(args.graph, args.parts, device=args.device, pr_iters=args.pr_iters,
-        verify=not args.no_verify, seed=args.seed, layout=args.layout)
+        verify=not args.no_verify, seed=args.seed,
+        multi_source=args.multi_source, layout=args.layout)
 
 
 if __name__ == "__main__":

@@ -216,12 +216,19 @@ def forward_prefill(params: Transformer, cfg: ModelConfig, batch, *,
 # Decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, ctx_len: int,
-               device: torch.device | str = "cpu"):
-    """Zero-initialized bf16 decode cache.
+               device: torch.device | str | None = None):
+    """Zero-initialized bf16 decode cache, on the card unless ``device``
+    says otherwise (without a card it raises; pass ``device="cpu"``).
 
     Full-attention segments get (L, B, ctx, KH, D) buffers written at
     ``pos``; SWA segments get (L, B, window, KH, D) shift buffers.
     """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "init_cache puts the cache on CUDA and no CUDA device is "
+                "available; pass device='cpu' to keep it on the CPU")
+        device = "cuda"
     kh, hd = cfg.num_kv_heads, cfg.head_dim
     segs = []
     for seg in build_plan(cfg):

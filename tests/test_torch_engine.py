@@ -1,7 +1,7 @@
-"""Registry, engine and launcher of the port: the four main-path
-registrations carry the JAX package's defaults, programs are interned,
-the engine refuses to fall back to the CPU, and the launcher's verify
-lines pass."""
+"""Registry, engine and launcher of the port: the nine BSP registrations
+carry the JAX package's defaults, programs (batched and phased ones too)
+are interned, the engine refuses to fall back to the CPU, and the
+launcher's verify lines pass."""
 
 import numpy as np
 import pytest
@@ -10,11 +10,14 @@ import torch
 import oracle
 from repro.core import registry as ref_registry
 from repro_torch.core import GraphEngine, localops, partition_graph, \
-    registry
+    registry, run_program
 from repro_torch.launch import graph_analytics
 
-MAIN_PATH = [("bfs", "bsp"), ("bfs", "fast"), ("pagerank", "bsp"),
-             ("pagerank", "fast")]
+# the reference's BSP pairs this package ports, in the reference's order
+PORTED = {("bfs", "bsp"), ("bfs", "fast"), ("pagerank", "bsp"),
+          ("pagerank", "fast"), ("sssp", "default"), ("cc", "default"),
+          ("triangles", "default"), ("kcore", "default"),
+          ("betweenness", "default")}
 
 
 @pytest.fixture(scope="module")
@@ -24,17 +27,20 @@ def engine():
 
 
 def test_registrations_match_reference():
-    assert registry.available() == MAIN_PATH
-    for algo, variant in MAIN_PATH:
+    want = [pair for pair in ref_registry.available() if pair in PORTED]
+    assert registry.available() == want and len(want) == len(PORTED)
+    for algo, variant in want:
         ours = registry.get_spec(algo, variant)
         ref = ref_registry.get_spec(algo, variant)
         assert ours.defaults == ref.defaults
         assert ours.batch_defaults == ref.batch_defaults
         assert ours.inputs == ref.inputs
+        assert ours.n_budget == ref.n_budget
+        assert ours.doc == ref.doc
         assert ours.key == ref.key and ours.label == ref.label
-    for algo in ("bfs", "pagerank"):
+    for algo in {a for a, _ in want}:
         assert registry.default_variant(algo) \
-            == ref_registry.default_variant(algo) == "fast"
+            == ref_registry.default_variant(algo)
 
 
 def test_get_spec_errors():
@@ -98,6 +104,102 @@ def test_launcher_verify_lines(parts, capsys):
     assert "[verify] BFS reachability bsp==fast: True" in out
     rel = float(out.split("PageRank bsp-vs-fast max rel diff:")[1].split()[0])
     assert rel < 1e-4, out
-    assert sorted(results) == ["bfs_bsp", "bfs_fast", "pagerank_bsp",
-                               "pagerank_fast"]
+    assert "[verify] k-core degeneracy: " in out
+    assert "[verify] betweenness delta_s(s) == 0: True" in out
+    assert "[verify] triangles sum/3 == total: True" in out
+    assert sorted(results) == ["betweenness", "bfs_bsp", "bfs_fast", "cc",
+                               "kcore", "pagerank_bsp", "pagerank_fast",
+                               "sssp", "triangles"]
     assert "spmv_ell=" in out and "bfs_pull=" in out
+
+
+def test_launcher_multi_source_and_budget(capsys, monkeypatch):
+    """--multi-source batches bfs/fast, sssp and betweenness, whose root-0
+    rows equal the single-source runs; a program past its n_budget (here
+    triangles with the budget cut to 1024) is skipped with a note."""
+    import dataclasses
+    key = ("triangles", "default")
+    monkeypatch.setitem(registry._REGISTRY, key, dataclasses.replace(
+        registry.get_spec(*key), n_budget=1024))
+    results = graph_analytics.run("urand12", 2, device="cpu", pr_iters=5,
+                                  multi_source=2)
+    out = capsys.readouterr().out
+    assert "triangles" not in results
+    assert "skipped (n=4,096 exceeds its n_budget=1,024)" in out
+    assert {"bfs_fast_x2", "sssp_x2", "betweenness_x2"} <= set(results)
+    assert not {"bfs_bsp_x2", "pagerank_fast_x2", "cc_x2"} & set(results)
+    for label in ("BFS", "SSSP", "betweenness"):
+        assert f"[verify] multi-source {label} root0 == single-source: " \
+               "True" in out, out
+
+
+def test_batch_builds(engine):
+    """batch=B is part of the cache key, merges batch_defaults under
+    explicit params, refuses programs without per-query inputs and calls
+    with the wrong number of roots; batched fields gather to (B, n)."""
+    a = engine.program("bfs", "fast", batch=3)
+    assert engine.program("bfs", "fast", batch=3) is a
+    assert a is not engine.program("bfs", "fast", batch=2)
+    assert a.program is not engine.program("bfs", "fast").program
+    assert engine.program("bfs", "fast", batch=3, direction="pull") is a
+    with pytest.raises(ValueError, match="no per-query inputs"):
+        engine.program("pagerank", "fast", batch=2)
+    garr = engine.device_graph()
+    with pytest.raises(ValueError, match="batch=3"):
+        a(garr, [0, 1])
+    parents, rounds = a(garr, [3, 0, 3])
+    assert parents.shape == (engine.g.parts, 3, engine.g.n_local)
+    assert len(rounds) == 3 and rounds[0] == rounds[2]
+    rows = engine.gather_batched_vertex_field(parents)
+    assert rows.shape == (3, engine.g.n_orig)
+    single, _ = engine.program("bfs", "fast")(garr, 3)
+    np.testing.assert_array_equal(rows[0], engine.gather_vertex_field(single))
+    np.testing.assert_array_equal(rows[2], rows[0])
+
+
+def test_phased_program_through_engine(engine):
+    """betweenness is a PhasedProgram: interned like any program, its
+    rounds the sum of its phases', and static_iters runs each phase that
+    many rounds."""
+    prog = engine.program("betweenness")
+    assert engine.program("betweenness", "default") is prog
+    assert len(prog.program.phases) == 2
+    garr = engine.device_graph()
+    bc, sigma, dist, rounds = prog(garr, 3)
+    fwd, back = prog.program.phases
+    (dist1, sigma1), r1 = run_program(fwd, garr, 3)
+    (bc2, _, _), r2 = run_program(back, garr, dist1, sigma1)
+    assert rounds == r1 + r2
+    assert torch.equal(bc, bc2) and torch.equal(sigma, sigma1)
+    fixed = engine.program("betweenness", static_iters=max(r1, r2) + 2)
+    *outs, fixed_rounds = fixed(garr, 3)
+    assert fixed_rounds == 2 * (max(r1, r2) + 2)
+    assert torch.equal(outs[0], bc) and torch.equal(outs[2], dist)
+
+
+def test_prepare_runs_before_init_and_once_per_batch(engine):
+    """run_program applies prepare once before init; the batched loop
+    applies a non-phased program's prepare once for all B queries."""
+    import dataclasses
+    from repro_torch.core import run_program_batched
+    base = engine.program("sssp").program
+    seen = []
+
+    def prepare(g):
+        seen.append("prepare")
+        return base.prepare(g)
+
+    def init(g, root):
+        assert "out_weight" in g
+        seen.append("init")
+        return base.init(g, root)
+
+    prog = dataclasses.replace(base, prepare=prepare, init=init)
+    garr = engine.device_graph()
+    (dist,), rounds = run_program(prog, garr, 3)
+    assert seen == ["prepare", "init"] and "out_weight" not in garr
+    seen.clear()
+    (dists,), rounds_b = run_program_batched(prog, garr, [3, 5, 3])
+    assert seen == ["prepare", "init", "init", "init"]
+    assert rounds_b[0] == rounds_b[2] == rounds
+    assert torch.equal(dists[:, 0], dist) and torch.equal(dists[:, 2], dist)

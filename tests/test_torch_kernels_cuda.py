@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import localops, partition_graph
+from repro_torch.graphs import rmat_edges
 from repro_torch.kernels._ell import launch_tables
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -16,6 +18,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.frontier.kernel import bfs_pull, bfs_pull_buckets
 from repro_torch.kernels.frontier.ref import bfs_pull_buckets_ref, \
     bfs_pull_ref
+from repro_torch.kernels.spmv import kernel as spmv_kernel
 from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_buckets
 from repro_torch.kernels.spmv.ref import spmv_ell_buckets_ref, spmv_ell_ref
 
@@ -53,6 +56,35 @@ def test_cuda_kernels_match_plain(batch):
             0, 2, (batch, rows)).astype(np.int32)).cuda()
         assert torch.equal(bfs_pull(idx, bits, unv),
                            bfs_pull_ref(idx, bits, unv))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [1, 4])
+def test_cuda_spmv_ell_on_ell_out_table(parts):
+    """On a card: spmv_ell over a real ``ell_out`` table (a row per local
+    source vertex, slots holding out-edge positions, the sentinel E never
+    read; rmat hubs give wide buckets), as betweenness's backward combine
+    calls it: equal to the plain version and, through scatter_combine, to
+    the ``ell`` path bit for bit, in one launch per table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    g = partition_graph(rmat_edges(12, 8 << 12, seed=3), 1 << 12, parts)
+    garr = g.device_arrays("ell", "cuda")
+    meta = g.ell("ell_out")
+    vals = torch.rand((parts, g.e_max), device="cuda")
+    assert _same_bits(
+        spmv_ell_buckets(garr["ell_out_idx"], None, vals, meta.buckets,
+                         skip=meta.sentinel),
+        spmv_ell_buckets_ref(garr["ell_out_idx"], None, vals, meta.buckets,
+                             skip=meta.sentinel))
+    before = spmv_kernel.spmv_ell.launches
+    got = localops.scatter_combine(garr, meta, vals, "add", identity=0.0,
+                                   mode="kernel")
+    assert spmv_kernel.spmv_ell.launches - before \
+        == len(launch_tables(meta.buckets))
+    assert _same_bits(got, localops.scatter_combine(
+        garr, meta, vals, "add", identity=0.0, mode="ell"))
     torch.cuda.synchronize()
 
 

@@ -153,7 +153,7 @@ def test_prefill_decode_equivalence(name):
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, S)).astype(np.int32))
     lg_p, _ = forward_prefill(model, cfg, {"tokens": toks})
-    cache = init_cache(cfg, 2, S)
+    cache = init_cache(cfg, 2, S, device="cpu")
     for t in range(S):
         lg_d, cache = forward_decode(model, cfg, toks[:, t:t + 1], cache)
     np.testing.assert_allclose(_f32(lg_p), _f32(lg_d), atol=0.05, rtol=0.05)
@@ -199,3 +199,16 @@ def test_serve_needs_a_card_unless_told_cpu(monkeypatch):
     toks, _ = serve(cfg, batch=1, prompt_len=4, gen=2, device="cpu")
     assert tuple(toks.shape) == (1, 2)
     assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+
+
+def test_init_cache_needs_a_card_unless_told_cpu(monkeypatch):
+    """init_cache defaults to the card, like every other entry point:
+    without one it raises, naming device='cpu'."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke_config("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 2, 8)
+    cache = init_cache(cfg, 2, 8, device="cpu")
+    k = cache["segments"][0]["k"]
+    assert k.device.type == "cpu" and k.dtype == torch.bfloat16
+    assert k.shape[1:3] == (2, 8) and cache["pos"] == 0

@@ -151,3 +151,38 @@ def test_exchange_sum_matches_reference_across_devices(tmp_path):
             assert got.dtype == dt
             np.testing.assert_array_equal(got.float().numpy(), want,
                                           err_msg=f"{name} parts={parts}")
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_int32_exchange_sum_is_exact_and_wraps(parts):
+    """Integer payloads add in int32 like the reference's psum_scatter:
+    exact above 2**24 (a float32 sum would round 2**24 + 1) and wrapping
+    past 2**31."""
+    rng = np.random.default_rng(parts)
+    n = parts * 32
+    ints = rng.integers(-2 ** 31, 2 ** 31, (parts, n)).astype(np.int32)
+    ints[0, :4] = [2 ** 24 + 1, 2 ** 31 - 1, 2 ** 24 + 3, -2 ** 31]
+    ints[1:, :4] = [0, 1, 2 ** 24, -1]
+    want, _ = _vmapped(ref.exchange_sum, jnp.asarray(ints))
+    got = StackedComm(parts, "cpu").exchange_sum(torch.from_numpy(ints))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got[0, 0]) == 2 ** 24 + 1
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_shift_matches_reference_ring(parts):
+    """``shift`` is the reference's ppermute ring (part i to part
+    (i + 1) mod P) and taps the same bytes under op ``perm``."""
+    rng = np.random.default_rng(parts)
+    x = rng.integers(-2 ** 31, 2 ** 31, (parts, 8, 5)).astype(np.int32)
+
+    def ring(b):
+        return jax.lax.ppermute(ref._tap("perm", b, ref.AXIS), ref.AXIS,
+                                [(i, (i + 1) % parts) for i in range(parts)])
+
+    want, wire = _vmapped(ring, jnp.asarray(x))
+    comm = StackedComm(parts, "cpu")
+    np.testing.assert_array_equal(comm.shift(torch.from_numpy(x)).numpy(),
+                                  np.asarray(want))
+    assert comm.wire_by_op() == wire == {"perm": 8 * 5 * 4}
