@@ -14,6 +14,10 @@ against its plain-PyTorch version:
   partitions, triangles on an 8192-vertex urand graph, and bfs/fast, sssp
   and betweenness batched over four roots (kernel ``spmv_ell`` on
   betweenness's two combines, ``bfs_pull`` on batched bfs/fast);
+- async supersteps and the incremental programs: bfs/async, sssp/async,
+  cc/async and pagerank/async (staleness 1 and 2), cc/incremental,
+  kcore/incremental and pagerank/warm on the same partitions (kernel
+  ``spmv_ell`` on pagerank/async's and pagerank/warm's push combines);
 - LM token serving: ``launch/serve.py::serve`` on TinyLlama-1.1B at full
   width, weights drawn from a seeded ``torch.Generator`` on the card
   (kernel ``flash_attention_fwd``, one launch per prefill layer).
@@ -81,6 +85,25 @@ prints no result):
            calls): each row and its rounds equal the single-source run
            with that root, and the batched call launches what those runs
            launched.
+  async    a float64 PageRank run to convergence on the host, then at each
+           parts count, launch counters zeroed just before and read just
+           after each group: bfs/async, sssp/async and cc/async in mode
+           auto (parents, dist and labels bit-identical to the bfs/fast,
+           sssp and cc runs above, rounds within the registry's slack
+           1.5 x BSP rounds + 4, one host sync a round, no kernel) and
+           pagerank/async at staleness 1 and 2 (ASYNC_PR_PARAMS: rounds
+           under the cap, rank within 1e-4 relative of the converged
+           float64, max_age <= 2 x staleness + 1, spmv_ell launched rounds
+           + 1 times, one sync a refresh); then cc/incremental and
+           kcore/incremental from their cold seeds and from cc's labels and
+           kcore's cores (outputs equal cc's and kcore's), and pagerank/warm
+           from pagerank/fast's ranks (within 1e-4 of the converged float64,
+           spmv_ell once a round).  Every run again in mode ell:
+           bit-identical, equal rounds, no launch.  ``[async]`` lines: per
+           run rounds, ms in modes auto and ell (median of 3 after the
+           checked run), syncs, wire bytes per round by op, and the BSP
+           sibling's ms and rounds from this run; ``[async done]`` the
+           phase's seconds.
   llm-parity  flash_attention_fwd against its plain version (ref.py) on
            the shapes of tests/test_kernels_flash.py (sweep x {causal,
            causal + window 64, non-causal}, cross lengths, softcap 20,
@@ -147,6 +170,21 @@ TRI_N = 8192             # the largest graph triangles' n_budget admits
 MULTI = (("bfs", "fast"), ("sssp", "default"), ("betweenness", "default"))
 MULTI_ROOTS = (0, 1, 2, 3)
 SSSP_RTOL, SSSP_ATOL = 1e-5, 1e-4     # tests/oracle.py's sssp check
+# async supersteps and the incremental programs
+ASYNC_MONOTONE = ("bfs", "sssp", "cc")
+ASYNC_STALENESS = (1, 2)
+# pagerank/async and pagerank/warm run to convergence: at parts > 1 the
+# stale remote term slows pagerank/async to about 0.91 a round (188 and
+# 202 rounds to 1e-7 at urand16 parts 4, staleness 1 and 2, on the CPU;
+# the float32 residual fell below 1e-9 there), and 1e-7 keeps the ranks
+# far inside 1e-4 of the converged float64
+ASYNC_PR_PARAMS = {"iters": 300, "tol": 1e-7}
+INCREMENTAL = (("cc", "incremental"), ("kcore", "incremental"),
+               ("pagerank", "warm"))
+ASYNC_SIBLING = {"bfs/async": "bfs/fast", "sssp/async": "sssp",
+                 "cc/async": "cc", "pagerank/async": "pagerank/fast",
+                 "cc/incremental": "cc", "kcore/incremental": "kcore",
+                 "pagerank/warm": "pagerank/fast"}
 SIGMA_RTOL = 1e-6        # path counts (tests/oracle.py)
 BC_TOL = 1e-4            # rtol = atol of dependencies (tests/oracle.py)
 HBM_SECTOR = 32          # bytes an HBM gather moves at the least
@@ -226,8 +264,8 @@ class Port:
         sys.path.insert(0, str(SRC))
         import torch
         from repro_torch.configs import graph_workloads
-        from repro_torch.core import GraphEngine, localops, \
-            partition_graph, registry, run_program
+        from repro_torch.core import GraphEngine, incremental, localops, \
+            partition_graph, registry, run_program, superstep
         from repro_torch.core.partitioned import pack_bits
         from repro_torch.graphs import generate_edges, urand_edges
         from repro_torch.kernels import _build, _ell
@@ -262,6 +300,8 @@ class Port:
         self.generate_edges = generate_edges
         self.urand_edges = urand_edges
         self.run_program = run_program
+        self.incremental = incremental
+        self.superstep = superstep
         self.build = _build
         self.ell = _ell
         self.frontier_kernel = frontier_kernel
@@ -1261,10 +1301,14 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
 
     # -- the rest of the BSP suite and multi-source -----------------------
     bsp = run_bsp(port, m, engines, device)
+    # -- async supersteps and the incremental programs -------------------
+    asy = run_async(port, m, engines, main, bsp, program_ms)
     return {"launches": main_launches, "parity_err": parity_err,
             "kernel_cells": kernel_cells, "parts": max(parts_list),
             "bsp_launches": bsp["launches"],
-            "multi_launches": bsp["multi_launches"]}
+            "multi_launches": bsp["multi_launches"],
+            "async_launches": asy["launches"],
+            "inc_launches": asy["inc_launches"]}
 
 def suite_fields(eng, prog, outs) -> dict:
     """Output name -> host value (vertex fields gathered to numpy)."""
@@ -1543,7 +1587,249 @@ def run_bsp(port: Port, m, engines: dict, device) -> dict:
     log("[times] " + json.dumps({"bsp": times, "errors": errs,
                                  "seconds": secs}, default=str))
     log(f"[bsp done] {secs:.1f} s")
-    return {"launches": launches, "multi_launches": multi_launches}
+    return {"launches": launches, "multi_launches": multi_launches,
+            "auto": auto, "times": times}
+
+
+# ---------------------------------------------------------------------------
+# async supersteps and the incremental programs
+# ---------------------------------------------------------------------------
+
+class SyncCounter:
+    """Counts ``Tensor.item`` calls (the async loops' device-to-host
+    syncs) while active."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.count = 0
+
+    def __enter__(self):
+        item = self._item = self.torch.Tensor.item
+
+        def counted(t):
+            self.count += 1
+            return item(t)
+
+        self.torch.Tensor.item = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.Tensor.item = self._item
+
+
+def pagerank_f64_converged(m, tol: float = 1e-13,
+                           max_rounds: int = 400) -> np.ndarray:
+    """The float64 power iteration of ``pagerank_f64`` run until the L1
+    change of a round is below ``tol`` (raises if it is not within
+    ``max_rounds``)."""
+    n = m.shape[0]
+    out_deg = np.asarray(m.sum(axis=1)).ravel()
+    inv = np.where(out_deg > 0, 1.0 / np.maximum(out_deg, 1.0), 0.0)
+    base = (1.0 - ALPHA) / n
+    mt = m.T.tocsr()
+    r = np.full(n, 1.0 / n)
+    for _ in range(max_rounds):
+        new = base + ALPHA * (mt @ (r * inv))
+        delta, r = np.abs(new - r).sum(), new
+        if delta < tol:
+            return r
+    raise AssertionError(f"float64 PageRank not converged in {max_rounds} "
+                         f"rounds (L1 change {delta:.3e})")
+
+
+def async_run(port: Port, eng, garr, algo: str, variant: str, args,
+              mode: str = "auto", **params) -> dict:
+    """One run under local-ops ``mode``: host fields, rounds, syncs,
+    launches and wire bytes per round by op."""
+    torch = port.torch
+    with port.localops.using(mode):
+        prog = eng.program(algo, variant, **params)
+    eng.comm.reset_wire()
+    before = port.launches()
+    with SyncCounter(torch) as syncs:
+        *outs, rounds = prog(garr, *args)
+        _sync(torch, eng.device)
+    after = port.launches()
+    return {"fields": suite_fields(eng, prog, outs), "rounds": rounds,
+            "syncs": syncs.count, "prog": prog, "args": args,
+            "params": params,
+            "launches": {k: after[k] - before[k] for k in after},
+            "wire": {op: b // max(rounds, 1)
+                     for op, b in eng.comm.wire_by_op().items()}}
+
+
+def run_async(port: Port, m, engines: dict, main: dict, bsp: dict,
+              program_ms: dict) -> dict:
+    """The async programs and the incremental variants on the main
+    path's partitions: in local-ops mode auto (launch counters zeroed
+    just before and read just after each of the two groups), checked
+    against the BSP programs of the main and bsp phases and a converged
+    float64 PageRank; then in mode ell (bit-identical, no launches);
+    then timed beside their BSP siblings."""
+    torch = port.torch
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    want_rank = pagerank_f64_converged(m)
+    log(f"[async] float64 PageRank converged in "
+        f"{time.perf_counter() - t0:.1f} s")
+    slack = (port.superstep.ASYNC_ROUNDS_SLACK_FACTOR,
+             port.superstep.ASYNC_ROUNDS_SLACK_CONST)
+
+    # -- the async programs, mode auto: counts zeroed around them -------
+    port.reset_launches()
+    runs = {}
+    for parts, (_, eng, garr) in engines.items():
+        for algo in ASYNC_MONOTONE:
+            runs[parts, f"{algo}/async"] = async_run(
+                port, eng, garr, algo, "async",
+                (ROOT,) if algo != "cc" else ())
+        for s in ASYNC_STALENESS:
+            runs[parts, f"pagerank/async s={s}"] = async_run(
+                port, eng, garr, "pagerank", "async", (), staleness=s,
+                **ASYNC_PR_PARAMS)
+    async_launches = port.launches()
+    log(f"[async] launches {async_launches}")
+
+    # -- the incremental programs, mode auto: counts zeroed around them --
+    port.reset_launches()
+    for parts, (g, eng, garr) in engines.items():
+        auto = bsp["auto"][parts]
+        warm = {"cc": auto["cc"]["fields"]["labels"],
+                "kcore": auto["kcore"]["fields"]["core"],
+                "pagerank": main[parts]["pagerank/fast"]["field"]}
+        for algo, variant in INCREMENTAL:
+            spec = port.registry.get_spec(algo, variant)
+            seeds = {"warm": warm[algo]}
+            if algo != "pagerank":
+                (seeds["cold"],) = port.incremental.cold_seed(spec, g)
+            for kind, seed in seeds.items():
+                runs[parts, f"{algo}/{variant} {kind}"] = async_run(
+                    port, eng, garr, algo, variant,
+                    (eng.scatter_vertex_field(seed),),
+                    **(ASYNC_PR_PARAMS if algo == "pagerank" else {}))
+    inc_launches = port.launches()
+    log(f"[incremental] launches {inc_launches}")
+
+    # -- checks against the BSP programs and float64 ---------------------
+    want_async = want_inc = 0
+    # spmv_ell launches once per launch table of a push combine's call
+    tables = {parts: len(port.ell.launch_tables(g.ell_meta["ell_dst"]
+                                                .buckets))
+              for parts, (g, _, _) in engines.items()}
+    for (parts, label), r in runs.items():
+        what = f"parts={parts} {label}"
+        f = r["fields"]
+        algo = label.split("/")[0]
+        auto = bsp["auto"][parts]
+        if label.startswith(("pagerank/async", "pagerank/warm")):
+            r["rank_err"] = err = max_rel(f["rank"], want_rank)
+            check(r["rounds"] < ASYNC_PR_PARAMS["iters"],
+                  f"{what}: not converged in {r['rounds']} rounds "
+                  f"(err {f['err']:.3e})")
+            check(err < PR_F64_TOL, f"{what}: max rel err {err:.3e} vs "
+                                    f"converged float64")
+            if label.startswith("pagerank/async"):
+                s = r["params"]["staleness"]
+                check(f["max_age"] <= 2 * s + 1,
+                      f"{what}: max_age {f['max_age']} > {2 * s + 1}")
+                want = (r["rounds"] + 1) * tables[parts]
+                syncs = -(-r["rounds"] // s)
+                want_async += want
+            else:
+                want = r["rounds"] * tables[parts]
+                want_inc += want
+            check(r["launches"]["spmv_ell"] == want
+                  and r["launches"]["bfs_pull"] == 0,
+                  f"{what}: launches {r['launches']}, want spmv_ell {want}")
+            if label.startswith("pagerank/async"):
+                check(r["syncs"] == syncs,
+                      f"{what}: {r['syncs']} syncs in {r['rounds']} rounds")
+            continue
+        check(sum(r["launches"].values()) == 0,
+              f"{what}: launched {r['launches']}")
+        if label.endswith("/async"):
+            if algo == "bfs":
+                want = {"parents": main[parts]["bfs/fast"]["field"]}
+                bsp_rounds = main[parts]["bfs/fast"]["rounds"]
+            else:
+                want = auto[algo]["fields"]
+                bsp_rounds = auto[algo]["rounds"]
+            cap = slack[0] * bsp_rounds + slack[1]
+            check(r["rounds"] <= cap,
+                  f"{what}: {r['rounds']} rounds, past {slack[0]} x "
+                  f"{bsp_rounds} + {slack[1]}")
+            check(r["syncs"] == r["rounds"],
+                  f"{what}: {r['syncs']} syncs in {r['rounds']} rounds")
+        else:
+            want = auto[algo]["fields"]
+        check(same_fields(f, want),
+              f"{what}: outputs differ from the BSP program's")
+    check(async_launches["spmv_ell"] == want_async > 0
+          and async_launches["bfs_pull"] == 0,
+          f"async path: spmv_ell {async_launches['spmv_ell']} launches, "
+          f"want {want_async}")
+    check(inc_launches["spmv_ell"] == want_inc > 0
+          and inc_launches["bfs_pull"] == 0,
+          f"incremental path: spmv_ell {inc_launches['spmv_ell']} "
+          f"launches, want {want_inc}")
+    log("[async] bfs/sssp/cc async == bfs/fast, sssp and cc bit for bit "
+        "within the rounds slack, no kernel, one sync a round; "
+        "pagerank/async and pagerank/warm converged within "
+        f"{PR_F64_TOL} of float64, spmv_ell once a round (+1 at init for "
+        "async); cc/incremental == cc, kcore/incremental == kcore from "
+        "cold and warm seeds")
+
+    # -- mode ell: bit-identical, equal rounds, no launches ---------------
+    plain = {}
+    for (parts, label), r in runs.items():
+        _, eng, garr = engines[parts]
+        spec = r["prog"].spec
+        p = async_run(port, eng, garr, spec.algo, spec.variant, r["args"],
+                      mode="ell", **r["params"])
+        check(p["rounds"] == r["rounds"]
+              and same_fields(p["fields"], r["fields"])
+              and sum(p["launches"].values()) == 0,
+              f"parts={parts} {label}: mode ell gives other outputs or "
+              f"rounds ({p['rounds']} vs {r['rounds']}), or launched")
+        plain[parts, label] = p
+    log("[async] mode ell: every run bit-identical to mode auto, rounds "
+        "equal, no launches")
+
+    # -- times -----------------------------------------------------------
+    times = {}
+    for (parts, label), r in runs.items():
+        _, eng, garr = engines[parts]
+        sib = ASYNC_SIBLING[label.split(" ")[0]]
+        sib_cell = program_ms.get(f"{sib}/parts={parts}") \
+            or bsp["times"][f"{sib}/parts={parts}"]
+        cell = {"rounds": r["rounds"], "syncs": r["syncs"],
+                "wire_per_round": r["wire"],
+                "launches": r["launches"]["spmv_ell"],
+                "ms": median_ms(torch, eng.device,
+                                lambda: r["prog"](garr, *r["args"])),
+                "plain_ms": median_ms(
+                    torch, eng.device,
+                    lambda: plain[parts, label]["prog"](garr, *r["args"])),
+                "bsp": sib, "bsp_ms": sib_cell["ms"],
+                "bsp_rounds": sib_cell["rounds"]}
+        if "rank_err" in r:
+            cell["rank_err"] = r["rank_err"]
+        if "max_age" in r["fields"]:
+            cell["max_age"] = r["fields"]["max_age"]
+        times[f"{label}/parts={parts}"] = cell
+        log(f"[async] parts={parts} {label:24s} rounds={cell['rounds']:3d} "
+            f"auto {cell['ms']:9.2f} ms  ell {cell['plain_ms']:9.2f} ms  "
+            f"syncs {cell['syncs']:3d}  wire/round {cell['wire_per_round']}"
+            f"  {sib} {cell['bsp_ms']:.2f} ms in {cell['bsp_rounds']} rounds"
+            + (f"  rank err {cell['rank_err']:.2e}" if "rank_err" in cell
+               else "")
+            + (f"  max_age {cell['max_age']}" if "max_age" in cell
+               else ""))
+    secs = time.perf_counter() - t_phase
+    log("[times] " + json.dumps({"async": times, "seconds": secs},
+                                default=str))
+    log(f"[async done] {secs:.1f} s")
+    return {"launches": async_launches, "inc_launches": inc_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1847,11 +2133,13 @@ def kernels_record(result: dict, llm: dict) -> dict:
     ell_in buckets and bfs_pull at bfs/fast's, at the largest parts
     count; flash_attention_fwd at one TinyLlama prefill layer.  A graph
     kernel's launches are those of every path it runs on (the main path,
-    the rest of the BSP suite, multi-source), each counted from zero
-    around its run."""
+    the rest of the BSP suite, multi-source, the async programs, the
+    incremental ones), each counted from zero around its run."""
     p = result["parts"]
     paths = {"graph-main": result["launches"], "bsp-suite":
-             result["bsp_launches"], "multi-source": result["multi_launches"]}
+             result["bsp_launches"], "multi-source": result["multi_launches"],
+             "async": result["async_launches"],
+             "incremental": result["inc_launches"]}
     rows = []
     for name, src, replaces, cell_key, design in (
             ("spmv_ell", "src/repro_torch/kernels/spmv/csrc/spmv_ell.cu",

@@ -2,8 +2,9 @@
 
 Generates a small Erdos-Renyi graph, runs distributed BFS and PageRank
 through ``GraphEngine.program`` (the HPX-adapted ``fast`` variants),
-checks both against a numpy oracle, and runs a batched multi-source BFS
-(many roots, one graph residency).  Runs on the CUDA card by default;
+checks both against a numpy oracle, runs a batched multi-source BFS
+(many roots, one graph residency) and the async BFS (the double-buffered
+superstep loop, same parents).  Runs on the CUDA card by default;
 ``--device cpu`` runs the plain-PyTorch versions of the kernels.
 
   PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
@@ -78,5 +79,11 @@ per_root = eng.gather_batched_vertex_field(parents_b)   # (B, n)
 np.testing.assert_array_equal(per_root[0], par)         # root 0 == above
 assert levels_b[0] == levels
 print(f"multi-source BFS: {B} roots, levels per root = {levels_b}")
+
+# --- async BFS: levels by min-combine on the double-buffered exchange ---
+abfs = eng.program("bfs", exec_mode="async")     # is program("bfs", "async")
+parents_a, rounds_a = abfs(garr, 0)
+np.testing.assert_array_equal(eng.gather_vertex_field(parents_a), par)
+print(f"async BFS: {rounds_a} rounds, parents == bfs/fast's")
 print(f"device: {eng.device}")
 print("OK")

@@ -14,7 +14,11 @@ context, and interns the callable keyed on algorithm + params + batch +
 graph shapes + (device, parts) + layout and local-ops mode: repeated
 calls return the SAME object.  ``batch=B`` builds the multi-source
 variant: the call takes B values per input (e.g. B roots) and vertex
-outputs gain a batch dim, ``(P, B, n_local)``.
+outputs gain a batch dim, ``(P, B, n_local)``.  ``exec_mode="async"``
+picks an algo's double-buffered variant (``program("bfs",
+exec_mode="async")`` is ``program("bfs", "async")``).  Vertex-field
+inputs (the incremental variants' seeds) are ``(P, n_local)`` tensors
+from :meth:`GraphEngine.scatter_vertex_field`.
 """
 
 from __future__ import annotations
@@ -27,8 +31,8 @@ import torch
 from repro_torch.core import localops, registry
 from repro_torch.core.graph import GraphShards
 from repro_torch.core.partitioned import StackedComm
-from repro_torch.core.superstep import PhasedProgram, SuperstepProgram, \
-    run_program, run_program_batched
+from repro_torch.core.superstep import AsyncSuperstepProgram, \
+    PhasedProgram, SuperstepProgram, run_program, run_program_batched
 
 
 class CompiledProgram:
@@ -43,7 +47,8 @@ class CompiledProgram:
     """
 
     def __init__(self, spec: registry.ProgramSpec,
-                 program: SuperstepProgram | PhasedProgram, mode: str,
+                 program: SuperstepProgram | PhasedProgram
+                 | AsyncSuperstepProgram, mode: str,
                  static_iters: int = 0, batch: int | None = None):
         self.spec = spec
         self.program = program
@@ -99,21 +104,47 @@ class GraphEngine:
 
     def program(self, algo: str, variant: str | None = None, *,
                 static_iters: int = 0, batch: int | None = None,
+                exec_mode: str | None = None,
                 **params) -> CompiledProgram:
         """Resolve, build and cache an algorithm program.
 
         ``static_iters > 0`` replaces the early-exit loop with a fixed
         trip count.  ``batch=B`` builds the multi-source variant (only
-        for programs with per-query inputs), with the spec's
-        ``batch_defaults`` under explicit params.  Params are normalized
+        for programs with scalar per-query inputs), with the spec's
+        ``batch_defaults`` under explicit params.  ``exec_mode`` selects
+        the loop by mode: with a bare algo it re-resolves to the algo's
+        variant of that mode (the same cache entry as naming it); with an
+        explicit variant a mismatch raises.  Params are normalized
         against the spec's defaults so an explicitly spelled default hits
         the same cache entry.
         """
+        bare = variant is None and "/" not in algo
         spec = registry.get_spec(algo, variant)
+        if exec_mode is not None and spec.exec_mode != exec_mode:
+            if exec_mode not in registry.EXEC_MODES:
+                raise ValueError(
+                    f"exec_mode {exec_mode!r} not in {registry.EXEC_MODES}")
+            if not bare:
+                raise ValueError(
+                    f"{spec.key} is a {spec.exec_mode} program; "
+                    f"exec_mode={exec_mode!r} contradicts the explicit "
+                    f"variant — drop one (mode-variants: "
+                    f"{registry.mode_variant(spec.algo, exec_mode)!r})")
+            alt = registry.mode_variant(spec.algo, exec_mode)
+            if alt is None:
+                raise ValueError(
+                    f"{spec.algo} has no {exec_mode} variant; "
+                    f"async-capable pairs: "
+                    f"{['/'.join(p) for p in registry.async_pairs()]}")
+            spec = registry.get_spec(spec.algo, alt)
         if batch is not None and not spec.inputs:
             raise ValueError(
                 f"{spec.key} takes no per-query inputs; batch={batch} has "
                 f"nothing to batch over")
+        if batch is not None and any(k != "scalar" for k in spec.input_kinds):
+            raise ValueError(
+                f"{spec.key} takes whole vertex-field inputs "
+                f"{spec.inputs}; only scalar per-query inputs batch")
         batch_over = spec.batch_defaults if batch is not None else {}
         params = {**spec.defaults, **batch_over, **params}
         g = self.g

@@ -14,6 +14,9 @@ Paper mapping (SS4.1):
     frontier occupancy = the paper's runtime adaptivity), BIT-PACKED
     frontier exchange (n/32 words: 32x less wire than the baseline), and
     parents derived owner-side from in-edges (no parent traffic).
+  * ``bfs/async`` -- levels by monotone min-combine on the
+    double-buffered exchange (``core/monotone.py``), the halt count
+    riding the level payload; parents derived once after convergence.
 
 The per-level local edge work routes through ``core/localops.py``: the
 push-combine is ``scatter_combine`` over ``ell_dst`` and owner-side
@@ -27,9 +30,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import localops
+from repro_torch.core.monotone import monotone_async_program
 from repro_torch.core.partitioned import StackedComm, pack_bits, \
     unpack_bits
-from repro_torch.core.superstep import SuperstepProgram
+from repro_torch.core.superstep import AsyncSuperstepProgram, \
+    SuperstepProgram
 
 INT_INF = 2 ** 30
 
@@ -184,3 +189,45 @@ def bfs_fast_program(shards, comm: StackedComm, max_levels: int = 64,
         outputs=lambda state: (state[0],),
         output_names=("parents",), output_is_vertex=(True,),
         comm=comm, max_rounds=max_levels)
+
+
+def bfs_async_program(shards, comm: StackedComm, max_levels: int = 64,
+                      local_iters: int = 1) -> AsyncSuperstepProgram:
+    """Async BFS on the double-buffered exchange.
+
+    Per-level parent proposals do not survive staleness (a stale frontier
+    can propose a parent one level too deep), so the async variant
+    computes LEVELS by monotone min-combine (unit-weight SSSP), with the
+    halt count piggybacked on the level exchange, and then derives the
+    parents in one ``pull_min_eq`` over in-edges: the min-id in-neighbor
+    one level up, the BSP variants' rule, from exact levels.
+    """
+    n, n_local = shards.n, shards.n_local
+    ell_in = shards.ell("ell_in")
+    ell_dst = shards.ell("ell_dst")
+
+    def init_vals(g, root):
+        _, at_root = _seed_state(comm, root, n_local)
+        return torch.where(at_root, 0, INT_INF).to(torch.int32), at_root
+
+    def relax(g, level, frontier):
+        srcl = g["out_src_local"]
+        active = torch.gather(frontier, 1, srcl) & (g["out_dst_global"] < n)
+        return localops.scatter_combine(
+            g, ell_dst,
+            torch.where(active, torch.gather(level, 1, srcl) + 1, INT_INF),
+            "min", identity=INT_INF)
+
+    def outputs(g, level):
+        # parent of v = min-id in-neighbor exactly one level up; the root
+        # (level 0) is its own parent, unreached rows stay INT_INF (their
+        # target INT_INF - 1 matches no real level)
+        prop = localops.pull_min_eq(g, ell_in, comm.broadcast_global(level),
+                                    level - 1)
+        return (torch.where(level == 0, comm.gid(n_local), prop),)
+
+    return monotone_async_program(
+        name="bfs", inputs=("root",), init_vals=init_vals, relax=relax,
+        outputs=outputs, output_names=("parents",),
+        output_is_vertex=(True,), n=n, n_local=n_local, inf=INT_INF,
+        comm=comm, local_iters=local_iters, max_rounds=max_levels)

@@ -12,6 +12,9 @@ three primitives, each over stacked ``(P, ...)`` tensors:
   ``scatter_combine(g, ell, vals, op, identity=...)``
       combine per-edge values into a per-row accumulator with
       op in {add, min, max, or} - the generalized push combine.
+  ``pull_min_eq(g, ell, xg, target)``
+      min-id in-neighbor u of v with ``xg[u] == target[v]``, or INT_INF
+      (bfs/async's parents from converged levels; ref and ell only).
 
 Each primitive has THREE implementations:
 
@@ -232,6 +235,56 @@ def frontier_pull(g: dict, ell: EllMeta, bits: torch.Tensor,
         hit = ((word >> (blk & 31)) & 1) == 1
         cand = torch.where(hit, blk, INT_INF).amin(dim=2)
         outs.append(torch.where(unv_ell[:, r0:r0 + rows], cand, INT_INF))
+    return _to_rows(torch.cat(outs, dim=1), g[f"{ell.name}_inv"])
+
+
+# ---------------------------------------------------------------------------
+# pull_min_eq
+# ---------------------------------------------------------------------------
+
+def pull_min_eq(g: dict, ell: EllMeta, xg: torch.Tensor,
+                target: torch.Tensor, *,
+                mode: str | None = None) -> torch.Tensor:
+    """Min-id in-neighbor ``u`` of each row ``v`` with ``xg[u] ==
+    target[v]``, or INT_INF when none matches.
+
+    The level-keyed form of :func:`frontier_pull`: each row names the
+    value it wants (``target``, e.g. ``level[v] - 1``), and slots whose
+    global field ``xg`` (P, n) equals it qualify; bfs/async derives every
+    level's parents in one pull.  ``ell`` must be the neighbor-id
+    structure (``ell_in``).  No kernel applies, so modes ``kernel`` and
+    ``auto`` take the ell path, as in the JAX package.
+    """
+    mode = mode or get_mode()
+    if mode not in MODES:
+        raise ValueError(f"localops mode {mode!r} not in {MODES}")
+    n = ell.sentinel
+    if mode == "ref" or not _has_ell(g, ell):
+        src = g["in_src_global"]
+        dstl = g["in_dst_local"]
+        valid = src < n
+        hit = valid & (torch.gather(xg, 1, torch.where(valid, src, 0))
+                       == torch.gather(target, 1, dstl))
+        out = torch.full((xg.shape[0], ell.n_rows), INT_INF,
+                         dtype=torch.int32, device=xg.device)
+        return out.scatter_reduce_(
+            1, torch.where(hit, dstl, ell.n_rows - 1).long(),
+            torch.where(hit, src, INT_INF), "amin")
+
+    idx = g[f"{ell.name}_idx"]
+    tgt_ell = torch.gather(target, 1, g[f"{ell.name}_perm"])
+    # sentinel n indexes one slot past xg: append a guard no real target
+    # equals (INT_INF; targets are levels < n, or INT_INF - 1 for
+    # unreached rows)
+    xg_g = _with_pad(xg, INT_INF)
+    outs = []
+    for r0, rows, k, blk in bucket_views(idx, ell.buckets):
+        if k == 0:
+            outs.append(torch.full((xg.shape[0], rows), INT_INF,
+                                   dtype=torch.int32, device=xg.device))
+            continue
+        hit = _gather_rows(xg_g, blk) == tgt_ell[:, r0:r0 + rows, None]
+        outs.append(torch.where(hit, blk, INT_INF).amin(dim=2))
     return _to_rows(torch.cat(outs, dim=1), g[f"{ell.name}_inv"])
 
 

@@ -7,9 +7,18 @@ so adding a workload is ONE registration plus an algorithm module.
 
 Registered pairs, in the JAX package's order and with its defaults:
 ``bfs/bsp``, ``bfs/fast``, ``pagerank/bsp``, ``pagerank/fast``,
-``sssp``, ``cc``, ``triangles``, ``kcore`` and ``betweenness``
+``sssp``, ``cc``, ``triangles``, ``kcore``, ``pagerank/warm``,
+``cc/incremental``, ``kcore/incremental``, ``betweenness``,
+``bfs/async``, ``pagerank/async``, ``cc/async`` and ``sssp/async``
 (single-variant algorithms use the ``"default"`` variant and may be
 addressed by bare algo name).
+
+Inputs come in KINDS: ``"scalar"`` per-query values (a root vertex,
+batchable) and ``"vertex_i32"`` / ``"vertex_f32"`` whole vertex fields
+(the seeds of the incremental variants, never batched).  Every spec
+carries an ``exec_mode``: ``"bsp"`` programs run the barrier-per-round
+loop, ``"async"`` programs the double-buffered ``run_program_async``
+(``core/superstep.py``); :func:`mode_variant` resolves an algo by mode.
 """
 
 from __future__ import annotations
@@ -20,27 +29,50 @@ from typing import Callable
 from repro_torch.core import betweenness as _bc
 from repro_torch.core import bfs as _bfs
 from repro_torch.core import cc as _cc
+from repro_torch.core import incremental as _inc
 from repro_torch.core import kcore as _kcore
 from repro_torch.core import pagerank as _pr
 from repro_torch.core import sssp as _sssp
 from repro_torch.core import triangles as _tri
 from repro_torch.core.graph import GraphShards
 from repro_torch.core.partitioned import StackedComm
-from repro_torch.core.superstep import PhasedProgram, SuperstepProgram
+from repro_torch.core.superstep import AsyncSuperstepProgram, \
+    PhasedProgram, SuperstepProgram
+
+INPUT_KINDS = ("scalar", "vertex_i32", "vertex_f32")
+EXEC_MODES = ("bsp", "async")
+
+
+@dataclass(frozen=True)
+class IncrementalSpec:
+    """Dynamic-graph metadata of a seeded program variant.
+
+    ``of`` names the algorithm this variant refreshes; ``seed_output`` is
+    the output of ``of``'s programs whose previous-epoch value seeds this
+    one; ``mutations`` states the mutation kinds the WARM seed stays
+    exact under ("insert", "delete" or "any").  It gates only the seed
+    choice: every incremental program is exact from its cold seed
+    (``incremental.cold_seed``).
+    """
+
+    of: str
+    seed_output: str
+    mutations: str
 
 
 @dataclass(frozen=True)
 class ProgramSpec:
     """One algorithm x variant entry.
 
-    ``make(g, comm, **params)`` builds the SuperstepProgram against a
-    graph's shape metadata and an exchange context; ``params`` beyond
+    ``make(g, comm, **params)`` builds the program against a graph's
+    shape metadata and an exchange context; ``params`` beyond
     ``defaults`` are rejected up front so typos fail fast.
     """
 
     algo: str
     variant: str
-    make: Callable[..., SuperstepProgram | PhasedProgram]
+    make: Callable[..., SuperstepProgram | PhasedProgram
+                   | AsyncSuperstepProgram]
     inputs: tuple[str, ...]              # per-query inputs ("root",) or ()
     defaults: dict = field(default_factory=dict)
     doc: str = ""
@@ -52,6 +84,30 @@ class ProgramSpec:
     # direction="pull" as the JAX package's vmapped build must.
     # Explicit caller params always win.
     batch_defaults: dict = field(default_factory=dict)
+    # one kind per entry of ``inputs``; all "scalar" when left empty
+    input_kinds: tuple[str, ...] = ()
+    # set on the seeded dynamic-graph variants
+    incremental: IncrementalSpec | None = None
+    # the loop the built program runs under: "bsp" or "async"
+    exec_mode: str = "bsp"
+
+    def __post_init__(self):
+        if not self.input_kinds:
+            object.__setattr__(self, "input_kinds",
+                               ("scalar",) * len(self.inputs))
+        if len(self.input_kinds) != len(self.inputs):
+            raise ValueError(
+                f"{self.algo}/{self.variant}: {len(self.inputs)} inputs "
+                f"but {len(self.input_kinds)} input_kinds")
+        bad = set(self.input_kinds) - set(INPUT_KINDS)
+        if bad:
+            raise ValueError(
+                f"{self.algo}/{self.variant}: unknown input kinds "
+                f"{sorted(bad)}; valid: {INPUT_KINDS}")
+        if self.exec_mode not in EXEC_MODES:
+            raise ValueError(
+                f"{self.algo}/{self.variant}: exec_mode "
+                f"{self.exec_mode!r} not in {EXEC_MODES}")
 
     @property
     def key(self) -> str:
@@ -63,8 +119,8 @@ class ProgramSpec:
         """Filesystem/record-safe spelling: "bfs_fast"."""
         return program_label(self.algo, self.variant)
 
-    def build(self, g: GraphShards, comm: StackedComm,
-              **params) -> SuperstepProgram | PhasedProgram:
+    def build(self, g: GraphShards, comm: StackedComm, **params) \
+            -> SuperstepProgram | PhasedProgram | AsyncSuperstepProgram:
         unknown = set(params) - set(self.defaults)
         if unknown:
             raise TypeError(
@@ -145,6 +201,32 @@ def available() -> list[tuple[str, str]]:
     return list(_REGISTRY)
 
 
+def variants(algo: str) -> list[str]:
+    return [v for (a, v) in _REGISTRY if a == algo]
+
+
+def async_pairs() -> list[tuple[str, str]]:
+    """All registered pairs whose programs run the async loop."""
+    return [k for k, spec in _REGISTRY.items() if spec.exec_mode == "async"]
+
+
+def mode_variant(algo: str, exec_mode: str) -> str | None:
+    """The variant bare-``algo`` resolution picks under ``exec_mode``:
+    the algo's default variant for ``"bsp"``, its first registered async
+    variant for ``"async"`` (``None`` when the algo has none, e.g.
+    ``triangles``, whose rotation is barrier-shaped)."""
+    if exec_mode not in EXEC_MODES:
+        raise ValueError(f"exec_mode {exec_mode!r} not in {EXEC_MODES}")
+    if exec_mode == "bsp":
+        v = _DEFAULT_VARIANT.get(algo)
+        return v if v is not None \
+            and _REGISTRY[(algo, v)].exec_mode == "bsp" else None
+    for (a, v), spec in _REGISTRY.items():
+        if a == algo and spec.exec_mode == "async":
+            return v
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Built-in programs.  Factories receive the GraphShards for its shape
 # and blocked-ELL metadata only; the device arrays arrive per call
@@ -217,6 +299,42 @@ register(ProgramSpec(
         "exchange; degeneracy rides as a scalar output"), default=True)
 
 register(ProgramSpec(
+    algo="pagerank", variant="warm",
+    make=lambda g, comm, **p: _pr.pagerank_fast_program(g, comm,
+                                                        seeded=True, **p),
+    inputs=("rank0",), input_kinds=("vertex_f32",),
+    defaults={"iters": 300, "tol": 1e-6, "compress": False,
+              "err_every": 1},
+    incremental=IncrementalSpec(of="pagerank", seed_output="rank",
+                                mutations="any"),
+    doc="push-aggregate PageRank warm-restarted from a previous epoch's "
+        "rank vector; same fixed point from any seed, so it is exact "
+        "after ANY mutation batch — the seed only buys fewer rounds"))
+
+register(ProgramSpec(
+    algo="cc", variant="incremental",
+    make=lambda g, comm, **p: _cc.cc_program(g, comm, seeded=True, **p),
+    inputs=("labels0",), input_kinds=("vertex_i32",),
+    defaults={"max_rounds": 128},
+    incremental=IncrementalSpec(of="cc", seed_output="labels",
+                                mutations="insert"),
+    doc="min-label propagation warm-started from a previous epoch's "
+        "labels: exact after insert-only batches (components only "
+        "merge); identity seed = the cold start"))
+
+register(ProgramSpec(
+    algo="kcore", variant="incremental",
+    make=lambda g, comm, **p: _inc.kcore_incremental_program(g, comm, **p),
+    inputs=("core0",), input_kinds=("vertex_i32",),
+    defaults={"max_rounds": 2048},
+    incremental=IncrementalSpec(of="kcore", seed_output="core",
+                                mutations="delete"),
+    doc="local support-decrement peeling from a previous epoch's core "
+        "numbers: exact from ANY pointwise upper bound, so old cores "
+        "are valid after delete-only batches and the degree bound is "
+        "the cold start"))
+
+register(ProgramSpec(
     algo="betweenness", variant="default",
     make=lambda g, comm, **p: _bc.betweenness_program(g, comm, **p),
     inputs=("root",), defaults={"max_levels": 64},
@@ -224,3 +342,41 @@ register(ProgramSpec(
         "then a dependency-accumulation backward sweep (the first "
         "two-phase program; sum over batched sources for centrality)"),
     default=True)
+
+# -- async (double-buffered) variants: stale-tolerant programs on
+#    run_program_async, each held to the same oracle as its BSP sibling
+
+register(ProgramSpec(
+    algo="bfs", variant="async", exec_mode="async",
+    make=lambda g, comm, **p: _bfs.bfs_async_program(g, comm, **p),
+    inputs=("root",), defaults={"max_levels": 64, "local_iters": 1},
+    doc="async BFS: monotone min-combine levels overlap the in-flight "
+        "exchange, halt count piggybacked on the level payload (no "
+        "separate psum), parents derived post-loop from exact levels"))
+
+register(ProgramSpec(
+    algo="pagerank", variant="async", exec_mode="async",
+    make=lambda g, comm, **p: _pr.pagerank_async_program(g, comm, **p),
+    inputs=(),
+    defaults={"iters": 64, "tol": 1e-6, "staleness": 1},
+    doc="bounded-staleness push PageRank: fresh own-slice term every "
+        "round, remote term refreshed every `staleness` rounds by the "
+        "double-buffered reduce-scatter with the residual piggybacked; "
+        "remote age provably <= 2*staleness+1 (reported as max_age)"))
+
+register(ProgramSpec(
+    algo="cc", variant="async", exec_mode="async",
+    make=lambda g, comm, **p: _cc.cc_async_program(g, comm, **p),
+    inputs=(), defaults={"max_rounds": 64, "local_iters": 1},
+    doc="async min-label propagation: both edge directions share one "
+        "min-accumulator exchange per round; staleness-exact (labels "
+        "only decrease under idempotent min-combine)"))
+
+register(ProgramSpec(
+    algo="sssp", variant="async", exec_mode="async",
+    make=lambda g, comm, **p: _sssp.sssp_async_program(g, comm, **p),
+    inputs=("root",),
+    defaults={"max_rounds": 64, "local_iters": 1, "weight_scale": 1.0},
+    doc="async Bellman-Ford: local closure relaxes own-partition "
+        "improvements while the distance exchange is in flight; "
+        "staleness-exact under min-combine"))

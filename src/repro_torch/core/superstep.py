@@ -17,7 +17,11 @@ repeat:
   * round accounting (the returned round count is loop state, not
     program state).
 
-A :class:`PhasedProgram` chains programs (each phase's outputs seed the
+An :class:`AsyncSuperstepProgram` splits each round into ``local``
+(compute on resident data) and ``fold`` (finish the exchange started a
+round earlier, apply it, start the next), and runs under
+:func:`run_program_async`, to which :func:`run_program` dispatches.  A
+:class:`PhasedProgram` chains programs (each phase's outputs seed the
 next phase's ``init``; :func:`run_phases`), and
 :func:`run_program_batched` runs one program over B per-query inputs
 against one graph residency (multi-source queries).
@@ -76,6 +80,86 @@ class SuperstepProgram:
         return f"{self.name}/{self.variant}"
 
 
+# Rounds slack of an async run against the BSP run of the same monotone
+# program: fold() relaxes delivered updates before re-shipping, so a
+# cross-part hop still costs one round, and the overhead is the pipeline
+# fill plus the two-quiescent-rounds halt rule.
+ASYNC_ROUNDS_SLACK_FACTOR = 1.5
+ASYNC_ROUNDS_SLACK_CONST = 4
+
+
+@dataclass(frozen=True)
+class AsyncSuperstepProgram:
+    """A stale-tolerant algorithm for the double-buffered driver.
+
+      init(g, *inputs) -> (state, handle)
+                             seed the state and start the first exchange
+                             (``StackedComm.exchange_*_start``), so round
+                             one has a handle to finish
+      local(g, state) -> state
+                             compute on resident data only, no exchange:
+                             the work that would hide the exchange in
+                             flight
+      fold(g, state, handle) -> (state, handle)
+                             finish the handle, apply the delivered
+                             updates, start the next exchange
+      halt(state) -> bool    reads only the global values a finish
+                             delivered (host numbers)
+      outputs(g, state) -> tuple
+                             finalization after the loop; unlike the BSP
+                             form it receives ``g`` and may exchange
+
+    Round k's exchange is finished in round k + 1, after that round's
+    ``local``.  With all parts stacked on one device the overlap is
+    nominal: the split shapes the rounds, the halt rule and the wire, not
+    the time.
+    """
+
+    name: str
+    variant: str
+    inputs: tuple[str, ...]
+    init: Callable[..., Any]
+    local: Callable[[dict, Any], Any]
+    fold: Callable[[dict, Any, Any], Any]
+    halt: Callable[[Any], bool]
+    outputs: Callable[[dict, Any], tuple]
+    output_names: tuple[str, ...]
+    output_is_vertex: tuple[bool, ...]
+    comm: StackedComm
+    max_rounds: int = 64
+    prepare: Callable[[dict], dict] = field(default=lambda g: g)
+
+    @property
+    def key(self) -> str:
+        return f"{self.name}/{self.variant}"
+
+
+def run_program_async(prog: AsyncSuperstepProgram, g: dict, *inputs,
+                      static_iters: int = 0):
+    """The double-buffered loop: the ``(outputs, rounds)`` contract of
+    :func:`run_program`, each round ``local`` then ``fold`` with the
+    in-flight handle carried from one round to the next.  ``static_iters
+    > 0`` runs a fixed trip count."""
+    g = prog.prepare(g)
+    comm = prog.comm
+    comm.phase = "init"
+    state, handle = prog.init(g, *inputs)
+    comm.phase = "round"
+    rounds = 0
+    if static_iters:
+        for _ in range(static_iters):
+            state, handle = prog.fold(g, prog.local(g, state), handle)
+        rounds = static_iters
+    else:
+        while rounds < prog.max_rounds and not prog.halt(state):
+            state, handle = prog.fold(g, prog.local(g, state), handle)
+            rounds += 1
+    comm.phase = "outputs"
+    out = prog.outputs(g, state)
+    comm.phase = "round"
+    return out, rounds
+
+
 @dataclass(frozen=True)
 class PhasedProgram:
     """A multi-phase algorithm: :class:`SuperstepProgram` phases run back
@@ -117,10 +201,14 @@ def run_program(prog: SuperstepProgram, g: dict, *inputs,
 
     Returns ``(outputs_tuple, rounds)`` where ``rounds`` is the number of
     supersteps executed (== ``static_iters`` on the fixed-trip path).  A
-    :class:`PhasedProgram` dispatches to :func:`run_phases`.
+    :class:`PhasedProgram` dispatches to :func:`run_phases`, an
+    :class:`AsyncSuperstepProgram` to :func:`run_program_async`.
     """
     if isinstance(prog, PhasedProgram):
         return run_phases(prog, g, *inputs, static_iters=static_iters)
+    if isinstance(prog, AsyncSuperstepProgram):
+        return run_program_async(prog, g, *inputs,
+                                 static_iters=static_iters)
     g = prog.prepare(g)
     comm = prog.comm
     comm.phase = "init"

@@ -4,17 +4,20 @@ Generates a urand/rmat/smallworld graph, cuts it into P vertex blocks
 stacked on one device, runs every registered program (BFS and PageRank,
 each in its BSP baseline and its HPX-adapted fast variant, SSSP, CC,
 triangle counting, k-core, betweenness), verifies the results, and
-reports per-program times, rounds and kernel launch counts.  Programs
-whose ``n_budget`` the graph exceeds (the O(n^2/P) triangle-counting
-bitmap) are skipped with a note.  ``--multi-source B`` also runs the
-rooted non-bsp programs (bfs/fast, sssp, betweenness) batched over B
-roots against one graph residency.  ``--layout coo`` is the escape hatch
-back to the COO scatter reference path;
-``REPRO_LOCALOPS={auto,ref,ell,kernel}`` further overrides the local-ops
-dispatch.
+reports per-program times, rounds and kernel launch counts.  The
+incremental variants (pagerank/warm, cc/incremental, kcore/incremental)
+run from their cold seeds.  Programs whose ``n_budget`` the graph
+exceeds (the O(n^2/P) triangle-counting bitmap) are skipped with a note.
+``--exec-mode {bsp,async}`` keeps the programs of one loop (the default
+``all`` runs both and cross-checks them in the ``[verify]`` lines).
+``--multi-source B`` also runs the rooted non-bsp programs (bfs/fast,
+sssp, betweenness, bfs/async, sssp/async) batched over B roots against
+one graph residency.  ``--layout coo`` is the escape hatch back to the
+COO scatter reference path; ``REPRO_LOCALOPS={auto,ref,ell,kernel}``
+further overrides the local-ops dispatch.
 
   PYTHONPATH=src python -m repro_torch.launch.graph_analytics \\
-      --graph urand22 --parts 4 --multi-source 4
+      --graph urand22 --parts 4 --multi-source 4 --exec-mode async
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import graph_workloads
-from repro_torch.core import GraphEngine, localops, partition_graph, \
-    registry
+from repro_torch.core import GraphEngine, incremental, localops, \
+    partition_graph, registry
 from repro_torch.core.registry import program_label
 from repro_torch.graphs import generate_edges
 from repro_torch.kernels.frontier.kernel import bfs_pull
@@ -52,7 +55,8 @@ def _timed(fn, args, device):
 
 def run(graph_name: str, parts: int, *, device: str | None = None,
         pr_iters: int = 50, verify: bool = True, seed: int = 42,
-        multi_source: int = 0, layout: str = "ell") -> dict:
+        multi_source: int = 0, layout: str = "ell",
+        exec_mode: str = "all") -> dict:
     gcfg = graph_workloads.ALL[graph_name]
     print(f"[graph] generating {graph_name}: 2^{gcfg.scale} vertices, "
           f"{gcfg.num_edges:,} edges ({gcfg.generator})")
@@ -72,13 +76,21 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
     for algo, variant in registry.available():
         spec = registry.get_spec(algo, variant)
         name = program_label(algo, variant)
+        if exec_mode != "all" and spec.exec_mode != exec_mode:
+            continue
         if spec.n_budget and g.n > spec.n_budget:
             print(f"[graph] {name:14s}   skipped (n={g.n:,} exceeds its "
                   f"n_budget={spec.n_budget:,})")
             continue
         params = {"iters": pr_iters} if algo == "pagerank" else {}
         prog = eng.program(algo, variant, **params)
-        args = (garr,) + (root,) * len(spec.inputs)
+        if any(k != "scalar" for k in spec.input_kinds):
+            # seeded incremental variants run from their cold seed here
+            (seed_arr,) = incremental.cold_seed(spec, g)
+            args = (garr, eng.scatter_vertex_field(
+                seed_arr, incremental.KIND_DTYPES[spec.input_kinds[0]]))
+        else:
+            args = (garr,) + (root,) * len(spec.inputs)
         out, dt = _timed(prog, args, eng.device)
         results[name] = (out, dt)
         print(f"[graph] {name:14s} {dt * 1e3:9.1f} ms  rounds={out[-1]}")
@@ -87,8 +99,10 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
         roots = list(range(multi_source))
         for algo, variant in registry.available():
             spec = registry.get_spec(algo, variant)
-            if not spec.inputs or variant == "bsp" or (
-                    spec.n_budget and g.n > spec.n_budget):
+            if (not spec.inputs or variant == "bsp"
+                    or any(k != "scalar" for k in spec.input_kinds)
+                    or (exec_mode != "all" and spec.exec_mode != exec_mode)
+                    or (spec.n_budget and g.n > spec.n_budget)):
                 continue          # batch only the rooted non-bsp programs
             prog = eng.program(algo, variant, batch=multi_source)
             name = f"{program_label(algo, variant)}_x{multi_source}"
@@ -111,6 +125,24 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
             r_fast = eng.gather_vertex_field(results["pagerank_fast"][0][0])
             rel = np.abs(r_bsp - r_fast).max() / r_bsp.max()
             print(f"[verify] PageRank bsp-vs-fast max rel diff: {rel:.2e}")
+        # async-vs-bsp cross-checks when both modes ran
+        if "bfs_async" in results and "bfs_fast" in results:
+            pa = eng.gather_vertex_field(results["bfs_async"][0][0])
+            pf = eng.gather_vertex_field(results["bfs_fast"][0][0])
+            same = ((pa < INT_INF) == (pf < INT_INF)).all()
+            print(f"[verify] BFS reachability async==fast: {bool(same)}")
+        if "pagerank_async" in results and "pagerank_bsp" in results:
+            ra = eng.gather_vertex_field(results["pagerank_async"][0][0])
+            rb = eng.gather_vertex_field(results["pagerank_bsp"][0][0])
+            rel = np.abs(ra - rb).max() / rb.max()
+            print(f"[verify] PageRank bsp-vs-async max rel diff: {rel:.2e}")
+        for name, label, what in (("cc", "CC", "labels"),
+                                  ("sssp", "SSSP", "dist")):
+            if f"{name}_async" in results and name in results:
+                va = eng.gather_vertex_field(results[f"{name}_async"][0][0])
+                vb = eng.gather_vertex_field(results[name][0][0])
+                print(f"[verify] {label} {what} async==bsp: "
+                      f"{bool((va == vb).all())}")
         if "kcore" in results:
             print(f"[verify] k-core degeneracy: {results['kcore'][0][1]}")
         if "betweenness" in results:
@@ -124,7 +156,9 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
                   f"{int(tri.sum()) // 3 == total} ({total:,})")
         if multi_source:
             for name, label in (("bfs_fast", "BFS"), ("sssp", "SSSP"),
-                                ("betweenness", "betweenness")):
+                                ("betweenness", "betweenness"),
+                                ("bfs_async", "BFS async"),
+                                ("sssp_async", "SSSP async")):
                 batched = f"{name}_x{multi_source}"
                 if name not in results or batched not in results:
                     continue
@@ -155,11 +189,18 @@ def main():
                     help="edge layout for the superstep hot loops: "
                          "blocked-ELL (kernels on CUDA) or the COO "
                          "scatter reference path")
+    ap.add_argument("--exec-mode", choices=("all", "bsp", "async"),
+                    default="all",
+                    help="restrict to one superstep loop: bsp runs the "
+                         "synchronous programs only, async the "
+                         "double-buffered ones; all runs both and "
+                         "cross-checks them in verify")
     ap.add_argument("--no-verify", action="store_true")
     args = ap.parse_args()
     run(args.graph, args.parts, device=args.device, pr_iters=args.pr_iters,
         verify=not args.no_verify, seed=args.seed,
-        multi_source=args.multi_source, layout=args.layout)
+        multi_source=args.multi_source, layout=args.layout,
+        exec_mode=args.exec_mode)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Registry, engine and launcher of the port: the nine BSP registrations
-carry the JAX package's defaults, programs (batched and phased ones too)
-are interned, the engine refuses to fall back to the CPU, and the
-launcher's verify lines pass."""
+"""Registry, engine and launcher of the port: the sixteen registrations
+carry the JAX package's order, defaults, input kinds, exec modes and
+incremental metadata, programs (batched and phased ones too) are
+interned, the engine refuses to fall back to the CPU, and the launcher's
+verify lines pass."""
 
 import numpy as np
 import pytest
@@ -13,11 +14,19 @@ from repro_torch.core import GraphEngine, localops, partition_graph, \
     registry, run_program
 from repro_torch.launch import graph_analytics
 
-# the reference's BSP pairs this package ports, in the reference's order
-PORTED = {("bfs", "bsp"), ("bfs", "fast"), ("pagerank", "bsp"),
-          ("pagerank", "fast"), ("sssp", "default"), ("cc", "default"),
-          ("triangles", "default"), ("kcore", "default"),
-          ("betweenness", "default")}
+# every pair the reference registers, in its order
+PORTED = ref_registry.available()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tests run many small tensor ops; one intra-op thread a
+    worker keeps the test workers, which share the cores, from
+    oversubscribing them (8 threads each thrash under load)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")
@@ -27,20 +36,46 @@ def engine():
 
 
 def test_registrations_match_reference():
-    want = [pair for pair in ref_registry.available() if pair in PORTED]
-    assert registry.available() == want and len(want) == len(PORTED)
-    for algo, variant in want:
+    assert registry.available() == PORTED and len(PORTED) == 16
+    for algo, variant in PORTED:
         ours = registry.get_spec(algo, variant)
         ref = ref_registry.get_spec(algo, variant)
         assert ours.defaults == ref.defaults
         assert ours.batch_defaults == ref.batch_defaults
         assert ours.inputs == ref.inputs
+        assert ours.input_kinds == ref.input_kinds
+        assert ours.exec_mode == ref.exec_mode
+        assert (ours.incremental is None) == (ref.incremental is None)
+        if ref.incremental is not None:
+            assert vars(ours.incremental) == vars(ref.incremental)
         assert ours.n_budget == ref.n_budget
         assert ours.doc == ref.doc
         assert ours.key == ref.key and ours.label == ref.label
-    for algo in {a for a, _ in want}:
+    assert registry.async_pairs() == ref_registry.async_pairs()
+    assert registry.INPUT_KINDS == ref_registry.INPUT_KINDS
+    assert registry.EXEC_MODES == ref_registry.EXEC_MODES
+    for algo in {a for a, _ in PORTED}:
         assert registry.default_variant(algo) \
             == ref_registry.default_variant(algo)
+        assert registry.variants(algo) == ref_registry.variants(algo)
+        for mode in registry.EXEC_MODES:
+            assert registry.mode_variant(algo, mode) \
+                == ref_registry.mode_variant(algo, mode)
+    with pytest.raises(ValueError, match="exec_mode"):
+        registry.mode_variant("bfs", "speculative")
+
+
+def test_spec_checks_match_reference():
+    """The spec's __post_init__ checks: input kinds default to scalar,
+    and a kind count, kind or exec mode out of line raises."""
+    spec = registry.get_spec("bfs", "fast")
+    assert spec.input_kinds == ("scalar",)
+    import dataclasses
+    for bad in ({"input_kinds": ("scalar", "scalar")},
+                {"input_kinds": ("vertex_u8",)},
+                {"exec_mode": "speculative"}):
+        with pytest.raises(ValueError):
+            dataclasses.replace(spec, **bad)
 
 
 def test_get_spec_errors():
@@ -107,10 +142,35 @@ def test_launcher_verify_lines(parts, capsys):
     assert "[verify] k-core degeneracy: " in out
     assert "[verify] betweenness delta_s(s) == 0: True" in out
     assert "[verify] triangles sum/3 == total: True" in out
-    assert sorted(results) == ["betweenness", "bfs_bsp", "bfs_fast", "cc",
-                               "kcore", "pagerank_bsp", "pagerank_fast",
-                               "sssp", "triangles"]
+    assert "[verify] BFS reachability async==fast: True" in out
+    assert "[verify] CC labels async==bsp: True" in out
+    assert "[verify] SSSP dist async==bsp: True" in out
+    rel = float(out.split("PageRank bsp-vs-async max rel diff:")[1]
+                .split()[0])
+    assert rel < 1e-2, out
+    assert sorted(results) == sorted(
+        registry.program_label(a, v) for a, v in registry.available())
     assert "spmv_ell=" in out and "bfs_pull=" in out
+
+
+@pytest.mark.parametrize("exec_mode", ["bsp", "async"])
+def test_launcher_exec_mode(exec_mode, capsys):
+    """--exec-mode keeps the programs of one loop (the incremental
+    variants, bsp programs, from their cold seeds); the async-vs-bsp
+    verify lines need both and are absent."""
+    results = graph_analytics.run("urand12", 2, device="cpu", pr_iters=20,
+                                  exec_mode=exec_mode, multi_source=2)
+    out = capsys.readouterr().out
+    want = {registry.program_label(a, v) for a, v in registry.available()
+            if registry.get_spec(a, v).exec_mode == exec_mode}
+    batched = {"bfs_fast", "sssp", "betweenness"} if exec_mode == "bsp" \
+        else {"bfs_async", "sssp_async"}
+    assert set(results) == want | {f"{b}_x2" for b in batched}
+    assert "async==" not in out and "bsp-vs-async" not in out
+    if exec_mode == "async":
+        for label in ("BFS async", "SSSP async"):
+            assert f"[verify] multi-source {label} root0 == " \
+                   "single-source: True" in out, out
 
 
 def test_launcher_multi_source_and_budget(capsys, monkeypatch):

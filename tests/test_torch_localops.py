@@ -74,6 +74,36 @@ def test_frontier_pull_parity(graph):
             _check(got[p], want, False)
 
 
+def test_pull_min_eq_parity(graph):
+    """``pull_min_eq``: port ``ref`` == port ``ell`` == the reference's
+    ``ref`` and ``ell``, on level-like fields with many matches; the
+    rmat graph has ``ell_in`` rows wider than 32 slots.  Modes ``auto``
+    and ``kernel`` take the ell path on any device (no kernel)."""
+    g, garr, ref_parts = graph
+    rng = np.random.default_rng(4)
+    level = rng.integers(0, 6, (g.parts, g.n_local)).astype(np.int32)
+    level[rng.random(level.shape) < 0.2] = INT_INF
+    xg = np.broadcast_to(level.reshape(1, -1), (g.parts, g.n)).copy()
+    target = (level - 1).astype(np.int32)
+    meta = g.ell_meta["ell_in"]
+    outs = {}
+    for mode in ("ref", "ell", "auto", "kernel"):
+        outs[mode] = localops.pull_min_eq(
+            garr, meta, torch.from_numpy(xg), torch.from_numpy(target),
+            mode=mode).numpy()
+        assert outs[mode].dtype == np.int32
+        np.testing.assert_array_equal(outs[mode], outs["ref"])
+    assert (outs["ref"] < INT_INF).any() and (outs["ref"] == INT_INF).any()
+    if g.n_orig == 384 and g.parts == 4:          # the rmat fixture
+        assert max(k for _, k in meta.buckets) > 32, meta.buckets
+    for ref_mode in ("ref", "auto"):
+        for p, rg in enumerate(ref_parts):
+            want = np.asarray(ref_localops.pull_min_eq(
+                rg, meta, jnp.asarray(xg[p]), jnp.asarray(target[p]),
+                mode=ref_mode))
+            np.testing.assert_array_equal(outs["ell"][p], want)
+
+
 _KEY = {"ell_dst": "out_dst_global", "ell_src": "in_src_global",
         "ell_out": "out_dst_global"}
 

@@ -186,3 +186,116 @@ def test_shift_matches_reference_ring(parts):
     np.testing.assert_array_equal(comm.shift(torch.from_numpy(x)).numpy(),
                                   np.asarray(want))
     assert comm.wire_by_op() == wire == {"perm": 8 * 5 * 4}
+
+
+def _start_finish_inputs(parts, seed):
+    rng = np.random.default_rng(seed)
+    n = parts * 64
+    return {
+        "vals": rng.normal(size=(parts, n)).astype(np.float32),
+        "ints": rng.integers(0, 1000, (parts, n)).astype(np.int32),
+        "mask": rng.integers(0, 2, (parts, n)).astype(bool),
+        # integer-valued per-part halt counts, and float residuals
+        "count": rng.integers(0, 5000, parts).astype(np.int32),
+        "resid": rng.random(parts).astype(np.float32),
+    }
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_start_finish_match_reference(parts):
+    """Each double-buffered pair against the reference's under the named
+    vmap: the handles are the same received rows (the port's min and or
+    handles are indexed source-first), the finishes the same values, and
+    each start taps its blocking op's bytes with the scalar column."""
+    x = _start_finish_inputs(parts, parts + 10)
+    n_local = x["vals"].shape[1] // parts
+    comm = StackedComm(parts, "cpu")
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    finish_min = jax.vmap(ref.exchange_min_finish)
+    finish_sum = jax.vmap(ref.exchange_sum_finish)
+    finish_or = jax.vmap(lambda h: ref.exchange_or_finish(h, n_local))
+
+    cases = (
+        ("min", j["vals"], j["count"].astype(jnp.float32), t["vals"],
+         t["count"], ref.exchange_min_start, comm.exchange_min_start,
+         finish_min, comm.exchange_min_finish),
+        ("min", j["ints"], j["count"], t["ints"], t["count"],
+         ref.exchange_min_start, comm.exchange_min_start, finish_min,
+         comm.exchange_min_finish),
+        ("sum", j["vals"], j["resid"], t["vals"], t["resid"],
+         ref.exchange_sum_start, comm.exchange_sum_start, finish_sum,
+         comm.exchange_sum_finish),
+        ("or", j["mask"], j["count"].astype(jnp.uint32), t["mask"],
+         t["count"], ref.exchange_or_start, comm.exchange_or_start,
+         finish_or, lambda h: comm.exchange_or_finish(h, n_local)),
+    )
+    for op, jv, js, tv, ts, rstart, pstart, rfinish, pfinish in cases:
+        what = f"{op} {tv.dtype} parts={parts}"
+        comm.reset_wire()
+        want_h, wire = _vmapped(rstart, jv, js)
+        got_h = pstart(tv, ts)
+        assert comm.wire_by_op() == wire, what
+        want_h = np.asarray(want_h)
+        if op == "sum":
+            np.testing.assert_array_equal(got_h.numpy(), want_h,
+                                          err_msg=what)
+        else:       # (P_dst, 1, P_src, w) -> (P_src, P_dst, w)
+            got = got_h.numpy()
+            if op == "or":
+                got = got.view(np.uint32)
+            np.testing.assert_array_equal(
+                got, want_h[:, 0].transpose(1, 0, 2), err_msg=what)
+        (want_v, want_s), (got_v, got_s) = rfinish(want_h), pfinish(got_h)
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v),
+                                      err_msg=what)
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s),
+                                      err_msg=what)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
+def test_start_finish_equal_blocking_forms(parts):
+    """A finished handle gives the blocking exchange's values, and its
+    scalar is ``psum_scalar`` of the stamps on every part."""
+    x = _start_finish_inputs(parts, parts + 20)
+    n_local = x["vals"].shape[1] // parts
+    comm = StackedComm(parts, "cpu")
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    count = comm.psum_scalar(t["count"])
+    mine, total = comm.exchange_min_finish(
+        comm.exchange_min_start(t["ints"], t["count"]))
+    assert torch.equal(mine, comm.exchange_min_int(t["ints"]))
+    assert total.tolist() == [count] * parts
+    mine, total = comm.exchange_min_finish(
+        comm.exchange_min_start(t["vals"], t["count"]))
+    assert torch.equal(mine, comm.exchange_min_int(t["vals"]))
+    assert total.tolist() == [float(count)] * parts
+    sums, resid = comm.exchange_sum_finish(
+        comm.exchange_sum_start(t["vals"], t["resid"]))
+    assert torch.equal(sums, comm.exchange_sum(t["vals"]))
+    assert resid.tolist() == [comm.psum_scalar(t["resid"])] * parts
+    bits, total = comm.exchange_or_finish(
+        comm.exchange_or_start(t["mask"], t["count"]), n_local)
+    assert torch.equal(bits, comm.exchange_or(t["mask"]))
+    assert total.dtype == torch.int32 and total.tolist() == [count] * parts
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_piggybacked_count_exact_to_2_24(parts):
+    """Integer-valued stamps in a float32 column add exactly while the
+    total stays within 2**24, as the reference's property suite pins."""
+    stamps = torch.zeros(parts, dtype=torch.int32)
+    stamps[0] = 2 ** 24 - (parts - 1)
+    stamps[1:] = 1
+    comm = StackedComm(parts, "cpu")
+    zeros = torch.zeros((parts, parts * 32), dtype=torch.float32)
+    _, total = comm.exchange_min_finish(comm.exchange_min_start(zeros,
+                                                                stamps))
+    assert total.tolist() == [2.0 ** 24] * parts
+    _, total = comm.exchange_sum_finish(comm.exchange_sum_start(zeros,
+                                                                stamps))
+    assert total.tolist() == [2.0 ** 24] * parts
+    big = torch.full((parts,), 2 ** 24 + 1, dtype=torch.int32)
+    _, total = comm.exchange_min_finish(comm.exchange_min_start(
+        zeros.int(), big))
+    assert total.tolist() == [parts * (2 ** 24 + 1)] * parts

@@ -29,3 +29,4 @@ def test_quickstart_torch_on_cpu(parts):
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.rstrip().endswith("OK"), r.stdout
     assert "multi-source BFS: 8 roots" in r.stdout
+    assert "async BFS: " in r.stdout
