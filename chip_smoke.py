@@ -18,6 +18,11 @@ against its plain-PyTorch version:
   cc/async and pagerank/async (staleness 1 and 2), cc/incremental,
   kcore/incremental and pagerank/warm on the same partitions (kernel
   ``spmv_ell`` on pagerank/async's and pagerank/warm's push combines);
+- fault injection, guards and checkpoint/rollback recovery: bfs/fast,
+  pagerank/bsp, pagerank/fast, betweenness, bfs/async and pagerank/async
+  guarded, checkpointed and recovered from a seeded drop + corrupt +
+  stall schedule on the parts-4 partition (kernels ``spmv_ell`` and
+  ``bfs_pull`` on the recovered runs);
 - LM token serving: ``launch/serve.py::serve`` on TinyLlama-1.1B at full
   width, weights drawn from a seeded ``torch.Generator`` on the card
   (kernel ``flash_attention_fwd``, one launch per prefill layer).
@@ -104,6 +109,24 @@ prints no result):
            checked run), syncs, wire bytes per round by op, and the BSP
            sibling's ms and rounds from this run; ``[async done]`` the
            phase's seconds.
+  chaos    at parts 4 in mode auto, launch counters zeroed around each
+           program: bfs/fast, pagerank/bsp, pagerank/fast, betweenness,
+           bfs/async and pagerank/async (staleness 1, ASYNC_PR_PARAMS).
+           Guarded with no schedule: ok, rounds and outputs bit-identical
+           to the program's run in the phases above, the same launches as
+           an unguarded run, at most one more ``Tensor.item`` call a round
+           (init included).  ``CheckpointRunner(checkpoint_every=2)``
+           clean: no recovery, bit-identical; for bfs/fast and
+           pagerank/fast also resumed from the middle snapshot,
+           bit-identical.  Chaos: ``drop@r{r1}p0 corrupt@r{r2}p1
+           stall@r{r3}p0x2 seed=7`` (r1..r3 = 1, 2, 3 clipped to the run's
+           rounds, as tests/test_chaos.py does): at least one detection
+           and one recovery, outputs bit-identical, and the program's
+           kernel launched in the recovered run.  ``[chaos]`` lines: ms
+           unguarded and guarded (median of 3), checkpointed and
+           recovered (the checked runs), syncs a round, snapshots, bytes
+           and ms a snapshot, detections and recoveries; ``[chaos done]``
+           the phase's seconds.
   llm-parity  flash_attention_fwd against its plain version (ref.py) on
            the shapes of tests/test_kernels_flash.py (sweep x {causal,
            causal + window 64, non-causal}, cross lengths, softcap 20,
@@ -179,6 +202,16 @@ ASYNC_STALENESS = (1, 2)
 # the float32 residual fell below 1e-9 there), and 1e-7 keeps the ranks
 # far inside 1e-4 of the converged float64
 ASYNC_PR_PARAMS = {"iters": 300, "tol": 1e-7}
+# the chaos phase: programs (with their params), at the parts count where
+# exchanges cross parts; resumed from a middle snapshot where
+# CHAOS_RESUME (pagerank/async would keep ~95 snapshots of ~0.1 GB)
+CHAOS_PARTS = 4
+CHAOS_PROGRAMS = (("bfs", "fast", {}), ("pagerank", "bsp", {}),
+                  ("pagerank", "fast", {}), ("betweenness", "default", {}),
+                  ("bfs", "async", {}),
+                  ("pagerank", "async", {"staleness": 1}))
+CHAOS_RESUME = (("bfs", "fast"), ("pagerank", "fast"))
+CHAOS_EVERY = 2
 INCREMENTAL = (("cc", "incremental"), ("kcore", "incremental"),
                ("pagerank", "warm"))
 ASYNC_SIBLING = {"bfs/async": "bfs/fast", "sssp/async": "sssp",
@@ -264,8 +297,9 @@ class Port:
         sys.path.insert(0, str(SRC))
         import torch
         from repro_torch.configs import graph_workloads
-        from repro_torch.core import GraphEngine, incremental, localops, \
-            partition_graph, registry, run_program, superstep
+        from repro_torch.core import CheckpointRunner, GraphEngine, \
+            incremental, localops, partition_graph, registry, run_program, \
+            superstep
         from repro_torch.core.partitioned import pack_bits
         from repro_torch.graphs import generate_edges, urand_edges
         from repro_torch.kernels import _build, _ell
@@ -293,6 +327,7 @@ class Port:
         self.torch = torch
         self.graph_workloads = graph_workloads
         self.GraphEngine = GraphEngine
+        self.CheckpointRunner = CheckpointRunner
         self.localops = localops
         self.registry = registry
         self.partition_graph = partition_graph
@@ -1303,12 +1338,15 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
     bsp = run_bsp(port, m, engines, device)
     # -- async supersteps and the incremental programs -------------------
     asy = run_async(port, m, engines, main, bsp, program_ms)
+    # -- fault injection, guards and recovery -----------------------------
+    chaos = run_chaos(port, engines, main, bsp, asy)
     return {"launches": main_launches, "parity_err": parity_err,
             "kernel_cells": kernel_cells, "parts": max(parts_list),
             "bsp_launches": bsp["launches"],
             "multi_launches": bsp["multi_launches"],
             "async_launches": asy["launches"],
-            "inc_launches": asy["inc_launches"]}
+            "inc_launches": asy["inc_launches"],
+            "chaos_launches": chaos}
 
 def suite_fields(eng, prog, outs) -> dict:
     """Output name -> host value (vertex fields gathered to numpy)."""
@@ -1829,7 +1867,222 @@ def run_async(port: Port, m, engines: dict, main: dict, bsp: dict,
     log("[times] " + json.dumps({"async": times, "seconds": secs},
                                 default=str))
     log(f"[async done] {secs:.1f} s")
-    return {"launches": async_launches, "inc_launches": inc_launches}
+    return {"launches": async_launches, "inc_launches": inc_launches,
+            "runs": runs}
+
+
+# ---------------------------------------------------------------------------
+# fault injection, guards and checkpoint/rollback recovery
+# ---------------------------------------------------------------------------
+
+def _tensors(torch, tree):
+    """The tensors of a (snapshot's) carry."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            yield from _tensors(torch, x)
+
+
+def carry_bytes(torch, tree) -> int:
+    """Bytes of the tensors in a (snapshot's) carry."""
+    return sum(t.numel() * t.element_size() for t in _tensors(torch, tree))
+
+
+def timed_snapshots(port: Port, runner, device) -> tuple[list, list]:
+    """Wrap ``runner``'s snapshot: each call's (ms, bytes) is appended to
+    the first returned list (the device-to-host copy ends in a
+    synchronize); the second holds the last carry snapshotted."""
+    torch = port.torch
+    snap, cells, last = runner._snapshot, [], [None]
+
+    def timed(pi, carry):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        ck = snap(pi, carry)
+        _sync(torch, device)
+        cells.append(((time.perf_counter() - t0) * 1e3,
+                      carry_bytes(torch, ck.carry)))
+        last[0] = carry
+        return ck
+
+    runner._snapshot = timed
+    return cells, last
+
+
+def pinned_copy_ms(port: Port, carry, device) -> float:
+    """Median ms of 3 copies of ``carry``'s tensors into host buffers
+    allocated (page-locked on the card) once beforehand: what a snapshot
+    would cost with a reused pinned buffer in place of fresh pageable
+    memory.  Timed here only; the runner does not do this."""
+    torch = port.torch
+    on_card = torch.device(device).type == "cuda"
+    src = list(_tensors(torch, carry))
+    dst = [torch.empty(t.shape, dtype=t.dtype, pin_memory=on_card)
+           for t in src]
+
+    def copy():
+        for d, t in zip(dst, src):
+            d.copy_(t, non_blocking=on_card)
+
+    copy()
+    return median_ms(torch, device, copy)
+
+
+def run_chaos(port: Port, engines: dict, main: dict, bsp: dict,
+              asy: dict) -> dict:
+    """Guarded, checkpointed and recovered runs of CHAOS_PROGRAMS at
+    CHAOS_PARTS in mode auto, each held bit for bit against the program's
+    run in the phases above; launch counters zeroed around each program.
+    Returns the phase's launches."""
+    torch = port.torch
+    t_phase = time.perf_counter()
+    parts = CHAOS_PARTS
+    _, eng, garr = engines[parts]
+    device = eng.device
+    earlier = {key: {"fields": {"parents" if key.startswith("bfs")
+                                else "rank": main[parts][key]["field"]},
+                     "rounds": main[parts][key]["rounds"]}
+               for key in ("bfs/fast", "pagerank/bsp", "pagerank/fast")}
+    earlier.update({"betweenness/default": bsp["auto"][parts]["betweenness"],
+                    "bfs/async": asy["runs"][parts, "bfs/async"],
+                    "pagerank/async": asy["runs"][parts,
+                                                  "pagerank/async s=1"]})
+    total = {"spmv_ell": 0, "bfs_pull": 0}
+    cells = {}
+    for algo, variant, extra in CHAOS_PROGRAMS:
+        key = f"{algo}/{variant}"
+        params = {**(ASYNC_PR_PARAMS if key == "pagerank/async" else {}),
+                  **extra}
+        args = (ROOT,) if algo in ("bfs", "betweenness") else ()
+        want = earlier[key]
+        kernel = "bfs_pull" if key == "bfs/fast" \
+            else "spmv_ell" if algo in ("pagerank", "betweenness") else None
+        port.reset_launches()
+        with port.localops.using("auto"):
+            plain = eng.program(algo, variant, **params)
+            guarded = eng.program(algo, variant, guard=True, **params)
+
+        def fields(outs, prog=plain, want=want):
+            return {k: v for k, v in suite_fields(eng, prog, outs).items()
+                    if k in want["fields"]}
+
+        def launched(fn):
+            before = port.launches()
+            out = fn()
+            _sync(torch, device)
+            after = port.launches()
+            return out, {k: after[k] - before[k] for k in total}
+
+        # unguarded, then guarded with no schedule: same bits, same
+        # launches, at most one more sync a round
+        with SyncCounter(torch) as s0:
+            (*outs, rounds), l_plain = launched(lambda: plain(garr, *args))
+        check(rounds == want["rounds"]
+              and same_fields(fields(outs), want["fields"]),
+              f"chaos {key}: the unguarded run differs from the earlier "
+              f"phase's")
+        with SyncCounter(torch) as s1:
+            (*gouts, grounds, ok), l_guard = launched(
+                lambda: guarded(garr, *args))
+        phases = 2 if algo == "betweenness" else 1
+        extra_syncs = s1.count - s0.count
+        check(ok == 1 and grounds == rounds
+              and same_fields(fields(gouts), want["fields"]),
+              f"chaos {key}: guarded run ok={ok} rounds={grounds} or "
+              f"outputs differ from the unguarded run")
+        check(l_guard == l_plain,
+              f"chaos {key}: guarded launches {l_guard} vs {l_plain}")
+        check(extra_syncs <= rounds + phases,
+              f"chaos {key}: guarded run made {extra_syncs} more syncs in "
+              f"{rounds} rounds")
+        del outs, gouts
+        ms = median_ms(torch, device, lambda: plain(garr, *args))
+        g_ms = median_ms(torch, device, lambda: guarded(garr, *args))
+
+        # checkpointed, clean (and resumed from the middle snapshot)
+        resume = (algo, variant) in CHAOS_RESUME
+        with port.localops.using("auto"):
+            runner = port.CheckpointRunner(eng, algo, variant,
+                                           checkpoint_every=CHAOS_EVERY,
+                                           keep_history=resume, **params)
+        snaps, last = timed_snapshots(port, runner, device)
+        t0 = time.perf_counter()
+        rep, l_ck = launched(lambda: runner.run(garr, *args))
+        ck_ms = (time.perf_counter() - t0) * 1e3
+        check(rep.recoveries == 0 and rep.rounds == rounds
+              and same_fields(fields(rep.outputs), want["fields"]),
+              f"chaos {key}: checkpointed run recovered {rep.recoveries} "
+              f"times or differs")
+        check(l_ck == l_plain,
+              f"chaos {key}: checkpointed launches {l_ck} vs {l_plain}")
+        n_snaps = len(snaps)
+        snap_ms = statistics.median(c[0] for c in snaps)
+        snap_bytes = max(c[1] for c in snaps)
+        pin_ms = pinned_copy_ms(port, last[0], device)
+        del last
+        if resume:
+            mid = rep.history[len(rep.history) // 2]
+            rep2 = runner.run(garr, *args, resume_from=mid)
+            check(same_fields(fields(rep2.outputs), want["fields"]),
+                  f"chaos {key}: resumed from round {mid.rounds}, outputs "
+                  f"differ")
+            del rep2, mid
+        del rep, runner
+
+        # chaos: detect, roll back, replay clean, same bits
+        r_top = max(rounds, 1) - 1
+        sched = (f"drop@r{min(1, r_top)}p0 corrupt@r{min(2, r_top)}p1 "
+                 f"stall@r{min(3, r_top)}p0x2 seed=7")
+        with port.localops.using("auto"):
+            chaos = port.CheckpointRunner(eng, algo, variant,
+                                          checkpoint_every=CHAOS_EVERY,
+                                          faults=sched, **params)
+        t0 = time.perf_counter()
+        rep3, l_rec = launched(lambda: chaos.run(garr, *args))
+        rec_ms = (time.perf_counter() - t0) * 1e3
+        check(rep3.recoveries >= 1 and len(rep3.detections) >= 1,
+              f"chaos {key}: {sched!r} was not detected "
+              f"({rep3.detections}, {rep3.recoveries} recoveries)")
+        check(rep3.rounds == rounds
+              and same_fields(fields(rep3.outputs), want["fields"]),
+              f"chaos {key}: recovered outputs differ from the "
+              f"uninterrupted run")
+        if kernel is not None:
+            check(l_rec[kernel] > 0,
+                  f"chaos {key}: {kernel} not launched in the recovered run")
+        launches = port.launches()
+        for k in total:
+            total[k] += launches[k]
+        cells[key] = cell = {
+            "rounds": rounds, "ms": ms, "guarded_ms": g_ms,
+            "checkpointed_ms": ck_ms, "recovered_ms": rec_ms,
+            "syncs_unguarded": s0.count, "syncs_guarded": s1.count,
+            "extra_syncs_per_round": extra_syncs / max(rounds, 1),
+            "snapshots": n_snaps, "snapshot_bytes": snap_bytes,
+            "snapshot_ms": snap_ms, "pinned_copy_ms": pin_ms,
+            "schedule": sched,
+            "detections": list(rep3.detections),
+            "recoveries": rep3.recoveries,
+            "recovered_launches": l_rec,
+            "launches": {k: launches[k] for k in total}}
+        log(f"[chaos] parts={parts} {key:19s} rounds={rounds:3d} "
+            f"ms {ms:.2f} guarded {g_ms:.2f} checkpointed {ck_ms:.2f} "
+            f"recovered {rec_ms:.2f}; syncs {s0.count} -> {s1.count} "
+            f"({cell['extra_syncs_per_round']:.3f} more a round); "
+            f"{n_snaps} snapshots of {snap_bytes / 1e6:.1f} MB, "
+            f"{snap_ms:.2f} ms each (last carry into a reused pinned "
+            f"buffer {pin_ms:.2f} ms); {sched}: detections "
+            f"{list(rep3.detections)}, recoveries {rep3.recoveries}, "
+            f"launched {l_rec}")
+        del chaos, rep3
+    for name in total:
+        check(total[name] > 0, f"chaos path: {name} never launched")
+    secs = time.perf_counter() - t_phase
+    log("[times] " + json.dumps({"chaos": cells, "seconds": secs},
+                                default=str))
+    log(f"[chaos done] {secs:.1f} s")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2139,7 +2392,8 @@ def kernels_record(result: dict, llm: dict) -> dict:
     paths = {"graph-main": result["launches"], "bsp-suite":
              result["bsp_launches"], "multi-source": result["multi_launches"],
              "async": result["async_launches"],
-             "incremental": result["inc_launches"]}
+             "incremental": result["inc_launches"],
+             "chaos": result["chaos_launches"]}
     rows = []
     for name, src, replaces, cell_key, design in (
             ("spmv_ell", "src/repro_torch/kernels/spmv/csrc/spmv_ell.cu",

@@ -5,19 +5,26 @@ The public surface is the superstep-program API: algorithms are
 core/registry.py and built and cached through ``GraphEngine.program``.
 See core/bfs.py, core/pagerank.py, core/sssp.py, core/cc.py,
 core/kcore.py, core/betweenness.py, core/triangles.py, core/monotone.py
-and core/incremental.py for the algorithm-level notes."""
+and core/incremental.py for the algorithm-level notes, core/faults.py
+and core/recovery.py for fault injection, guards and checkpointed
+recovery."""
 
 from repro_torch.core import incremental, localops, registry
 from repro_torch.core.api import CompiledProgram, GraphEngine
+from repro_torch.core.faults import FaultEvent, FaultSchedule
 from repro_torch.core.graph import EllMeta, GraphShards, partition_graph
 from repro_torch.core.partitioned import StackedComm
+from repro_torch.core.recovery import Checkpoint, CheckpointRunner, \
+    RecoveryError, RunReport
 from repro_torch.core.superstep import AsyncSuperstepProgram, \
     PhasedProgram, SuperstepProgram, run_phases, run_program, \
     run_program_async, run_program_batched
 
 __all__ = [
-    "AsyncSuperstepProgram", "CompiledProgram", "EllMeta", "GraphEngine",
-    "GraphShards", "PhasedProgram", "StackedComm", "SuperstepProgram",
-    "incremental", "localops", "partition_graph", "registry", "run_phases",
-    "run_program", "run_program_async", "run_program_batched",
+    "AsyncSuperstepProgram", "Checkpoint", "CheckpointRunner",
+    "CompiledProgram", "EllMeta", "FaultEvent", "FaultSchedule",
+    "GraphEngine", "GraphShards", "PhasedProgram", "RecoveryError",
+    "RunReport", "StackedComm", "SuperstepProgram", "incremental",
+    "localops", "partition_graph", "registry", "run_phases", "run_program",
+    "run_program_async", "run_program_batched",
 ]

@@ -18,7 +18,10 @@ outputs gain a batch dim, ``(P, B, n_local)``.  ``exec_mode="async"``
 picks an algo's double-buffered variant (``program("bfs",
 exec_mode="async")`` is ``program("bfs", "async")``).  Vertex-field
 inputs (the incremental variants' seeds) are ``(P, n_local)`` tensors
-from :meth:`GraphEngine.scatter_vertex_field`.
+from :meth:`GraphEngine.scatter_vertex_field`.  ``guard=True`` builds the
+guarded loop (a trailing ``ok``), and ``faults=`` a fault schedule armed
+at the exchanges for the build's calls (``core/faults.py``);
+``core/recovery.py`` checkpoints and rolls back.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import localops, registry
 from repro_torch.core.graph import GraphShards
 from repro_torch.core.partitioned import StackedComm
@@ -43,21 +47,33 @@ class CompiledProgram:
     With ``batch=B`` each input is a length-B sequence, vertex outputs
     are ``(P, B, n_local)`` and ``rounds`` a length-B list.  The local-ops
     mode that was active when the program was built is the one its calls
-    run under, as it is part of the cache key.
+    run under, as it is part of the cache key.  A ``guarded`` build
+    returns ``(*outputs, rounds, ok)`` with ``ok`` 1 for a clean run and
+    0 when a round failed its check (the loop stopped there); ``faults``
+    is the schedule armed for each call, disarmed on every exit.
     """
 
     def __init__(self, spec: registry.ProgramSpec,
                  program: SuperstepProgram | PhasedProgram
                  | AsyncSuperstepProgram, mode: str,
-                 static_iters: int = 0, batch: int | None = None):
+                 static_iters: int = 0, batch: int | None = None,
+                 guarded: bool = False,
+                 faults: faults_mod.FaultSchedule | None = None):
         self.spec = spec
         self.program = program
         self.mode = mode
         self.static_iters = static_iters
         self.batch = batch
+        self.guarded = guarded
+        self.faults = faults
 
     def __call__(self, garr: dict, *inputs):
-        with localops.using(self.mode):
+        with localops.using(self.mode), \
+                faults_mod.active(self.faults, detect=self.guarded):
+            if self.guarded:
+                outs, rounds, ok = run_program(self.program, garr, *inputs,
+                                               guard=True)
+                return (*outs, rounds, int(ok))
             if self.batch is None:
                 outs, rounds = run_program(self.program, garr, *inputs,
                                            static_iters=self.static_iters)
@@ -104,8 +120,8 @@ class GraphEngine:
 
     def program(self, algo: str, variant: str | None = None, *,
                 static_iters: int = 0, batch: int | None = None,
-                exec_mode: str | None = None,
-                **params) -> CompiledProgram:
+                exec_mode: str | None = None, guard: bool = False,
+                faults=None, **params) -> CompiledProgram:
         """Resolve, build and cache an algorithm program.
 
         ``static_iters > 0`` replaces the early-exit loop with a fixed
@@ -114,9 +130,16 @@ class GraphEngine:
         ``batch_defaults`` under explicit params.  ``exec_mode`` selects
         the loop by mode: with a bare algo it re-resolves to the algo's
         variant of that mode (the same cache entry as naming it); with an
-        explicit variant a mismatch raises.  Params are normalized
-        against the spec's defaults so an explicitly spelled default hits
-        the same cache entry.
+        explicit variant a mismatch raises.  ``guard=True`` builds the
+        guarded loop: each round's invariant check and transport stamps,
+        a stop at the first bad round, and a trailing ``ok`` (1 clean, 0
+        detected) after ``rounds``.  ``faults=`` takes a
+        :class:`~repro_torch.core.faults.FaultSchedule` (or its string
+        form), armed at the exchanges during each call; detection needs
+        ``guard`` too.  Neither combines with ``batch``, nor ``guard``
+        with ``static_iters``.  Params are normalized against the spec's
+        defaults so an explicitly spelled default hits the same cache
+        entry.
         """
         bare = variant is None and "/" not in algo
         spec = registry.get_spec(algo, variant)
@@ -145,11 +168,20 @@ class GraphEngine:
             raise ValueError(
                 f"{spec.key} takes whole vertex-field inputs "
                 f"{spec.inputs}; only scalar per-query inputs batch")
+        schedule = faults_mod.as_schedule(faults)
+        if guard and static_iters:
+            raise ValueError(
+                "guard=True is incompatible with static_iters: the "
+                "guarded loop must stop on the detected round")
+        if (guard or schedule is not None) and batch is not None:
+            raise ValueError(
+                "guard/faults do not compose with batch: fault rounds "
+                "and guard verdicts are per-run, not per-query")
         batch_over = spec.batch_defaults if batch is not None else {}
         params = {**spec.defaults, **batch_over, **params}
         g = self.g
         mode = localops.get_mode()
-        key = (spec.algo, spec.variant, static_iters, batch,
+        key = (spec.algo, spec.variant, static_iters, batch, guard, schedule,
                tuple(sorted(params.items())),
                (g.n, g.n_orig, g.parts, g.n_local, g.e_max),
                g.layout_signature(),
@@ -159,7 +191,8 @@ class GraphEngine:
         if hit is not None:
             return hit
         compiled = CompiledProgram(spec, spec.build(g, self.comm, **params),
-                                   mode, static_iters, batch)
+                                   mode, static_iters, batch, guard,
+                                   schedule)
         self._cache[key] = compiled
         return compiled
 

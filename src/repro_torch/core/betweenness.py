@@ -71,13 +71,21 @@ def bc_forward_program(shards, comm: StackedComm,
         cnt = comm.psum_scalar(newly.sum(dim=1, dtype=torch.int32))
         return dist, sigma, newly, level + 1, cnt
 
+    def guard(g, prev, state):
+        # levels adopt once (non-increasing from INT_INF), path counts
+        # finite, non-negative and non-decreasing
+        dist, sigma, _, level, cnt = state
+        return (dist >= 0).all() & (dist <= prev[0]).all() \
+            & torch.isfinite(sigma).all() & (sigma >= prev[1]).all() \
+            & (level >= prev[3]) & (cnt >= 0)
+
     return SuperstepProgram(
         name="betweenness", variant="forward", inputs=("root",),
         init=init, step=step,
         halt=lambda state: state[4] <= 0,
         outputs=lambda state: (state[0], state[1]),
         output_names=("dist", "sigma"), output_is_vertex=(True, True),
-        comm=comm, max_rounds=max_levels)
+        comm=comm, max_rounds=max_levels, guard=guard)
 
 
 def bc_backward_program(shards, comm: StackedComm,
@@ -116,6 +124,15 @@ def bc_backward_program(shards, comm: StackedComm,
         bc = torch.where(dist == 0, 0.0, delta)       # delta_s(s) := 0
         return bc, sigma, dist
 
+    def guard(g, prev, state):
+        # dependencies are sums of non-negative terms: finite and
+        # non-negative (a NaN coefficient broadcast lands in delta); the
+        # forward fields stay bit-frozen
+        delta, dist, sigma, _, changed = state
+        return torch.isfinite(delta).all() & (delta >= 0).all() \
+            & (dist == prev[1]).all() & (sigma == prev[2]).all() \
+            & (changed >= 0)
+
     return SuperstepProgram(
         name="betweenness", variant="backward", inputs=(),
         init=init, step=step,
@@ -123,7 +140,7 @@ def bc_backward_program(shards, comm: StackedComm,
         outputs=outputs,
         output_names=("bc", "sigma", "dist"),
         output_is_vertex=(True, True, True),
-        comm=comm, max_rounds=max_levels)
+        comm=comm, max_rounds=max_levels, guard=guard)
 
 
 def betweenness_program(shards, comm: StackedComm,

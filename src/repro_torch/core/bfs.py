@@ -75,7 +75,7 @@ def _fast_level(comm, g, ell_in, parents, gf_packed):
     new_mask, prop = _derive_parents(g, ell_in, gf_packed, unvisited)
     parents = torch.where(new_mask, prop, parents)
     # pack local next frontier; all-gather the global bitmap (n/32 words)
-    gf_next = comm.broadcast_global(pack_bits(new_mask))
+    gf_next = comm.broadcast_global(pack_bits(new_mask), words=True)
     count = comm.psum_scalar(new_mask.sum(dim=1, dtype=torch.int32))
     return parents, gf_next, count
 
@@ -97,9 +97,24 @@ def _fast_level_push(comm, g, ell_in, ell_dst, n, parents,
     _, prop = _derive_parents(g, ell_in, gf_packed, activated)
     new_mask = activated & (prop < INT_INF)
     parents = torch.where(new_mask, prop, parents)
-    gf_next = comm.broadcast_global(pack_bits(new_mask))
+    gf_next = comm.broadcast_global(pack_bits(new_mask), words=True)
     count = comm.psum_scalar(new_mask.sum(dim=1, dtype=torch.int32))
     return parents, new_mask, gf_next, count
+
+
+def _parents_guard(count_idx: int):
+    """Invariant guard of the BSP and fast variants: parents stay in
+    ``[0, INT_INF]`` and never move once set (a parent only goes INT_INF
+    -> id), and the frontier count is non-negative.  A ``-2**30``
+    payload corruption lands in ``parents`` and trips the lower
+    bound."""
+
+    def guard(g, prev, state):
+        parents = state[0]
+        return (parents >= 0).all() & (parents <= prev[0]).all() \
+            & (state[count_idx] >= 0)
+
+    return guard
 
 
 def _seed_state(comm, root, n_local):
@@ -137,7 +152,7 @@ def bfs_bsp_program(shards, comm: StackedComm,
         halt=lambda state: state[2] <= 0,
         outputs=lambda state: (state[0],),
         output_names=("parents",), output_is_vertex=(True,),
-        comm=comm, max_rounds=max_levels)
+        comm=comm, max_rounds=max_levels, guard=_parents_guard(2))
 
 
 def bfs_fast_program(shards, comm: StackedComm, max_levels: int = 64,
@@ -162,7 +177,7 @@ def bfs_fast_program(shards, comm: StackedComm, max_levels: int = 64,
 
     def init(g, root):
         parents0, frontier0 = _seed_state(comm, root, n_local)
-        gf0 = comm.broadcast_global(pack_bits(frontier0))
+        gf0 = comm.broadcast_global(pack_bits(frontier0), words=True)
         return parents0, frontier0, gf0, 1
 
     def push(g, parents, frontier, gf):
@@ -188,7 +203,7 @@ def bfs_fast_program(shards, comm: StackedComm, max_levels: int = 64,
         halt=lambda state: state[3] <= 0,
         outputs=lambda state: (state[0],),
         output_names=("parents",), output_is_vertex=(True,),
-        comm=comm, max_rounds=max_levels)
+        comm=comm, max_rounds=max_levels, guard=_parents_guard(3))
 
 
 def bfs_async_program(shards, comm: StackedComm, max_levels: int = 64,

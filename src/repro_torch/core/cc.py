@@ -67,6 +67,13 @@ def cc_program(shards, comm: StackedComm, max_rounds: int = 64,
             dim=1, dtype=torch.int32))
         return new_labels, cnt
 
+    def guard(g, prev, state):
+        # min-propagation invariants: labels non-negative and
+        # non-increasing; change count non-negative
+        labels = state[0]
+        return (labels >= 0).all() & (labels <= prev[0]).all() \
+            & (state[1] >= 0)
+
     return SuperstepProgram(
         name="cc", variant="incremental" if seeded else "default",
         inputs=("labels0",) if seeded else (),
@@ -74,7 +81,7 @@ def cc_program(shards, comm: StackedComm, max_rounds: int = 64,
         halt=lambda state: state[1] <= 0,
         outputs=lambda state: (state[0],),
         output_names=("labels",), output_is_vertex=(True,),
-        comm=comm, max_rounds=max_rounds)
+        comm=comm, max_rounds=max_rounds, guard=guard)
 
 
 def cc_async_program(shards, comm: StackedComm, max_rounds: int = 64,

@@ -86,13 +86,19 @@ def kcore_incremental_program(shards, comm: StackedComm,
         c = state[0]
         return c, int(c.max())
 
+    def guard(g, prev, state):
+        # support-decrement peeling: the assignment is non-negative and
+        # non-increasing (decrements only); change count non-negative
+        c, changed = state
+        return (c >= 0).all() & (c <= prev[0]).all() & (changed >= 0)
+
     return SuperstepProgram(
         name="kcore", variant="incremental", inputs=("core0",),
         init=init, step=step,
         halt=lambda state: state[1] <= 0,
         outputs=outputs,
         output_names=("core", "kmax"), output_is_vertex=(True, False),
-        comm=comm, max_rounds=max_rounds)
+        comm=comm, max_rounds=max_rounds, guard=guard)
 
 
 # ---------------------------------------------------------------------------

@@ -86,10 +86,22 @@ def kcore_program(shards, comm: StackedComm,
         core = state[1]
         return core, int(core.max())
 
+    def guard(g, prev, state):
+        # peeling invariants: live degrees within [0, undirected degree]
+        # (a corrupted decrement moves one out in either direction),
+        # core numbers and threshold non-decreasing and non-negative.
+        # Dead vertices' degrees are never read, so they are exempt.
+        alive, core, deg, k, n_alive = state
+        live_deg = torch.where(alive, deg, 0)
+        return (live_deg >= 0).all() \
+            & (live_deg <= g["und_degree"]).all() \
+            & (core >= prev[1]).all() & (core >= 0).all() \
+            & (k >= prev[3]) & (k >= 0) & (n_alive >= 0)
+
     return SuperstepProgram(
         name="kcore", variant="default", inputs=(),
         prepare=prepare, init=init, step=step,
         halt=lambda state: state[4] <= 0,
         outputs=outputs,
         output_names=("core", "kmax"), output_is_vertex=(True, False),
-        comm=comm, max_rounds=max_rounds)
+        comm=comm, max_rounds=max_rounds, guard=guard)

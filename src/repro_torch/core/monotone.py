@@ -29,6 +29,8 @@ quiescent rounds mean the last shipped accumulator was empty.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.partitioned import StackedComm
@@ -98,9 +100,22 @@ def monotone_async_program(*, name: str, variant: str = "async",
             + own_changed.sum(dim=1, dtype=torch.int32)
         new_handle = comm.exchange_min_start(acc, cnt)
         # the round's one sync: the global count delivered by the handle
+        # (in a float32 payload a whole number, unless a fault made it
+        # NaN or inf: then it stays a float for the guard to read)
+        total = total[0].item()
         state = (v2, frontier | own_changed, _empty(vals),
-                 int(total[0].item()), gprev, _zeros())
+                 int(total) if math.isfinite(total) else total, gprev,
+                 _zeros())
         return state, new_handle
+
+    def guard(g, prev, state):
+        """Values only DECREASE and stay in ``[0, inf]`` (the min-combine
+        applies delivered payloads unfiltered, so NaN or negative
+        corruption lands in ``vals`` and fails a comparison), and the
+        carried counts are non-negative."""
+        vals = state[0]
+        return (vals >= 0).all() & (vals <= prev[0]).all() \
+            & (state[3] >= 0) & (state[4] >= 0) & (state[5] >= 0)
 
     return AsyncSuperstepProgram(
         name=name, variant=variant, inputs=tuple(inputs),
@@ -109,5 +124,5 @@ def monotone_async_program(*, name: str, variant: str = "async",
         outputs=lambda g, state: outputs(g, state[0]),
         output_names=tuple(output_names),
         output_is_vertex=tuple(output_is_vertex), comm=comm,
-        max_rounds=max_rounds,
+        max_rounds=max_rounds, guard=guard,
         **({} if prepare is None else {"prepare": prepare}))

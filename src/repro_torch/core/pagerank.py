@@ -62,6 +62,21 @@ def _local_contrib(rank, out_degree):
     return torch.where(out_degree > 0, rank / out_degree.float(), 0.0)
 
 
+def _rank_mass_ok(rank: torch.Tensor, n: int, n_orig: int, margin: float):
+    """Mass-conservation invariant of the guards.
+
+    Rank mass starts at ``n / n_orig`` (padded tail vertices carry 1 /
+    n_orig in the cold variants) and only shrinks toward the fixed point
+    >= 1 - alpha, so a round's global mass lies in ``((1 - alpha) * 0.9,
+    n / n_orig * margin)``; ``margin`` absorbs transient overshoot (bf16
+    error feedback, stale remote terms).  A dropped, duplicated or
+    corrupted contribution block moves the mass out of the band, and NaN
+    fails the non-negativity check.  A global bool tensor."""
+    mass = rank.sum(dim=1).sum()
+    cap = (1.0 + (n - n_orig) / n_orig) * margin
+    return (rank >= 0).all() & (mass > (1.0 - ALPHA) * 0.9) & (mass < cap)
+
+
 def _uniform(comm: StackedComm, n_local: int, n_orig: int) -> torch.Tensor:
     """The cold (P, n_local) float32 rank, 1 / n_orig everywhere."""
     return torch.full((comm.parts, n_local), 1.0 / n_orig,
@@ -71,7 +86,7 @@ def _uniform(comm: StackedComm, n_local: int, n_orig: int) -> torch.Tensor:
 def pagerank_bsp_program(shards, comm: StackedComm, iters: int = 50,
                          tol: float = 1e-6) -> SuperstepProgram:
     """BGL-style pull PageRank (ghost replication via all-gather)."""
-    n_local, n_orig = shards.n_local, shards.n_orig
+    n, n_local, n_orig = shards.n, shards.n_local, shards.n_orig
     ell_in = shards.ell("ell_in")
     base = (1.0 - ALPHA) / n_orig
     tol32 = _f32(tol)
@@ -88,13 +103,17 @@ def pagerank_bsp_program(shards, comm: StackedComm, iters: int = 50,
         err = comm.psum_scalar((new_rank - rank).abs().sum(dim=1))
         return new_rank, err
 
+    def guard(g, prev, state):
+        rank, err = state
+        return _rank_mass_ok(rank, n, n_orig, 1.02) & (err >= 0)
+
     return SuperstepProgram(
         name="pagerank", variant="bsp", inputs=(),
         init=init, step=step,
         halt=lambda state: state[1] <= tol32,
         outputs=lambda state: (state[0], state[1]),
         output_names=("rank", "err"), output_is_vertex=(True, False),
-        comm=comm, max_rounds=iters)
+        comm=comm, max_rounds=iters, guard=guard)
 
 
 def pagerank_fast_program(shards, comm: StackedComm, iters: int = 50,
@@ -168,6 +187,11 @@ def pagerank_fast_program(shards, comm: StackedComm, iters: int = 50,
             err = err_prev
         return new_rank, new_resid, err, it + 1
 
+    def guard(g, prev, state):
+        rank, resid, err, it = state
+        return _rank_mass_ok(rank, n, n_orig, 1.02) \
+            & torch.isfinite(resid).all() & (err >= 0) & (it >= 0)
+
     return SuperstepProgram(
         name="pagerank", variant="warm" if seeded else "fast",
         inputs=("rank0",) if seeded else (),
@@ -175,7 +199,7 @@ def pagerank_fast_program(shards, comm: StackedComm, iters: int = 50,
         halt=lambda state: state[2] <= tol32,
         outputs=lambda state: (state[0], state[2]),
         output_names=("rank", "err"), output_is_vertex=(True, False),
-        comm=comm, max_rounds=iters)
+        comm=comm, max_rounds=iters, guard=guard)
 
 
 def pagerank_async_program(shards, comm: StackedComm, iters: int = 64,
@@ -253,6 +277,16 @@ def pagerank_async_program(shards, comm: StackedComm, iters: int = 64,
         return (rank, remote, ship, err_local, err_g, it + 1, age_cur,
                 age_infl, max_age), handle
 
+    def guard(g, prev, state):
+        # looser mass margin: the remote term lags the own term by up to
+        # 2 * staleness + 1 rounds, so transient overshoot is larger
+        rank, remote, ship = state[0], state[1], state[2]
+        return _rank_mass_ok(rank, n, n_orig, 1.05) \
+            & torch.isfinite(remote).all() & (remote >= 0).all() \
+            & torch.isfinite(ship).all() & (ship >= 0).all() \
+            & (state[3] >= 0) & (state[4] >= 0) \
+            & (state[6] >= 0) & (state[7] >= 0) & (state[8] >= 0)
+
     return AsyncSuperstepProgram(
         name="pagerank", variant="async", inputs=(),
         init=init, local=local, fold=fold,
@@ -260,4 +294,4 @@ def pagerank_async_program(shards, comm: StackedComm, iters: int = 64,
         outputs=lambda g, state: (state[0], state[4], state[8]),
         output_names=("rank", "err", "max_age"),
         output_is_vertex=(True, False, False), comm=comm,
-        max_rounds=iters)
+        max_rounds=iters, guard=guard)

@@ -33,15 +33,18 @@ kernels do not shift uint32.
 Every exchange routes its OUTGOING payload through ``_tap``, which adds
 one part's payload bytes to ``StackedComm.wire`` under ``(phase, op)``
 — the same ops (``sum`` / ``or`` / ``min`` / ``bcast`` / ``perm``) and the same
-per-part figure the JAX package's telemetry wire tap records.  A
-``start`` taps under its blocking form's op, its scalar column
-included.  ``psum_scalar`` is not tapped: the halt scalar is control
-plane.
+per-part figure the JAX package's telemetry wire tap records — and then
+hands it to ``faults.tap`` (a no-op unless a fault schedule is armed),
+and ships what that returns.  A ``start`` taps under its blocking
+form's op, its scalar column included.  ``psum_scalar`` is not tapped:
+the halt scalar is control plane.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import faults
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -92,10 +95,14 @@ class StackedComm:
         """Accumulated bytes per part of one phase, keyed by op."""
         return {op: b for (ph, op), b in self.wire.items() if ph == phase}
 
-    def _tap(self, op: str, payload: torch.Tensor) -> None:
+    def _tap(self, op: str, payload: torch.Tensor,
+             words: bool = False) -> torch.Tensor:
+        """Count one part's bytes of ``payload``, then return it as the
+        fault tap leaves it (``words``: a payload of bitmap words)."""
         per_part = payload.numel() // self.parts * payload.element_size()
         key = (self.phase, op)
         self.wire[key] = self.wire.get(key, 0) + per_part
+        return faults.tap(op, payload, self.parts, words)
 
     def lo(self, n_local: int) -> torch.Tensor:
         """(P, 1) int32 first global id each part owns."""
@@ -135,31 +142,33 @@ class StackedComm:
         float32 payloads add in their own dtype (integers exact, wrapping
         on overflow); a bf16 payload accumulates in float32 and rounds
         once to bf16, as it does there."""
-        self._tap("sum", acc_global)
+        acc_global = self._tap("sum", acc_global)
         return self._source_sum(self._blocks(acc_global))
 
     def exchange_or(self, mask_global: torch.Tensor) -> torch.Tensor:
         """(P, n) bool -> (P, n_local) bool OR over all parts, shipped
         bit-packed (n/32 words per part)."""
         n_local = mask_global.shape[-1] // self.parts
-        packed = pack_bits(mask_global)
-        self._tap("or", packed)
+        packed = self._tap("or", pack_bits(mask_global), words=True)
         return unpack_bits(self._source_or(self._blocks(packed)), n_local)
 
     def exchange_min_int(self, val_global: torch.Tensor) -> torch.Tensor:
         """(P, n) proposals -> (P, n_local) element-wise MIN."""
-        self._tap("min", val_global)
+        val_global = self._tap("min", val_global)
         return self._blocks(val_global).amin(dim=0)
 
-    def broadcast_global(self, local_vals: torch.Tensor) -> torch.Tensor:
-        """(P, n_local) -> (P, n): each part holds the full replica."""
-        self._tap("bcast", local_vals)
+    def broadcast_global(self, local_vals: torch.Tensor,
+                         words: bool = False) -> torch.Tensor:
+        """(P, n_local) -> (P, n): each part holds the full replica
+        (``words``: the field is bitmap words)."""
+        local_vals = self._tap("bcast", local_vals, words)
         return local_vals.reshape(1, -1).expand(self.parts, -1)
 
-    def shift(self, x: torch.Tensor) -> torch.Tensor:
+    def shift(self, x: torch.Tensor, words: bool = False) -> torch.Tensor:
         """(P, ...) per-part payloads -> the same with part i's payload
-        at part (i + 1) mod P: one step of the ring."""
-        self._tap("perm", x)
+        at part (i + 1) mod P: one step of the ring (``words``: the
+        payloads are bitmap words)."""
+        x = self._tap("perm", x, words)
         return torch.roll(x, 1, dims=0)
 
     def own_slice(self, x_global: torch.Tensor) -> torch.Tensor:
@@ -198,9 +207,8 @@ class StackedComm:
         number, or one per part as ``(P,)``) piggybacked in the proposal
         dtype.  The handle is the ``(P_src, P_dst, n_local + 1)``
         received rows."""
-        payload = self._stamped(self._blocks(val_global), scalar)
-        self._tap("min", payload)
-        return payload
+        return self._tap("min", self._stamped(self._blocks(val_global),
+                                              scalar))
 
     def exchange_min_finish(self, handle: torch.Tensor):
         """``((P, n_local) combined minima, (P,) global scalar sum)``:
@@ -213,9 +221,8 @@ class StackedComm:
         scalar column.  The reduce-scatter combines on the wire, so the
         handle is already the ``(P, n_local + 1)`` owner sums, added in
         source order in the payload's dtype."""
-        payload = self._stamped(self._blocks(acc_global), scalar)
-        self._tap("sum", payload)
-        return self._source_sum(payload)
+        return self._source_sum(self._tap(
+            "sum", self._stamped(self._blocks(acc_global), scalar)))
 
     def exchange_sum_finish(self, handle: torch.Tensor):
         """``((P, n_local) combined sums, (P,) global scalar sum)``."""
@@ -226,10 +233,8 @@ class StackedComm:
         piggybacked count word (an int32 word, the JAX package's uint32
         bits).  The handle is the ``(P_src, P_dst, n_words + 1)`` received
         rows; finish it with the static ``n_local``."""
-        payload = self._stamped(self._blocks(pack_bits(mask_global)),
-                                scalar)
-        self._tap("or", payload)
-        return payload
+        return self._tap("or", self._stamped(
+            self._blocks(pack_bits(mask_global)), scalar), words=True)
 
     def exchange_or_finish(self, handle: torch.Tensor, n_local: int):
         """``((P, n_local) bool OR-combined mask, (P,) int32 global scalar

@@ -1,0 +1,218 @@
+"""Checkpointed, fault-recovering runs of superstep programs.
+
+``core/superstep.py`` supplies the chunked substrate (``init_carry`` /
+``run_chunk`` / ``carry_outputs``); this module owns the host loop that
+turns it into fault tolerance:
+
+  * every ``checkpoint_every`` rounds the loop carry (state, in-flight
+    async handle, round counter, verdict) is copied to host memory
+    (:class:`Checkpoint`);
+  * each chunk runs guarded: the program's per-round check and the
+    transport stamps (``core/faults``) stop it on the first bad round;
+  * on a detection the runner restores the last checkpoint and replays
+    the chunk with the schedule DISARMED: the transient-fault model, in
+    which a fault belongs to one execution of those rounds, not to the
+    rounds.  Later chunks run armed again, so later events still fire
+    and are recovered in turn.  A violation that survives the clean
+    replay is a real fault of the program or its guard and raises
+    :class:`RecoveryError`;
+  * ``run(..., resume_from=checkpoint)`` restarts from any snapshot.
+
+Chunking does not change a round's arithmetic, and the host copies are
+exact, so a checkpointed, resumed or recovered run gives the bits of an
+uninterrupted one.
+
+Each phase's ``prepare`` runs once a run and its result serves every
+chunk (k-core's degrees, triangles' adjacency bitmap).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.core import faults as faults_mod
+from repro_torch.core import localops, registry
+from repro_torch.core.superstep import PhasedProgram, carry_outputs, \
+    init_carry, run_chunk
+
+
+class RecoveryError(RuntimeError):
+    """A guard violation that checkpoint rollback cannot clear."""
+
+
+def _copy(tree, device):
+    """Every tensor of ``tree`` copied to ``device`` (never aliased: on a
+    CPU engine ``.to("cpu")`` would return the live tensor)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=True)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_copy(x, device) for x in tree)
+    return tree
+
+
+@dataclass(frozen=True)
+class Checkpoint:
+    """A host-memory snapshot of one phase's loop carry: every tensor
+    copied to the CPU, host numbers as they are.  Restoring copies the
+    tensors back to the engine's device, bit for bit."""
+
+    phase: int
+    rounds: int
+    carry: Any
+
+
+@dataclass
+class RunReport:
+    """What a checkpointed run did, beyond its outputs.
+
+    ``outputs`` are what a direct call returns: vertex fields as
+    ``(P, n_local)`` tensors on the engine's device
+    (``engine.gather_vertex_field`` applies), scalars as host numbers.
+    ``detections`` lists the round counter at each detection (the first
+    tainted round + 1, or 0 for an init); ``recoveries`` counts the
+    rollback replays that cleared one.
+    """
+
+    outputs: tuple
+    rounds: int
+    recoveries: int = 0
+    detections: tuple = ()
+    checkpoints: int = 0
+    history: tuple = ()
+
+
+class CheckpointRunner:
+    """Run one registered program with superstep checkpoints, fault
+    injection and rollback recovery.
+
+        runner = CheckpointRunner(engine, "bfs", "fast",
+                                  checkpoint_every=2,
+                                  faults="corrupt@r3p1:sum seed=7")
+        report = runner.run(engine.device_graph(), root)
+
+    ``faults=None`` runs plain checkpointed execution; a
+    :class:`~repro_torch.core.faults.FaultSchedule` (or its string form)
+    is armed for every chunk but the recovery replays.
+    ``keep_history=True`` keeps every checkpoint in the report (to
+    resume from one).  The local-ops mode active at construction is the
+    one the runs take.  ``telemetry`` and ``obs`` belong to the
+    observability layer, which is not ported yet.
+    """
+
+    def __init__(self, engine, algo: str, variant: str | None = None, *,
+                 checkpoint_every: int = 2, faults=None,
+                 max_recoveries: int = 16, keep_history: bool = False,
+                 telemetry: bool = False, obs=None, **params):
+        if telemetry or obs is not None:
+            raise NotImplementedError(
+                "CheckpointRunner telemetry/obs belong to the "
+                "observability layer, not ported yet (ROADMAP item 11)")
+        if checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        self.engine = engine
+        self.spec = registry.get_spec(algo, variant)
+        self.schedule = faults_mod.as_schedule(faults)
+        self.checkpoint_every = int(checkpoint_every)
+        self.max_recoveries = int(max_recoveries)
+        self.keep_history = bool(keep_history)
+        self.mode = localops.get_mode()
+        self.program = self.spec.build(engine.g, engine.comm, **params)
+        self.phases = self.program.phases \
+            if isinstance(self.program, PhasedProgram) else (self.program,)
+
+    def _armed(self, faulty: bool):
+        return faults_mod.active(self.schedule if faulty else None,
+                                 detect=True)
+
+    def _snapshot(self, pi: int, carry) -> Checkpoint:
+        return Checkpoint(phase=pi, rounds=carry[2],
+                          carry=_copy(carry, "cpu"))
+
+    def _restore(self, ck: Checkpoint):
+        return _copy(ck.carry, self.engine.device)
+
+    def _bump(self, stats: dict) -> None:
+        stats["recoveries"] += 1
+        if stats["recoveries"] > self.max_recoveries:
+            raise RecoveryError(
+                f"{self.spec.key}: exceeded max_recoveries="
+                f"{self.max_recoveries}")
+
+    def _keep(self, ck: Checkpoint, stats: dict) -> None:
+        stats["checkpoints"] += 1
+        if self.keep_history:
+            stats["history"].append(ck)
+
+    def _run_phase(self, pi: int, prog, g: dict, inputs, stats: dict,
+                   resume: Checkpoint | None):
+        if resume is not None:
+            carry = self._restore(resume)
+        else:
+            with self._armed(True):
+                carry = init_carry(prog, g, *inputs)
+            if not carry[3]:
+                stats["detections"].append(carry[2])
+                self._bump(stats)
+                with self._armed(False):
+                    carry = init_carry(prog, g, *inputs)
+                if not carry[3]:
+                    raise RecoveryError(
+                        f"{self.spec.key} phase {pi}: clean re-init still "
+                        f"violates guards")
+        ck = self._snapshot(pi, carry)
+        self._keep(ck, stats)
+        while True:
+            r0 = carry[2]
+            with self._armed(True):
+                nxt, halted = run_chunk(prog, g, carry,
+                                        self.checkpoint_every)
+            if not nxt[3]:
+                stats["detections"].append(nxt[2])
+                self._bump(stats)
+                with self._armed(False):
+                    nxt, halted = run_chunk(prog, g, self._restore(ck),
+                                            self.checkpoint_every)
+                if not nxt[3]:
+                    raise RecoveryError(
+                        f"{self.spec.key} phase {pi}: guard violation at "
+                        f"round {nxt[2]} persists on clean replay from the "
+                        f"round-{ck.rounds} checkpoint")
+            carry = nxt
+            ck = self._snapshot(pi, carry)
+            self._keep(ck, stats)
+            if halted or carry[2] == r0:
+                return carry
+
+    def run(self, garr: dict, *inputs,
+            resume_from: Checkpoint | None = None) -> RunReport:
+        """Run (or resume) the program; returns a :class:`RunReport`.
+
+        ``garr`` is ``engine.device_graph()``; ``inputs`` follow the
+        spec's inputs as in a direct call.  ``resume_from`` restarts from
+        a snapshot: the phases before it are folded into its carry, later
+        phases run from their inits.
+        """
+        stats = {"recoveries": 0, "detections": [], "checkpoints": 0,
+                 "history": []}
+        start = resume_from.phase if resume_from is not None else 0
+        total, chained, carry, prog, g = 0, inputs, None, None, None
+        with localops.using(self.mode):
+            for pi in range(start, len(self.phases)):
+                prog = self.phases[pi]
+                g = prog.prepare(garr)
+                resume = resume_from if pi == start else None
+                carry = self._run_phase(pi, prog, g, chained, stats, resume)
+                total += carry[2]
+                if pi + 1 < len(self.phases):
+                    chained = carry_outputs(prog, g, carry)
+            outs = carry_outputs(prog, g, carry)
+        return RunReport(
+            outputs=tuple(outs), rounds=total,
+            recoveries=stats["recoveries"],
+            detections=tuple(stats["detections"]),
+            checkpoints=stats["checkpoints"],
+            history=tuple(stats["history"]))

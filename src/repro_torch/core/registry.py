@@ -26,6 +26,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
+import numpy as np
+
 from repro_torch.core import betweenness as _bc
 from repro_torch.core import bfs as _bfs
 from repro_torch.core import cc as _cc
@@ -34,7 +36,7 @@ from repro_torch.core import kcore as _kcore
 from repro_torch.core import pagerank as _pr
 from repro_torch.core import sssp as _sssp
 from repro_torch.core import triangles as _tri
-from repro_torch.core.graph import GraphShards
+from repro_torch.core.graph import GraphShards, partition_graph
 from repro_torch.core.partitioned import StackedComm
 from repro_torch.core.superstep import AsyncSuperstepProgram, \
     PhasedProgram, SuperstepProgram
@@ -90,6 +92,9 @@ class ProgramSpec:
     incremental: IncrementalSpec | None = None
     # the loop the built program runs under: "bsp" or "async"
     exec_mode: str = "bsp"
+    # the per-round invariant the program's guard checks under guard=True
+    # runs (the value channel of fault detection, ``core/faults.py``)
+    guard_doc: str = ""
 
     def __post_init__(self):
         if not self.input_kinds:
@@ -238,7 +243,9 @@ register(ProgramSpec(
     make=lambda g, comm, **p: _bfs.bfs_bsp_program(g, comm, **p),
     inputs=("root",), defaults={"max_levels": 64},
     doc="level-synchronous push BFS; full parent-proposal exchange "
-        "(the rigid-barrier Boost/PBGL baseline)"))
+        "(the rigid-barrier Boost/PBGL baseline)",
+    guard_doc="parents non-negative and element-wise non-increasing; "
+              "frontier count >= 0"))
 
 register(ProgramSpec(
     algo="bfs", variant="fast",
@@ -248,14 +255,18 @@ register(ProgramSpec(
               "direction": "adaptive"},
     batch_defaults={"direction": "pull"},
     doc="direction-optimizing BFS with bit-packed frontier exchange "
-        "(the HPX-adapted implementation)"), default=True)
+        "(the HPX-adapted implementation)",
+    guard_doc="parents non-negative and element-wise non-increasing; "
+              "frontier count >= 0"), default=True)
 
 register(ProgramSpec(
     algo="pagerank", variant="bsp",
     make=lambda g, comm, **p: _pr.pagerank_bsp_program(g, comm, **p),
     inputs=(), defaults={"iters": 50, "tol": 1e-6},
     doc="pull PageRank with full contribution all-gather (ghost "
-        "replication baseline)"))
+        "replication baseline)",
+    guard_doc="rank non-negative; global mass in ((1-alpha)*0.9, "
+              "(n/n_orig)*1.02); residual >= 0"))
 
 register(ProgramSpec(
     algo="pagerank", variant="fast",
@@ -264,7 +275,9 @@ register(ProgramSpec(
     defaults={"iters": 50, "tol": 1e-6, "compress": True,
               "switch_factor": 1e3, "err_every": 5},
     doc="push-aggregate PageRank: fused reduce-scatter + adaptive bf16 "
-        "error-feedback compression"),
+        "error-feedback compression",
+    guard_doc="rank non-negative; global mass in ((1-alpha)*0.9, "
+              "(n/n_orig)*1.02); error-feedback residual finite"),
     default=True)
 
 register(ProgramSpec(
@@ -273,14 +286,18 @@ register(ProgramSpec(
     inputs=("root",), defaults={"max_rounds": 64, "weight_scale": 1.0},
     doc="frontier-pruned Bellman-Ford with MIN-combine exchange; "
         "weight_scale uniformly scales the synthesized weights (must "
-        "be finite and positive — serve admission rejects the rest)"),
+        "be finite and positive — serve admission rejects the rest)",
+    guard_doc="distances non-negative and element-wise non-increasing "
+              "(NaN fails both); change count >= 0"),
     default=True)
 
 register(ProgramSpec(
     algo="cc", variant="default",
     make=lambda g, comm, **p: _cc.cc_program(g, comm, **p),
     inputs=(), defaults={"max_rounds": 64},
-    doc="label propagation over both edge directions"), default=True)
+    doc="label propagation over both edge directions",
+    guard_doc="labels non-negative and element-wise non-increasing; "
+              "change count >= 0"), default=True)
 
 register(ProgramSpec(
     algo="triangles", variant="default",
@@ -289,6 +306,7 @@ register(ProgramSpec(
     inputs=(), defaults={},
     doc="rotation triangle counting: bit-packed neighbor-set exchange "
         "(ppermute ring, P supersteps), intersection as masked matmul",
+    guard_doc="per-vertex double-counts finite and non-decreasing",
     n_budget=1 << 13), default=True)
 
 register(ProgramSpec(
@@ -296,7 +314,9 @@ register(ProgramSpec(
     make=lambda g, comm, **p: _kcore.kcore_program(g, comm, **p),
     inputs=(), defaults={"max_rounds": 512},
     doc="iterative peeling (threshold form) with fused degree-decrement "
-        "exchange; degeneracy rides as a scalar output"), default=True)
+        "exchange; degeneracy rides as a scalar output",
+    guard_doc="live degrees within [0, undirected degree]; core numbers "
+              "and threshold non-decreasing; alive count >= 0"), default=True)
 
 register(ProgramSpec(
     algo="pagerank", variant="warm",
@@ -309,7 +329,9 @@ register(ProgramSpec(
                                 mutations="any"),
     doc="push-aggregate PageRank warm-restarted from a previous epoch's "
         "rank vector; same fixed point from any seed, so it is exact "
-        "after ANY mutation batch — the seed only buys fewer rounds"))
+        "after ANY mutation batch — the seed only buys fewer rounds",
+    guard_doc="rank non-negative; global mass in ((1-alpha)*0.9, "
+              "(n/n_orig)*1.02); error-feedback residual finite"))
 
 register(ProgramSpec(
     algo="cc", variant="incremental",
@@ -320,7 +342,9 @@ register(ProgramSpec(
                                 mutations="insert"),
     doc="min-label propagation warm-started from a previous epoch's "
         "labels: exact after insert-only batches (components only "
-        "merge); identity seed = the cold start"))
+        "merge); identity seed = the cold start",
+    guard_doc="labels non-negative and element-wise non-increasing; "
+              "change count >= 0"))
 
 register(ProgramSpec(
     algo="kcore", variant="incremental",
@@ -332,7 +356,9 @@ register(ProgramSpec(
     doc="local support-decrement peeling from a previous epoch's core "
         "numbers: exact from ANY pointwise upper bound, so old cores "
         "are valid after delete-only batches and the degree bound is "
-        "the cold start"))
+        "the cold start",
+    guard_doc="assignment non-negative and element-wise non-increasing; "
+              "change count >= 0"))
 
 register(ProgramSpec(
     algo="betweenness", variant="default",
@@ -340,7 +366,10 @@ register(ProgramSpec(
     inputs=("root",), defaults={"max_levels": 64},
     doc="Brandes single-source dependencies: path-counting forward BFS "
         "then a dependency-accumulation backward sweep (the first "
-        "two-phase program; sum over batched sources for centrality)"),
+        "two-phase program; sum over batched sources for centrality)",
+    guard_doc="forward: levels adopt-once non-increasing, path counts "
+              "finite/non-decreasing; backward: dependencies finite and "
+              "non-negative, forward fields bit-frozen"),
     default=True)
 
 # -- async (double-buffered) variants: stale-tolerant programs on
@@ -352,7 +381,9 @@ register(ProgramSpec(
     inputs=("root",), defaults={"max_levels": 64, "local_iters": 1},
     doc="async BFS: monotone min-combine levels overlap the in-flight "
         "exchange, halt count piggybacked on the level payload (no "
-        "separate psum), parents derived post-loop from exact levels"))
+        "separate psum), parents derived post-loop from exact levels",
+    guard_doc="monotone values non-negative and element-wise "
+              "non-increasing; quiescence counters >= 0"))
 
 register(ProgramSpec(
     algo="pagerank", variant="async", exec_mode="async",
@@ -362,7 +393,10 @@ register(ProgramSpec(
     doc="bounded-staleness push PageRank: fresh own-slice term every "
         "round, remote term refreshed every `staleness` rounds by the "
         "double-buffered reduce-scatter with the residual piggybacked; "
-        "remote age provably <= 2*staleness+1 (reported as max_age)"))
+        "remote age provably <= 2*staleness+1 (reported as max_age)",
+    guard_doc="rank non-negative; global mass in ((1-alpha)*0.9, "
+              "(n/n_orig)*1.05) (staleness transients); remote/ship "
+              "terms finite and non-negative; ages >= 0"))
 
 register(ProgramSpec(
     algo="cc", variant="async", exec_mode="async",
@@ -370,7 +404,9 @@ register(ProgramSpec(
     inputs=(), defaults={"max_rounds": 64, "local_iters": 1},
     doc="async min-label propagation: both edge directions share one "
         "min-accumulator exchange per round; staleness-exact (labels "
-        "only decrease under idempotent min-combine)"))
+        "only decrease under idempotent min-combine)",
+    guard_doc="monotone values non-negative and element-wise "
+              "non-increasing; quiescence counters >= 0"))
 
 register(ProgramSpec(
     algo="sssp", variant="async", exec_mode="async",
@@ -379,4 +415,43 @@ register(ProgramSpec(
     defaults={"max_rounds": 64, "local_iters": 1, "weight_scale": 1.0},
     doc="async Bellman-Ford: local closure relaxes own-partition "
         "improvements while the distance exchange is in flight; "
-        "staleness-exact under min-combine"))
+        "staleness-exact under min-combine",
+    guard_doc="monotone values non-negative and element-wise "
+              "non-increasing; quiescence counters >= 0"))
+
+
+# ---------------------------------------------------------------------------
+# Docs generation.
+# ---------------------------------------------------------------------------
+
+def _table_graph() -> GraphShards:
+    """A 256-vertex ring on one part: the programs a table reads are
+    built against its shapes (the JAX package builds them on an abstract
+    graph of the same size)."""
+    ring = np.arange(256, dtype=np.int32)
+    return partition_graph(np.stack([ring, (ring + 1) % 256], axis=1), 256,
+                           1)
+
+
+def guards_markdown_table() -> str:
+    """Markdown table of every registered program's fault-guard
+    invariant, from the registry AND the built programs (the guard
+    column reads the program object's ``guard`` field); the JAX
+    package's function gives the same string."""
+    g = _table_graph()
+    comm = StackedComm(g.parts, "cpu")
+    lines = [
+        "| program | guard | per-round invariant (guard=True) |",
+        "| --- | --- | --- |",
+    ]
+    for algo, variant in available():
+        spec = _REGISTRY[(algo, variant)]
+        prog = spec.build(g, comm)
+        if isinstance(prog, PhasedProgram):
+            guarded = all(ph.guard is not None for ph in prog.phases)
+        else:
+            guarded = prog.guard is not None
+        mark = "custom" if guarded else "NaN/Inf screen"
+        inv = spec.guard_doc or "float state leaves finite"
+        lines.append(f"| `{spec.key}` | {mark} | {inv} |")
+    return "\n".join(lines)

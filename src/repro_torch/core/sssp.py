@@ -95,6 +95,13 @@ def sssp_program(shards, comm: StackedComm, max_rounds: int = 64,
         cnt = comm.psum_scalar(new_changed.sum(dim=1, dtype=torch.int32))
         return new_dist, new_changed, cnt
 
+    def guard(g, prev, state):
+        # distances non-negative and non-increasing (NaN corruption fails
+        # both comparisons); change count non-negative
+        dist = state[0]
+        return (dist >= 0).all() & (dist <= prev[0]).all() \
+            & (state[2] >= 0)
+
     return SuperstepProgram(
         name="sssp", variant="default", inputs=("root",),
         prepare=_weights(comm, n_local, weight_scale), init=init,
@@ -102,7 +109,7 @@ def sssp_program(shards, comm: StackedComm, max_rounds: int = 64,
         halt=lambda state: state[2] <= 0,
         outputs=lambda state: (state[0],),
         output_names=("dist",), output_is_vertex=(True,),
-        comm=comm, max_rounds=max_rounds)
+        comm=comm, max_rounds=max_rounds, guard=guard)
 
 
 def sssp_async_program(shards, comm: StackedComm, max_rounds: int = 64,

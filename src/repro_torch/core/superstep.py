@@ -25,16 +25,25 @@ round earlier, apply it, start the next), and runs under
 next phase's ``init``; :func:`run_phases`), and
 :func:`run_program_batched` runs one program over B per-query inputs
 against one graph residency (multi-source queries).
+
+``guard=True`` runs the guarded loop: after each round the program's
+invariant check (or a NaN/Inf screen) and the fault transport stamps
+(``core/faults.py``) give the round a verdict, and the loop stops on
+the first bad one.  It is :func:`init_carry`, one :func:`run_chunk`
+and :func:`carry_outputs`; ``core/recovery.py`` runs the same three in
+chunks of rounds with checkpoints between them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.partitioned import StackedComm
 
 
@@ -57,6 +66,15 @@ class SuperstepProgram:
       outputs(state) -> tuple
                              final outputs, aligned with
                              ``output_names`` / ``output_is_vertex``
+      guard(g, prev, state) -> verdict
+                             optional per-round invariant check of the
+                             state a step made from ``prev`` (monotone
+                             non-increase, mass conservation,
+                             non-negativity): a bool tensor of per-part
+                             or global verdicts, possibly combined with
+                             host bools; True = consistent.  ``None``
+                             falls back to :func:`finite_state`.  Run
+                             only by the guarded loops.
 
     ``comm`` is the exchange context the callables close over; the
     loop labels its wire accounting by phase.
@@ -74,6 +92,7 @@ class SuperstepProgram:
     comm: StackedComm
     max_rounds: int = 64
     prepare: Callable[[dict], dict] = field(default=lambda g: g)
+    guard: Callable[[dict, Any, Any], Any] | None = None
 
     @property
     def key(self) -> str:
@@ -108,6 +127,8 @@ class AsyncSuperstepProgram:
       outputs(g, state) -> tuple
                              finalization after the loop; unlike the BSP
                              form it receives ``g`` and may exchange
+      guard(g, prev, state)  as :class:`SuperstepProgram`'s, over a
+                             round's ``local`` + ``fold``
 
     Round k's exchange is finished in round k + 1, after that round's
     ``local``.  With all parts stacked on one device the overlap is
@@ -128,32 +149,84 @@ class AsyncSuperstepProgram:
     comm: StackedComm
     max_rounds: int = 64
     prepare: Callable[[dict], dict] = field(default=lambda g: g)
+    guard: Callable[[dict, Any, Any], Any] | None = None
 
     @property
     def key(self) -> str:
         return f"{self.name}/{self.variant}"
 
 
+# --------------------------------------------------------------------------
+# Guards.  A guarded round's verdict is the program's invariant check (or
+# the NaN/Inf screen) AND NOT the transport stamp of ``core/faults``.  The
+# check's tensor verdicts reach the host in ONE read, the round's one
+# extra sync; host numbers in the state are checked on the host.
+# --------------------------------------------------------------------------
+
+
+def _leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        for x in tree:
+            yield from _leaves(x)
+    else:
+        yield tree
+
+
+def finite_state(state):
+    """Default guard: every float tensor of the state is finite, and so
+    is every float host number (an error or residual the loop keeps on
+    the host)."""
+    ok = True
+    for leaf in _leaves(state):
+        if isinstance(leaf, torch.Tensor):
+            if leaf.is_floating_point():
+                ok = ok & torch.isfinite(leaf).all()
+        elif isinstance(leaf, float):
+            ok = ok & math.isfinite(leaf)
+    return ok
+
+
+def _round_ok(prog, g: dict, prev, state) -> bool:
+    """The round's verdict, a host bool: invariant check AND no
+    transport stamp."""
+    check = prog.guard if prog.guard is not None \
+        else (lambda g_, p_, s_: finite_state(s_))
+    verdict = check(g, prev, state)
+    if isinstance(verdict, torch.Tensor):
+        verdict = verdict.all().item()      # the guarded round's one sync
+    return bool(verdict) and not faults.stamp_violation()
+
+
 def run_program_async(prog: AsyncSuperstepProgram, g: dict, *inputs,
-                      static_iters: int = 0):
+                      static_iters: int = 0, guard: bool = False):
     """The double-buffered loop: the ``(outputs, rounds)`` contract of
     :func:`run_program`, each round ``local`` then ``fold`` with the
     in-flight handle carried from one round to the next.  ``static_iters
-    > 0`` runs a fixed trip count."""
+    > 0`` runs a fixed trip count.  ``guard=True`` returns ``(outputs,
+    rounds, ok)``.
+
+    Fault rounds: the exchange ``init`` starts is round 0, the one body
+    iteration r starts is round r + 1."""
+    if guard:
+        return _run_guarded(prog, g, *inputs, static_iters=static_iters)
     g = prog.prepare(g)
     comm = prog.comm
     comm.phase = "init"
+    faults.set_round(0)
     state, handle = prog.init(g, *inputs)
     comm.phase = "round"
     rounds = 0
     if static_iters:
         for _ in range(static_iters):
-            state, handle = prog.fold(g, prog.local(g, state), handle)
-        rounds = static_iters
-    else:
-        while rounds < prog.max_rounds and not prog.halt(state):
+            faults.set_round(rounds + 1)
             state, handle = prog.fold(g, prog.local(g, state), handle)
             rounds += 1
+    else:
+        while rounds < prog.max_rounds and not prog.halt(state):
+            faults.set_round(rounds + 1)
+            state, handle = prog.fold(g, prog.local(g, state), handle)
+            rounds += 1
+    faults.set_round(-1)
     comm.phase = "outputs"
     out = prog.outputs(g, state)
     comm.phase = "round"
@@ -182,47 +255,64 @@ class PhasedProgram:
 
 
 def run_phases(prog: PhasedProgram, g: dict, *inputs,
-               static_iters: int = 0):
+               static_iters: int = 0, guard: bool = False):
     """Run the phases of ``prog`` in order, phase i + 1 initialized with
     phase i's outputs.  Returns the last phase's outputs and the total
-    round count (``len(phases) * static_iters`` on the fixed-trip
-    path)."""
-    chained, total = inputs, 0
+    round count (``len(phases) * static_iters`` on the fixed-trip path),
+    and under ``guard=True`` the AND of the phases' verdicts.  Each phase
+    counts its own fault rounds."""
+    chained, total, ok = inputs, 0, True
     for phase in prog.phases:
-        chained, rounds = run_program(phase, g, *chained,
-                                      static_iters=static_iters)
+        res = run_program(phase, g, *chained, static_iters=static_iters,
+                          guard=guard)
+        chained, rounds = res[0], res[1]
+        if guard:
+            ok = ok and res[2]
         total += rounds
-    return chained, total
+    return (chained, total, ok) if guard else (chained, total)
 
 
 def run_program(prog: SuperstepProgram, g: dict, *inputs,
-                static_iters: int = 0):
+                static_iters: int = 0, guard: bool = False):
     """The ONE shared superstep loop.
 
     Returns ``(outputs_tuple, rounds)`` where ``rounds`` is the number of
     supersteps executed (== ``static_iters`` on the fixed-trip path).  A
     :class:`PhasedProgram` dispatches to :func:`run_phases`, an
     :class:`AsyncSuperstepProgram` to :func:`run_program_async`.
+
+    ``guard=True`` checks every round (init included) and stops on the
+    first bad one; the return becomes ``(outputs_tuple, rounds, ok)``
+    with ``ok`` a sticky host bool.  It does not combine with
+    ``static_iters``.  Fault rounds: init and step 0 are round 0, step r
+    is round r, outputs round -1.
     """
     if isinstance(prog, PhasedProgram):
-        return run_phases(prog, g, *inputs, static_iters=static_iters)
+        return run_phases(prog, g, *inputs, static_iters=static_iters,
+                          guard=guard)
     if isinstance(prog, AsyncSuperstepProgram):
         return run_program_async(prog, g, *inputs,
-                                 static_iters=static_iters)
+                                 static_iters=static_iters, guard=guard)
+    if guard:
+        return _run_guarded(prog, g, *inputs, static_iters=static_iters)
     g = prog.prepare(g)
     comm = prog.comm
     comm.phase = "init"
+    faults.set_round(0)
     state = prog.init(g, *inputs)
     comm.phase = "round"
     rounds = 0
     if static_iters:
         for _ in range(static_iters):
-            state = prog.step(g, state)
-        rounds = static_iters
-    else:
-        while rounds < prog.max_rounds and not prog.halt(state):
+            faults.set_round(rounds)
             state = prog.step(g, state)
             rounds += 1
+    else:
+        while rounds < prog.max_rounds and not prog.halt(state):
+            faults.set_round(rounds)
+            state = prog.step(g, state)
+            rounds += 1
+    faults.set_round(-1)
     comm.phase = "outputs"
     out = prog.outputs(state)
     comm.phase = "round"
@@ -253,3 +343,76 @@ def run_program_batched(prog, g: dict, *batched_inputs,
         else [r[0][i] for r in runs]
         for i, is_v in enumerate(prog.output_is_vertex))
     return outs, [r[1] for r in runs]
+
+
+# --------------------------------------------------------------------------
+# Chunked execution: the checkpointing substrate.
+#
+# The guarded loop runs a program as ONE chunk; ``core/recovery.py`` runs
+# it as guarded CHUNKS of at most k rounds and snapshots the carry
+# between chunks.  The carry is ``(state, handle, rounds, ok)``:
+# ``handle`` is ``()`` for BSP programs and the in-flight exchange for
+# async ones, ``rounds`` and ``ok`` host values.  Chunks run the rounds
+# of one guarded loop, so a chunked run gives the bits of an
+# uninterrupted one.  ``g`` is the graph ``prog.prepare`` returned: the
+# caller prepares once for all chunks.
+# --------------------------------------------------------------------------
+
+
+def _run_guarded(prog, g: dict, *inputs, static_iters: int = 0):
+    """The guarded loop of a BSP or async program: ``(outputs, rounds,
+    ok)``, stopped at the first bad round."""
+    if static_iters:
+        raise ValueError("guard=True is incompatible with static_iters")
+    g = prog.prepare(g)
+    carry, _ = run_chunk(prog, g, init_carry(prog, g, *inputs),
+                         prog.max_rounds)
+    return carry_outputs(prog, g, carry), carry[2], carry[3]
+
+
+def init_carry(prog, g: dict, *inputs):
+    """The first carry: init + the round-0 verdict (an init's exchanges
+    are fault round 0, so a tainted init reports ``ok`` False and the
+    caller re-inits rather than checkpointing poison)."""
+    comm = prog.comm
+    comm.phase = "init"
+    faults.set_round(0)
+    if isinstance(prog, AsyncSuperstepProgram):
+        state, handle = prog.init(g, *inputs)
+    else:
+        state, handle = prog.init(g, *inputs), ()
+    comm.phase = "round"
+    return state, handle, 0, _round_ok(prog, g, state, state)
+
+
+def run_chunk(prog, g: dict, carry, chunk: int):
+    """Advance ``carry`` by up to ``chunk`` guarded rounds; stop early on
+    halt, ``max_rounds`` or the first bad round.  Returns ``(carry,
+    halted)``: the caller reads ``carry[3]`` (ok) to checkpoint or roll
+    back, and ``halted`` and ``carry[2]`` (rounds) to go on or stop."""
+    is_async = isinstance(prog, AsyncSuperstepProgram)
+    state, handle, r, ok = carry
+    i = 0
+    while ok and not prog.halt(state) and i < chunk \
+            and r < prog.max_rounds:
+        faults.set_round(r + 1 if is_async else r)
+        prev = state
+        if is_async:
+            state, handle = prog.fold(g, prog.local(g, state), handle)
+        else:
+            state = prog.step(g, state)
+        ok = _round_ok(prog, g, prev, state)
+        r, i = r + 1, i + 1
+    faults.set_round(-1)
+    return (state, handle, r, ok), bool(prog.halt(state))
+
+
+def carry_outputs(prog, g: dict, carry) -> tuple:
+    """The program's outputs from a halted carry."""
+    comm = prog.comm
+    faults.set_round(-1)
+    comm.phase = "outputs"
+    out = prog.outputs(g, carry[0]) \
+        if isinstance(prog, AsyncSuperstepProgram) else prog.outputs(carry[0])
+    comm.phase = "round"
+    return out

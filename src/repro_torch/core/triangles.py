@@ -88,7 +88,7 @@ def triangles_program(n: int, n_local: int,
             q = (me - r) % parts
             gate = a.reshape(parts, n_local, parts, n_local)[me, :, q]
             tri2 = tri2 + (gate * common).sum(dim=2)
-        return comm.shift(block), tri2, r + 1
+        return comm.shift(block, words=True), tri2, r + 1
 
     def outputs(state):
         tri2 = state[1]
@@ -96,10 +96,17 @@ def triangles_program(n: int, n_local: int,
         total = int(comm.psum_scalar(tri2.sum(dim=1)) / 6.0 + 0.5)
         return tri, total
 
+    def guard(g, prev, state):
+        # per-vertex double counts add non-negative intersections: finite
+        # and non-decreasing.  The rotated block is bitmap data, which
+        # only the transport stamps check
+        tri2 = state[1]
+        return torch.isfinite(tri2).all() & (tri2 >= prev[1]).all()
+
     return SuperstepProgram(
         name="triangles", variant="default", inputs=(),
         prepare=prepare, init=init, step=step,
         halt=lambda state: state[2] >= parts,
         outputs=outputs,
         output_names=("triangles", "total"), output_is_vertex=(True, False),
-        comm=comm, max_rounds=parts)
+        comm=comm, max_rounds=parts, guard=guard)

@@ -33,6 +33,8 @@ def _imported_roots(path):
 def test_sources_import_no_jax_or_reference():
     files = _port_files()
     assert len(files) > 20, files
+    assert {os.path.join(PORT, "core", m) for m in
+            ("faults.py", "recovery.py")} <= set(files)
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, f"forbidden imports: {bad}"
