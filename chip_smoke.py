@@ -23,6 +23,10 @@ against its plain-PyTorch version:
   guarded, checkpointed and recovered from a seeded drop + corrupt +
   stall schedule on the parts-4 partition (kernels ``spmv_ell`` and
   ``bfs_pull`` on the recovered runs);
+- observability: every registered program's ``telemetry=True`` build
+  beside its plain one on the same partitions, traced recovered runs of
+  bfs/fast and pagerank/fast, and one Chrome trace of them all (kernels
+  ``spmv_ell`` and ``bfs_pull``);
 - LM token serving: ``launch/serve.py::serve`` on TinyLlama-1.1B at full
   width, weights drawn from a seeded ``torch.Generator`` on the card
   (kernel ``flash_attention_fwd``, one launch per prefill layer).
@@ -127,6 +131,30 @@ prints no result):
            recovered (the checked runs), syncs a round, snapshots, bytes
            and ms a snapshot, detections and recoveries; ``[chaos done]``
            the phase's seconds.
+  obs      at parts 1 and 4 in mode auto (triangles on the TRI_N-vertex
+           graph), launch counters zeroed at the start: every registered
+           program (registry defaults; pagerank/async and pagerank/warm at
+           ASYNC_PR_PARAMS, pagerank/warm from pagerank/fast's ranks, the
+           other incremental programs from their cold seeds) run plain,
+           with each round's halt test and probes read from its state,
+           then through its ``telemetry=True`` build: outputs and rounds
+           bit-identical, the series' rounds equal, its last halt 1
+           unless the run hit max_rounds, its halt and probe columns
+           exactly the plain run's values, and the ``Tensor.item`` count
+           and kernel launches equal with telemetry on and off.  Then at
+           parts 4 ``CheckpointRunner(telemetry=True, obs=SpanRecorder())``
+           runs of bfs/fast and pagerank/fast under the chaos phase's
+           schedules: detections and recoveries equal the chaos phase's,
+           one fault_detection and one rollback event each and a
+           checkpoint event a snapshot, ``telemetry["rounds"]`` the clean
+           rounds, outputs bit-identical to the clean run, the program's
+           kernel launched.  Then one Chrome trace of every telemetry run
+           (a track per part) and the runner's spans and events, validated
+           and written to build/obs/chip_smoke.json.  ``[obs]`` lines:
+           rounds, wall ms and mean round ms of the telemetry run, ms with
+           telemetry off and on (median of 3 each), syncs, launches, wire
+           bytes a round by op; the recovered runs' events; the trace's
+           events per ``ph``; ``[obs done]`` the phase's seconds.
   llm-parity  flash_attention_fwd against its plain version (ref.py) on
            the shapes of tests/test_kernels_flash.py (sweep x {causal,
            causal + window 64, non-causal}, cross lengths, softcap 20,
@@ -160,6 +188,7 @@ result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -214,6 +243,10 @@ CHAOS_RESUME = (("bfs", "fast"), ("pagerank", "fast"))
 CHAOS_EVERY = 2
 INCREMENTAL = (("cc", "incremental"), ("kcore", "incremental"),
                ("pagerank", "warm"))
+# the obs phase: recovered runs traced at CHAOS_PARTS, and the Chrome
+# trace it writes (build/ is not committed)
+OBS_RECOVERED = (("bfs", "fast"), ("pagerank", "fast"))
+OBS_TRACE = HERE / "build" / "obs" / "chip_smoke.json"
 ASYNC_SIBLING = {"bfs/async": "bfs/fast", "sssp/async": "sssp",
                  "cc/async": "cc", "pagerank/async": "pagerank/fast",
                  "cc/incremental": "cc", "kcore/incremental": "kcore",
@@ -315,7 +348,7 @@ class Port:
         from repro_torch.kernels.flash_attention import ops as flash_ops
         from repro_torch.kernels.flash_attention.ref import \
             flash_attention_ref
-        from repro_torch import models
+        from repro_torch import models, obs
         from repro_torch.launch.serve import serve
         self.arch_registry = arch_registry
         self.batch_at = batch_at
@@ -323,6 +356,7 @@ class Port:
         self.flash_ops = flash_ops
         self.flash_attention_ref = flash_attention_ref
         self.models = models
+        self.obs = obs
         self.serve = serve
         self.torch = torch
         self.graph_workloads = graph_workloads
@@ -1340,13 +1374,15 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
     asy = run_async(port, m, engines, main, bsp, program_ms)
     # -- fault injection, guards and recovery -----------------------------
     chaos = run_chaos(port, engines, main, bsp, asy)
+    # -- observability: telemetry builds, probes, traced recovery ---------
+    obs = run_obs(port, engines, main, chaos["cells"])
     return {"launches": main_launches, "parity_err": parity_err,
             "kernel_cells": kernel_cells, "parts": max(parts_list),
             "bsp_launches": bsp["launches"],
             "multi_launches": bsp["multi_launches"],
             "async_launches": asy["launches"],
             "inc_launches": asy["inc_launches"],
-            "chaos_launches": chaos}
+            "chaos_launches": chaos["launches"], "obs_launches": obs}
 
 def suite_fields(eng, prog, outs) -> dict:
     """Output name -> host value (vertex fields gathered to numpy)."""
@@ -1934,7 +1970,7 @@ def run_chaos(port: Port, engines: dict, main: dict, bsp: dict,
     """Guarded, checkpointed and recovered runs of CHAOS_PROGRAMS at
     CHAOS_PARTS in mode auto, each held bit for bit against the program's
     run in the phases above; launch counters zeroed around each program.
-    Returns the phase's launches."""
+    Returns the phase's launches and its per-program cells."""
     torch = port.torch
     t_phase = time.perf_counter()
     parts = CHAOS_PARTS
@@ -2082,6 +2118,213 @@ def run_chaos(port: Port, engines: dict, main: dict, bsp: dict,
     log("[times] " + json.dumps({"chaos": cells, "seconds": secs},
                                 default=str))
     log(f"[chaos done] {secs:.1f} s")
+    return {"launches": total, "cells": cells}
+
+
+# ---------------------------------------------------------------------------
+# observability: telemetry builds, probes, traced recovery, Chrome trace
+# ---------------------------------------------------------------------------
+
+def recording(port: Port, program, rows: list):
+    """A copy of ``program`` that appends, after each round (after
+    ``fold`` for an async program), the row the telemetry series holds
+    but ``done``: the halt test and the probes on the round's state,
+    host numbers the loop already has (no sync)."""
+    sup = port.superstep
+    if isinstance(program, sup.PhasedProgram):
+        return dataclasses.replace(program, phases=tuple(
+            recording(port, ph, rows) for ph in program.phases))
+    probe = program.probe or (lambda state: ())
+
+    def row(state):
+        rows.append([float(program.halt(state)),
+                     *map(float, probe(state))])
+        return state
+
+    if isinstance(program, sup.AsyncSuperstepProgram):
+        def fold(g, state, handle):
+            state, handle = program.fold(g, state, handle)
+            return row(state), handle
+        return dataclasses.replace(program, fold=fold)
+    return dataclasses.replace(
+        program, step=lambda g, state: row(program.step(g, state)))
+
+
+def run_obs(port: Port, engines: dict, main: dict, chaos: dict) -> dict:
+    """Every registered program but the batched builds, plain and
+    ``telemetry=True``, on the main path's partitions (triangles on its
+    TRI_N-vertex graph) in mode auto; then CheckpointRunner(telemetry=True,
+    obs=SpanRecorder()) recovered runs of OBS_RECOVERED under the chaos
+    phase's schedules; then one Chrome trace of every engine track and
+    the runner's spans and events, written to OBS_TRACE and validated.
+    Returns the launches of the telemetry runs (counters zeroed at the
+    start of the phase; each equal to its plain run's)."""
+    torch = port.torch
+    obs = port.obs
+    t_phase = time.perf_counter()
+    tri_edges = port.urand_edges(TRI_N, 16 * TRI_N, SEED)
+    targets = {}
+    for parts, (g, eng, garr) in engines.items():
+        g_t = port.partition_graph(tri_edges, TRI_N, parts)
+        eng_t = port.GraphEngine(g_t, device=eng.device)
+        targets[parts] = (g, eng, garr, eng_t, eng_t.device_graph())
+    port.reset_launches()
+    total = {"spmv_ell": 0, "bfs_pull": 0}
+    tracks, cells = [], {}
+    for parts, (g, eng, garr, eng_t, garr_t) in targets.items():
+        for algo, variant in port.registry.available():
+            key = f"{algo}/{variant}"
+            spec = port.registry.get_spec(algo, variant)
+            params = ASYNC_PR_PARAMS if key in ("pagerank/async",
+                                                "pagerank/warm") else {}
+            e, ga = (eng_t, garr_t) if algo == "triangles" else (eng, garr)
+            if key == "pagerank/warm":
+                args = (e.scatter_vertex_field(
+                    main[parts]["pagerank/fast"]["field"]),)
+            elif spec.incremental is not None:
+                (seed_arr,) = port.incremental.cold_seed(spec, e.g)
+                args = (e.scatter_vertex_field(seed_arr),)
+            else:
+                args = (ROOT,) * len(spec.inputs)
+            with port.localops.using("auto"):
+                plain = e.program(algo, variant, **params)
+                tprog = e.program(algo, variant, telemetry=True, **params)
+            rows = []
+            rec = recording(port, plain.program, rows)
+            before = port.launches()
+            with SyncCounter(torch) as s_off, port.localops.using(plain.mode):
+                outs, rounds = port.run_program(rec, ga, *args)
+                _sync(torch, e.device)
+            mid = port.launches()
+            with SyncCounter(torch) as s_on:
+                *touts, trounds, series = tprog(ga, *args)
+                _sync(torch, e.device)
+            after = port.launches()
+            l_off = {k: mid[k] - before[k] for k in total}
+            l_on = {k: after[k] - mid[k] for k in total}
+            what = f"obs parts={parts} {key}"
+            check(trounds == rounds
+                  and same_fields(suite_fields(e, plain, outs),
+                                  suite_fields(e, plain, touts)),
+                  f"{what}: telemetry build's outputs or rounds "
+                  f"({trounds} vs {rounds}) differ from the plain run's")
+            tel = tprog.run_telemetry(series)
+            phases = getattr(plain.program, "phases", (plain.program,))
+            capped = rounds >= sum(ph.max_rounds for ph in phases)
+            check(tel.series.rounds == rounds
+                  and (capped or tel.series.halt()[-1] == 1.0),
+                  f"{what}: series of {tel.series.rounds} rounds, halt "
+                  f"{tel.series.halt()[-1:]} for a {rounds}-round run")
+            check(np.array_equal(tel.series.rows[:, 1:],
+                                 np.asarray(rows, np.float32)
+                                 .reshape(rounds, -1)),
+                  f"{what}: series rows are not the plain run's halt and "
+                  f"probe values")
+            check(s_on.count == s_off.count,
+                  f"{what}: {s_on.count} Tensor.item calls with telemetry, "
+                  f"{s_off.count} without")
+            check(l_on == l_off,
+                  f"{what}: launches {l_on} with telemetry, {l_off} without")
+            for k in total:
+                total[k] += l_on[k]
+            ms = median_ms(torch, e.device, lambda: plain(ga, *args))
+            tel_ms = median_ms(torch, e.device, lambda: tprog(ga, *args))
+            summ = tel.summary()
+            tracks.append((f"{key} parts={parts}", tel, parts))
+            cells[f"{key}/parts={parts}"] = cell = {
+                "rounds": rounds, "wall_ms": summ["wall_ms"],
+                "round_ms_mean": summ.get("round_ms_mean"),
+                "ms": ms, "telemetry_ms": tel_ms,
+                "syncs": s_on.count, "launches": l_on,
+                "wire_per_round": summ["wire_bytes_per_round"],
+                "wire_total": summ["wire_bytes_total"],
+                "probes": list(tel.series.probe_names)}
+            log(f"[obs] parts={parts} {key:19s} rounds={rounds:3d} "
+                f"wall_ms {cell['wall_ms']:.3f} round_ms_mean "
+                f"{cell['round_ms_mean']} ms off {ms:.3f} on {tel_ms:.3f} "
+                f"({(tel_ms / ms - 1) * 100:+.1f}%) syncs {s_on.count} "
+                f"launches {l_on} wire/round {cell['wire_per_round']}")
+            del outs, touts, series
+    for name in total:
+        check(total[name] > 0, f"obs path: {name} never launched")
+
+    # -- traced recovery: events against the chaos phase's counts ---------
+    parts = CHAOS_PARTS
+    _, eng, garr = engines[parts]
+    recorder = obs.SpanRecorder()
+    for algo, variant in OBS_RECOVERED:
+        key = f"{algo}/{variant}"
+        want = chaos[key]
+        args = (ROOT,) if algo == "bfs" else ()
+        with port.localops.using("auto"):
+            plain = eng.program(algo, variant)
+            runner = port.CheckpointRunner(
+                eng, algo, variant, checkpoint_every=CHAOS_EVERY,
+                faults=want["schedule"], telemetry=True, obs=recorder)
+        *outs, rounds = plain(garr, *args)
+        n_ev = len(recorder.events())
+        before = port.launches()
+        t0 = time.perf_counter()
+        rep = runner.run(garr, *args)
+        _sync(torch, eng.device)
+        rec_ms = (time.perf_counter() - t0) * 1e3
+        after = port.launches()
+        events = recorder.events()[n_ev:]
+        kinds = [ev.kind for ev in events]
+        what = f"obs traced recovery {key}"
+        check(list(rep.detections) == want["detections"]
+              and rep.recoveries == want["recoveries"],
+              f"{what}: detections {rep.detections}, recoveries "
+              f"{rep.recoveries} vs the chaos phase's "
+              f"{want['detections']}, {want['recoveries']}")
+        check(kinds.count("fault_detection") == len(rep.detections)
+              and kinds.count("rollback") == rep.recoveries
+              and kinds.count("checkpoint") == rep.checkpoints,
+              f"{what}: events {sorted(set(kinds))} do not match the "
+              f"report")
+        check(rep.telemetry["rounds"] == rep.rounds == rounds
+              == want["rounds"],
+              f"{what}: telemetry rounds {rep.telemetry['rounds']}, "
+              f"clean {rounds}")
+        check(same_fields(suite_fields(eng, plain, rep.outputs),
+                          suite_fields(eng, plain, outs)),
+              f"{what}: recovered outputs differ from the clean run")
+        kernel = "bfs_pull" if algo == "bfs" else "spmv_ell"
+        check(after[kernel] > before[kernel],
+              f"{what}: {kernel} not launched")
+        for k in total:
+            total[k] += after[k] - before[k]
+        cells[f"recovered {key}/parts={parts}"] = {
+            "ms": rec_ms, "detections": list(rep.detections),
+            "recoveries": rep.recoveries, "checkpoints": rep.checkpoints,
+            "events": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "telemetry": rep.telemetry}
+        log(f"[obs] parts={parts} recovered {key}: {want['schedule']}: "
+            f"detections {list(rep.detections)}, recoveries "
+            f"{rep.recoveries}, events "
+            f"{cells[f'recovered {key}/parts={parts}']['events']}, "
+            f"rounds {rep.rounds}, {rec_ms:.2f} ms")
+        del outs, rep, runner
+
+    # -- one Chrome trace of every engine track and the runner's spans ----
+    t0 = time.perf_counter()
+    trace = obs.chrome_trace(recorder.spans(), recorder.events(),
+                             engine=tracks)
+    counts = obs.validate_chrome_trace(trace)
+    validate_s = time.perf_counter() - t0
+    written = obs.write_trace(OBS_TRACE, trace)
+    check(written == counts and counts.get("X", 0) > 0
+          and counts.get("i", 0) > 0,
+          f"obs trace: counts {counts} / {written}")
+    chunks = sum(sp.kind == "chunk" for sp in recorder.spans())
+    log(f"[obs] trace {OBS_TRACE.relative_to(HERE)}: "
+        f"{sum(counts.values())} events {counts} ({len(tracks)} engine "
+        f"runs, {chunks} chunk spans, {len(recorder.events())} events of "
+        f"the runner), built and validated in {validate_s:.3f} s")
+    secs = time.perf_counter() - t_phase
+    log("[times] " + json.dumps({"obs": cells, "trace": counts,
+                                 "seconds": secs}, default=str))
+    log(f"[obs done] {secs:.1f} s")
     return total
 
 
@@ -2387,13 +2630,15 @@ def kernels_record(result: dict, llm: dict) -> dict:
     count; flash_attention_fwd at one TinyLlama prefill layer.  A graph
     kernel's launches are those of every path it runs on (the main path,
     the rest of the BSP suite, multi-source, the async programs, the
-    incremental ones), each counted from zero around its run."""
+    incremental ones, chaos, the telemetry runs), each counted from zero
+    around its run."""
     p = result["parts"]
     paths = {"graph-main": result["launches"], "bsp-suite":
              result["bsp_launches"], "multi-source": result["multi_launches"],
              "async": result["async_launches"],
              "incremental": result["inc_launches"],
-             "chaos": result["chaos_launches"]}
+             "chaos": result["chaos_launches"],
+             "obs": result["obs_launches"]}
     rows = []
     for name, src, replaces, cell_key, design in (
             ("spmv_ell", "src/repro_torch/kernels/spmv/csrc/spmv_ell.cu",

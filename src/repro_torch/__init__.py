@@ -19,6 +19,8 @@ the KV cache.  The package mirrors the layout of the JAX package
   repro_torch.data     -- the deterministic synthetic token stream
   repro_torch.kernels  -- CUDA C++ kernels for Hopper (sm_90a), each
                           beside its plain-PyTorch version
+  repro_torch.obs      -- telemetry series and wire records, spans,
+                          reports and Chrome trace export
   repro_torch.launch   -- the graph-analytics launcher and the LM
                           serving driver
 """

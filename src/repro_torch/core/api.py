@@ -21,11 +21,15 @@ inputs (the incremental variants' seeds) are ``(P, n_local)`` tensors
 from :meth:`GraphEngine.scatter_vertex_field`.  ``guard=True`` builds the
 guarded loop (a trailing ``ok``), and ``faults=`` a fault schedule armed
 at the exchanges for the build's calls (``core/faults.py``);
-``core/recovery.py`` checkpoints and rolls back.
+``core/recovery.py`` checkpoints and rolls back.  ``telemetry=True``
+builds a measured run: a trailing per-round series, the wire shipped
+and the wall time, parsed by :meth:`CompiledProgram.run_telemetry`
+(``obs/telemetry.py``).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,6 +41,7 @@ from repro_torch.core.graph import GraphShards
 from repro_torch.core.partitioned import StackedComm
 from repro_torch.core.superstep import AsyncSuperstepProgram, \
     PhasedProgram, SuperstepProgram, run_program, run_program_batched
+from repro_torch.obs import telemetry as obs_telemetry
 
 
 class CompiledProgram:
@@ -51,6 +56,13 @@ class CompiledProgram:
     returns ``(*outputs, rounds, ok)`` with ``ok`` 1 for a clean run and
     0 when a round failed its check (the loop stopped there); ``faults``
     is the schedule armed for each call, disarmed on every exit.
+
+    A ``telemetry`` build appends the ``(max_rounds, 2 + K)`` float32
+    series last, refills :attr:`wire` (a ``WireRecord``) with what the
+    call shipped, and sets :attr:`last_wall_s`.  Such a call is
+    measurement mode: on a card it synchronizes the device before it
+    starts the clock and before it stops it, so the wall time is the
+    device's (two drains a call, none a round).
     """
 
     def __init__(self, spec: registry.ProgramSpec,
@@ -58,7 +70,8 @@ class CompiledProgram:
                  | AsyncSuperstepProgram, mode: str,
                  static_iters: int = 0, batch: int | None = None,
                  guarded: bool = False,
-                 faults: faults_mod.FaultSchedule | None = None):
+                 faults: faults_mod.FaultSchedule | None = None,
+                 telemetry: bool = False, comm: StackedComm | None = None):
         self.spec = spec
         self.program = program
         self.mode = mode
@@ -66,8 +79,14 @@ class CompiledProgram:
         self.batch = batch
         self.guarded = guarded
         self.faults = faults
+        self.telemetry = telemetry
+        self.comm = comm
+        self.wire = obs_telemetry.WireRecord() if telemetry else None
+        self.last_wall_s = 0.0
 
     def __call__(self, garr: dict, *inputs):
+        if self.telemetry:
+            return self._measured(garr, *inputs)
         with localops.using(self.mode), \
                 faults_mod.active(self.faults, detect=self.guarded):
             if self.guarded:
@@ -87,6 +106,39 @@ class CompiledProgram:
                     self.program, garr, *inputs,
                     static_iters=self.static_iters)
         return (*outs, rounds)
+
+    def _measured(self, garr: dict, *inputs):
+        """A telemetry call: ``(*outputs, rounds[, ok], series)``."""
+        comm = self.comm
+        card = comm.device.type == "cuda"
+        if card:
+            torch.cuda.synchronize(comm.device)
+        before = comm.tally()
+        t0 = time.perf_counter()
+        with localops.using(self.mode), \
+                faults_mod.active(self.faults, detect=self.guarded):
+            outs, rounds, *rest = run_program(
+                self.program, garr, *inputs, guard=self.guarded,
+                telemetry=True)
+        if card:
+            torch.cuda.synchronize(comm.device)
+        self.last_wall_s = time.perf_counter() - t0
+        self.wire.measure(obs_telemetry.tally_delta(before, comm.tally()),
+                          rounds)
+        ok = (int(rest[0]),) if self.guarded else ()
+        return (*outs, rounds, *ok, rest[-1])
+
+    def run_telemetry(self, series) -> obs_telemetry.RunTelemetry:
+        """The trailing series of a telemetry call as a ``RunTelemetry``
+        with this build's wire record and the last call's wall time."""
+        if not self.telemetry:
+            raise ValueError(f"{self.program.key} was not built with "
+                             "telemetry=True")
+        ps = obs_telemetry.PhaseSeries.from_array(series,
+                                                  self.program.probe_names)
+        return obs_telemetry.RunTelemetry(
+            series=ps, wire=self.wire.snapshot(), wall_s=self.last_wall_s,
+            loop_bytes=self.wire.loop_bytes)
 
     def __repr__(self):
         return (f"CompiledProgram({self.program.key}, "
@@ -121,7 +173,8 @@ class GraphEngine:
     def program(self, algo: str, variant: str | None = None, *,
                 static_iters: int = 0, batch: int | None = None,
                 exec_mode: str | None = None, guard: bool = False,
-                faults=None, **params) -> CompiledProgram:
+                faults=None, telemetry: bool = False,
+                **params) -> CompiledProgram:
         """Resolve, build and cache an algorithm program.
 
         ``static_iters > 0`` replaces the early-exit loop with a fixed
@@ -137,9 +190,11 @@ class GraphEngine:
         :class:`~repro_torch.core.faults.FaultSchedule` (or its string
         form), armed at the exchanges during each call; detection needs
         ``guard`` too.  Neither combines with ``batch``, nor ``guard``
-        with ``static_iters``.  Params are normalized against the spec's
-        defaults so an explicitly spelled default hits the same cache
-        entry.
+        with ``static_iters``.  ``telemetry=True`` builds a measured run
+        (see :class:`CompiledProgram`); it combines with ``guard``, not
+        with ``batch`` or ``static_iters``.  Params are normalized against
+        the spec's defaults so an explicitly spelled default hits the
+        same cache entry.
         """
         bare = variant is None and "/" not in algo
         spec = registry.get_spec(algo, variant)
@@ -177,12 +232,20 @@ class GraphEngine:
             raise ValueError(
                 "guard/faults do not compose with batch: fault rounds "
                 "and guard verdicts are per-run, not per-query")
+        if telemetry and static_iters:
+            raise ValueError(
+                "telemetry requires the early-exit loop; a static_iters "
+                "run has no data-dependent rounds to record")
+        if telemetry and batch is not None:
+            raise ValueError(
+                "telemetry does not compose with batch: the series is "
+                "per-run, not per-query")
         batch_over = spec.batch_defaults if batch is not None else {}
         params = {**spec.defaults, **batch_over, **params}
         g = self.g
         mode = localops.get_mode()
         key = (spec.algo, spec.variant, static_iters, batch, guard, schedule,
-               tuple(sorted(params.items())),
+               telemetry, tuple(sorted(params.items())),
                (g.n, g.n_orig, g.parts, g.n_local, g.e_max),
                g.layout_signature(),
                (str(self.device), g.parts),
@@ -192,7 +255,7 @@ class GraphEngine:
             return hit
         compiled = CompiledProgram(spec, spec.build(g, self.comm, **params),
                                    mode, static_iters, batch, guard,
-                                   schedule)
+                                   schedule, telemetry, self.comm)
         self._cache[key] = compiled
         return compiled
 

@@ -152,7 +152,8 @@ def bfs_bsp_program(shards, comm: StackedComm,
         halt=lambda state: state[2] <= 0,
         outputs=lambda state: (state[0],),
         output_names=("parents",), output_is_vertex=(True,),
-        comm=comm, max_rounds=max_levels, guard=_parents_guard(2))
+        comm=comm, max_rounds=max_levels, guard=_parents_guard(2),
+        probe_names=("frontier",), probe=lambda state: (state[2],))
 
 
 def bfs_fast_program(shards, comm: StackedComm, max_levels: int = 64,
@@ -203,7 +204,8 @@ def bfs_fast_program(shards, comm: StackedComm, max_levels: int = 64,
         halt=lambda state: state[3] <= 0,
         outputs=lambda state: (state[0],),
         output_names=("parents",), output_is_vertex=(True,),
-        comm=comm, max_rounds=max_levels, guard=_parents_guard(3))
+        comm=comm, max_rounds=max_levels, guard=_parents_guard(3),
+        probe_names=("frontier",), probe=lambda state: (state[3],))
 
 
 def bfs_async_program(shards, comm: StackedComm, max_levels: int = 64,

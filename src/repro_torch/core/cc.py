@@ -81,7 +81,8 @@ def cc_program(shards, comm: StackedComm, max_rounds: int = 64,
         halt=lambda state: state[1] <= 0,
         outputs=lambda state: (state[0],),
         output_names=("labels",), output_is_vertex=(True,),
-        comm=comm, max_rounds=max_rounds, guard=guard)
+        comm=comm, max_rounds=max_rounds, guard=guard,
+        probe_names=("changed",), probe=lambda state: (state[1],))
 
 
 def cc_async_program(shards, comm: StackedComm, max_rounds: int = 64,

@@ -125,4 +125,5 @@ def monotone_async_program(*, name: str, variant: str = "async",
         output_names=tuple(output_names),
         output_is_vertex=tuple(output_is_vertex), comm=comm,
         max_rounds=max_rounds, guard=guard,
+        probe_names=("changed",), probe=lambda state: (state[3],),
         **({} if prepare is None else {"prepare": prepare}))

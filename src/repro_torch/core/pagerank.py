@@ -113,7 +113,8 @@ def pagerank_bsp_program(shards, comm: StackedComm, iters: int = 50,
         halt=lambda state: state[1] <= tol32,
         outputs=lambda state: (state[0], state[1]),
         output_names=("rank", "err"), output_is_vertex=(True, False),
-        comm=comm, max_rounds=iters, guard=guard)
+        comm=comm, max_rounds=iters, guard=guard,
+        probe_names=("err",), probe=lambda state: (state[1],))
 
 
 def pagerank_fast_program(shards, comm: StackedComm, iters: int = 50,
@@ -199,7 +200,8 @@ def pagerank_fast_program(shards, comm: StackedComm, iters: int = 50,
         halt=lambda state: state[2] <= tol32,
         outputs=lambda state: (state[0], state[2]),
         output_names=("rank", "err"), output_is_vertex=(True, False),
-        comm=comm, max_rounds=iters, guard=guard)
+        comm=comm, max_rounds=iters, guard=guard,
+        probe_names=("err",), probe=lambda state: (state[2],))
 
 
 def pagerank_async_program(shards, comm: StackedComm, iters: int = 64,
@@ -294,4 +296,5 @@ def pagerank_async_program(shards, comm: StackedComm, iters: int = 64,
         outputs=lambda g, state: (state[0], state[4], state[8]),
         output_names=("rank", "err", "max_age"),
         output_is_vertex=(True, False, False), comm=comm,
-        max_rounds=iters, guard=guard)
+        max_rounds=iters, guard=guard,
+        probe_names=("err",), probe=lambda state: (state[4],))

@@ -31,9 +31,11 @@ the same 32 bits as the JAX package's uint32 words: PyTorch's CPU
 kernels do not shift uint32.
 
 Every exchange routes its OUTGOING payload through ``_tap``, which adds
-one part's payload bytes to ``StackedComm.wire`` under ``(phase, op)``
-— the same ops (``sum`` / ``or`` / ``min`` / ``bcast`` / ``perm``) and the same
-per-part figure the JAX package's telemetry wire tap records — and then
+one part's payload bytes to ``StackedComm.wire`` and one to
+``StackedComm.taps`` under ``(phase, op)`` — the same ops (``sum`` /
+``or`` / ``min`` / ``bcast`` / ``perm``) and the same per-part figure the
+JAX package's telemetry wire tap records; ``obs/telemetry.py`` measures
+a run as the difference of ``tally()`` across it — and then
 hands it to ``faults.tap`` (a no-op unless a fault schedule is armed),
 and ships what that returns.  A ``start`` taps under its blocking
 form's op, its scalar column included.  ``psum_scalar`` is not tapped:
@@ -74,9 +76,9 @@ def test_bit(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class StackedComm:
     """The collectives of P parts stacked on one device.
 
-    ``wire[(phase, op)]`` accumulates the bytes one part ships; the
-    superstep loop sets ``phase`` to ``"init"``, ``"round"`` or
-    ``"outputs"``.
+    ``wire[(phase, op)]`` accumulates the bytes one part ships and
+    ``taps[(phase, op)]`` the exchanges that shipped them; the superstep
+    loop sets ``phase`` to ``"init"``, ``"round"`` or ``"outputs"``.
     """
 
     def __init__(self, parts: int, device):
@@ -84,12 +86,18 @@ class StackedComm:
         self.device = torch.device(device)
         self.phase = "round"
         self.wire: dict[tuple[str, str], int] = {}
+        self.taps: dict[tuple[str, str], int] = {}
 
     def __repr__(self):
         return f"StackedComm(parts={self.parts}, device={self.device})"
 
     def reset_wire(self) -> None:
         self.wire.clear()
+        self.taps.clear()
+
+    def tally(self) -> dict[tuple[str, str], tuple[int, int]]:
+        """The cumulative ``(bytes, taps)`` of every ``(phase, op)``."""
+        return {k: (b, self.taps[k]) for k, b in self.wire.items()}
 
     def wire_by_op(self, phase: str = "round") -> dict[str, int]:
         """Accumulated bytes per part of one phase, keyed by op."""
@@ -102,6 +110,7 @@ class StackedComm:
         per_part = payload.numel() // self.parts * payload.element_size()
         key = (self.phase, op)
         self.wire[key] = self.wire.get(key, 0) + per_part
+        self.taps[key] = self.taps.get(key, 0) + 1
         return faults.tap(op, payload, self.parts, words)
 
     def lo(self, n_local: int) -> torch.Tensor:

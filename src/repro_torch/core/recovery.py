@@ -24,6 +24,13 @@ uninterrupted one.
 
 Each phase's ``prepare`` runs once a run and its result serves every
 chunk (k-core's degrees, triangles' adjacency bitmap).
+
+``telemetry=True`` carries the per-round series as carry[4]: it is
+snapshotted and restored with the carry, so a recovered run's series
+has no rows of discarded chunks, and ``RunReport.telemetry`` is its
+summary, with the wire the committed chunks shipped.  ``obs=`` takes a
+``SpanRecorder``: a ``chunk`` span per chunk and ``checkpoint``,
+``fault_detection`` and ``rollback`` events on the ``recovery`` track.
 """
 
 from __future__ import annotations
@@ -31,12 +38,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import localops, registry
 from repro_torch.core.superstep import PhasedProgram, carry_outputs, \
     init_carry, run_chunk
+from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.obs.spans import NULL_RECORDER
 
 
 class RecoveryError(RuntimeError):
@@ -44,10 +54,14 @@ class RecoveryError(RuntimeError):
 
 
 def _copy(tree, device):
-    """Every tensor of ``tree`` copied to ``device`` (never aliased: on a
-    CPU engine ``.to("cpu")`` would return the live tensor)."""
+    """Every tensor of ``tree`` copied to ``device`` and every host array
+    copied (never aliased: on a CPU engine ``.to("cpu")`` would return
+    the live tensor, and the loop writes the telemetry series in
+    place)."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device, copy=True)
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
     if isinstance(tree, (tuple, list)):
         return type(tree)(_copy(x, device) for x in tree)
     return tree
@@ -73,7 +87,8 @@ class RunReport:
     (``engine.gather_vertex_field`` applies), scalars as host numbers.
     ``detections`` lists the round counter at each detection (the first
     tainted round + 1, or 0 for an init); ``recoveries`` counts the
-    rollback replays that cleared one.
+    rollback replays that cleared one.  ``telemetry`` is the
+    ``RunTelemetry.summary()`` of a telemetry run, else None.
     """
 
     outputs: tuple
@@ -82,6 +97,7 @@ class RunReport:
     detections: tuple = ()
     checkpoints: int = 0
     history: tuple = ()
+    telemetry: dict | None = None
 
 
 class CheckpointRunner:
@@ -98,18 +114,15 @@ class CheckpointRunner:
     is armed for every chunk but the recovery replays.
     ``keep_history=True`` keeps every checkpoint in the report (to
     resume from one).  The local-ops mode active at construction is the
-    one the runs take.  ``telemetry`` and ``obs`` belong to the
-    observability layer, which is not ported yet.
+    one the runs take.  ``telemetry=True`` fills ``RunReport.telemetry``;
+    ``obs`` is a ``SpanRecorder`` for the chunk spans and events
+    (``NULL_RECORDER``, off, by default).
     """
 
     def __init__(self, engine, algo: str, variant: str | None = None, *,
                  checkpoint_every: int = 2, faults=None,
                  max_recoveries: int = 16, keep_history: bool = False,
                  telemetry: bool = False, obs=None, **params):
-        if telemetry or obs is not None:
-            raise NotImplementedError(
-                "CheckpointRunner telemetry/obs belong to the "
-                "observability layer, not ported yet (ROADMAP item 11)")
         if checkpoint_every < 1:
             raise ValueError(
                 f"checkpoint_every must be >= 1, got {checkpoint_every}")
@@ -119,6 +132,8 @@ class CheckpointRunner:
         self.checkpoint_every = int(checkpoint_every)
         self.max_recoveries = int(max_recoveries)
         self.keep_history = bool(keep_history)
+        self.telemetry = bool(telemetry)
+        self.obs = obs if obs is not None else NULL_RECORDER
         self.mode = localops.get_mode()
         self.program = self.spec.build(engine.g, engine.comm, **params)
         self.phases = self.program.phases \
@@ -144,8 +159,35 @@ class CheckpointRunner:
 
     def _keep(self, ck: Checkpoint, stats: dict) -> None:
         stats["checkpoints"] += 1
+        self.obs.event("checkpoint", "recovery", phase=ck.phase,
+                       rounds=ck.rounds)
         if self.keep_history:
             stats["history"].append(ck)
+
+    def _detected(self, pi: int, rounds: int, to_rounds: int,
+                  stats: dict) -> None:
+        stats["detections"].append(rounds)
+        self.obs.event("fault_detection", "recovery", phase=pi,
+                       round=rounds)
+        self._bump(stats)
+        self.obs.event("rollback", "recovery", phase=pi,
+                       to_rounds=to_rounds)
+
+    def _chunk(self, prog, g: dict, carry, faulty: bool, stats: dict):
+        """One chunk; under telemetry its rounds and wire count toward
+        the run's if it is kept (``ok``)."""
+        comm = self.engine.comm
+        before = comm.tally() if self.telemetry else None
+        with self._armed(faulty):
+            nxt, halted = run_chunk(prog, g, carry, self.checkpoint_every)
+        if before is not None and nxt[3]:
+            stats["loop_rounds"] += nxt[2] - carry[2]
+            for key, (b, t) in obs_telemetry.tally_delta(
+                    before, comm.tally()).items():
+                cell = stats["wire"].setdefault(key, [0, 0])
+                cell[0] += b
+                cell[1] += t
+        return nxt, halted
 
     def _run_phase(self, pi: int, prog, g: dict, inputs, stats: dict,
                    resume: Checkpoint | None):
@@ -153,12 +195,13 @@ class CheckpointRunner:
             carry = self._restore(resume)
         else:
             with self._armed(True):
-                carry = init_carry(prog, g, *inputs)
+                carry = init_carry(prog, g, *inputs,
+                                   telemetry=self.telemetry)
             if not carry[3]:
-                stats["detections"].append(carry[2])
-                self._bump(stats)
+                self._detected(pi, carry[2], 0, stats)
                 with self._armed(False):
-                    carry = init_carry(prog, g, *inputs)
+                    carry = init_carry(prog, g, *inputs,
+                                       telemetry=self.telemetry)
                 if not carry[3]:
                     raise RecoveryError(
                         f"{self.spec.key} phase {pi}: clean re-init still "
@@ -167,21 +210,20 @@ class CheckpointRunner:
         self._keep(ck, stats)
         while True:
             r0 = carry[2]
-            with self._armed(True):
-                nxt, halted = run_chunk(prog, g, carry,
-                                        self.checkpoint_every)
-            if not nxt[3]:
-                stats["detections"].append(nxt[2])
-                self._bump(stats)
-                with self._armed(False):
-                    nxt, halted = run_chunk(prog, g, self._restore(ck),
-                                            self.checkpoint_every)
+            with self.obs.span("chunk", "recovery", phase=pi,
+                               from_round=r0) as span:
+                nxt, halted = self._chunk(prog, g, carry, True, stats)
                 if not nxt[3]:
-                    raise RecoveryError(
-                        f"{self.spec.key} phase {pi}: guard violation at "
-                        f"round {nxt[2]} persists on clean replay from the "
-                        f"round-{ck.rounds} checkpoint")
-            carry = nxt
+                    self._detected(pi, nxt[2], ck.rounds, stats)
+                    nxt, halted = self._chunk(prog, g, self._restore(ck),
+                                              False, stats)
+                    if not nxt[3]:
+                        raise RecoveryError(
+                            f"{self.spec.key} phase {pi}: guard violation "
+                            f"at round {nxt[2]} persists on clean replay "
+                            f"from the round-{ck.rounds} checkpoint")
+                carry = nxt
+                span.args["to_round"] = carry[2]
             ck = self._snapshot(pi, carry)
             self._keep(ck, stats)
             if halted or carry[2] == r0:
@@ -197,9 +239,10 @@ class CheckpointRunner:
         phases run from their inits.
         """
         stats = {"recoveries": 0, "detections": [], "checkpoints": 0,
-                 "history": []}
+                 "history": [], "wire": {}, "loop_rounds": 0}
         start = resume_from.phase if resume_from is not None else 0
         total, chained, carry, prog, g = 0, inputs, None, None, None
+        series = []
         with localops.using(self.mode):
             for pi in range(start, len(self.phases)):
                 prog = self.phases[pi]
@@ -207,12 +250,22 @@ class CheckpointRunner:
                 resume = resume_from if pi == start else None
                 carry = self._run_phase(pi, prog, g, chained, stats, resume)
                 total += carry[2]
+                if self.telemetry:
+                    series.append(carry[4])
                 if pi + 1 < len(self.phases):
                     chained = carry_outputs(prog, g, carry)
             outs = carry_outputs(prog, g, carry)
+        telemetry = None
+        if self.telemetry:
+            wire = obs_telemetry.WireRecord().measure(
+                stats["wire"], stats["loop_rounds"])
+            telemetry = obs_telemetry.RunTelemetry(
+                series=obs_telemetry.PhaseSeries.from_array(
+                    np.concatenate(series), self.program.probe_names),
+                wire=wire.snapshot(), loop_bytes=wire.loop_bytes).summary()
         return RunReport(
             outputs=tuple(outs), rounds=total,
             recoveries=stats["recoveries"],
             detections=tuple(stats["detections"]),
             checkpoints=stats["checkpoints"],
-            history=tuple(stats["history"]))
+            history=tuple(stats["history"]), telemetry=telemetry)

@@ -109,7 +109,8 @@ def sssp_program(shards, comm: StackedComm, max_rounds: int = 64,
         halt=lambda state: state[2] <= 0,
         outputs=lambda state: (state[0],),
         output_names=("dist",), output_is_vertex=(True,),
-        comm=comm, max_rounds=max_rounds, guard=guard)
+        comm=comm, max_rounds=max_rounds, guard=guard,
+        probe_names=("changed",), probe=lambda state: (state[2],))
 
 
 def sssp_async_program(shards, comm: StackedComm, max_rounds: int = 64,

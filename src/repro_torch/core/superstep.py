@@ -32,6 +32,12 @@ invariant check (or a NaN/Inf screen) and the fault transport stamps
 the first bad one.  It is :func:`init_carry`, one :func:`run_chunk`
 and :func:`carry_outputs`; ``core/recovery.py`` runs the same three in
 chunks of rounds with checkpoints between them.
+
+``telemetry=True`` writes one row a round, ``[done, halt, *probes]``,
+into a ``(max_rounds, 2 + K)`` float32 array on the host and returns it
+last (``obs/telemetry.py``).  Every value of a row is a host number the
+loop already holds, so a telemetry run makes the syncs and launches of
+a plain one; the off path is the plain loop.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import faults
@@ -75,6 +82,12 @@ class SuperstepProgram:
                              host bools; True = consistent.  ``None``
                              falls back to :func:`finite_state`.  Run
                              only by the guarded loops.
+      probe(state) -> tuple  optional telemetry probes, aligned with
+                             ``probe_names``: global host numbers the
+                             step already reduced (frontier size,
+                             residual), recorded each round in the
+                             telemetry series.  Run only by telemetry
+                             runs.
 
     ``comm`` is the exchange context the callables close over; the
     loop labels its wire accounting by phase.
@@ -93,6 +106,8 @@ class SuperstepProgram:
     max_rounds: int = 64
     prepare: Callable[[dict], dict] = field(default=lambda g: g)
     guard: Callable[[dict, Any, Any], Any] | None = None
+    probe_names: tuple[str, ...] = ()
+    probe: Callable[[Any], tuple] | None = None
 
     @property
     def key(self) -> str:
@@ -129,6 +144,8 @@ class AsyncSuperstepProgram:
                              form it receives ``g`` and may exchange
       guard(g, prev, state)  as :class:`SuperstepProgram`'s, over a
                              round's ``local`` + ``fold``
+      probe(state) -> tuple  as :class:`SuperstepProgram`'s, on the state
+                             ``fold`` returns
 
     Round k's exchange is finished in round k + 1, after that round's
     ``local``.  With all parts stacked on one device the overlap is
@@ -150,6 +167,8 @@ class AsyncSuperstepProgram:
     max_rounds: int = 64
     prepare: Callable[[dict], dict] = field(default=lambda g: g)
     guard: Callable[[dict, Any, Any], Any] | None = None
+    probe_names: tuple[str, ...] = ()
+    probe: Callable[[Any], tuple] | None = None
 
     @property
     def key(self) -> str:
@@ -197,18 +216,53 @@ def _round_ok(prog, g: dict, prev, state) -> bool:
     return bool(verdict) and not faults.stamp_violation()
 
 
+# --------------------------------------------------------------------------
+# Telemetry series (``obs/telemetry.py``): row r, written after round r,
+# is ``[done, halted, *probes]`` on the round's resulting state; rows no
+# round wrote stay zero, so the host trims on ``done``.
+# --------------------------------------------------------------------------
+
+
+def _series_init(prog) -> np.ndarray:
+    return np.zeros((prog.max_rounds, 2 + len(prog.probe_names)),
+                    np.float32)
+
+
+def _series_write(prog, series: np.ndarray, r: int, state) -> None:
+    row = (prog.halt(state),) + (tuple(prog.probe(state))
+                                 if prog.probe is not None else ())
+    if len(row) != 1 + len(prog.probe_names):
+        raise ValueError(
+            f"{prog.key}: probe() returned {len(row) - 1} values for "
+            f"probe_names {prog.probe_names!r}")
+    if any(isinstance(v, torch.Tensor) for v in row):
+        raise TypeError(f"{prog.key}: halt() and probe() must return host "
+                        "numbers (reading a tensor would sync each round)")
+    series[r] = (1.0,) + tuple(map(float, row))
+
+
+def _no_static_telemetry(static_iters: int, telemetry: bool) -> None:
+    if telemetry and static_iters:
+        raise ValueError("telemetry requires the early-exit loop "
+                         "(static_iters=0)")
+
+
 def run_program_async(prog: AsyncSuperstepProgram, g: dict, *inputs,
-                      static_iters: int = 0, guard: bool = False):
+                      static_iters: int = 0, guard: bool = False,
+                      telemetry: bool = False):
     """The double-buffered loop: the ``(outputs, rounds)`` contract of
     :func:`run_program`, each round ``local`` then ``fold`` with the
     in-flight handle carried from one round to the next.  ``static_iters
-    > 0`` runs a fixed trip count.  ``guard=True`` returns ``(outputs,
-    rounds, ok)``.
+    > 0`` runs a fixed trip count.  ``guard=True`` appends ``ok`` and
+    ``telemetry=True`` the series (always last): ``(outputs, rounds[,
+    ok][, series])``; a round's row is written after its ``fold``.
 
     Fault rounds: the exchange ``init`` starts is round 0, the one body
     iteration r starts is round r + 1."""
+    _no_static_telemetry(static_iters, telemetry)
     if guard:
-        return _run_guarded(prog, g, *inputs, static_iters=static_iters)
+        return _run_guarded(prog, g, *inputs, static_iters=static_iters,
+                            telemetry=telemetry)
     g = prog.prepare(g)
     comm = prog.comm
     comm.phase = "init"
@@ -216,6 +270,7 @@ def run_program_async(prog: AsyncSuperstepProgram, g: dict, *inputs,
     state, handle = prog.init(g, *inputs)
     comm.phase = "round"
     rounds = 0
+    series = _series_init(prog) if telemetry else None
     if static_iters:
         for _ in range(static_iters):
             faults.set_round(rounds + 1)
@@ -225,12 +280,14 @@ def run_program_async(prog: AsyncSuperstepProgram, g: dict, *inputs,
         while rounds < prog.max_rounds and not prog.halt(state):
             faults.set_round(rounds + 1)
             state, handle = prog.fold(g, prog.local(g, state), handle)
+            if series is not None:
+                _series_write(prog, series, rounds, state)
             rounds += 1
     faults.set_round(-1)
     comm.phase = "outputs"
     out = prog.outputs(g, state)
     comm.phase = "round"
-    return out, rounds
+    return (out, rounds) if series is None else (out, rounds, series)
 
 
 @dataclass(frozen=True)
@@ -253,27 +310,49 @@ class PhasedProgram:
     def key(self) -> str:
         return f"{self.name}/{self.variant}"
 
+    @property
+    def probe_names(self) -> tuple[str, ...]:
+        """The phases share one series row layout, so every phase must
+        declare the same probe names (phase 0's are the program's)."""
+        names = self.phases[0].probe_names
+        for ph in self.phases[1:]:
+            if ph.probe_names != names:
+                raise ValueError(
+                    f"{self.key}: phases declare different probe_names "
+                    f"({names!r} vs {ph.probe_names!r}); telemetry "
+                    "needs one row layout")
+        return names
+
 
 def run_phases(prog: PhasedProgram, g: dict, *inputs,
-               static_iters: int = 0, guard: bool = False):
+               static_iters: int = 0, guard: bool = False,
+               telemetry: bool = False):
     """Run the phases of ``prog`` in order, phase i + 1 initialized with
     phase i's outputs.  Returns the last phase's outputs and the total
     round count (``len(phases) * static_iters`` on the fixed-trip path),
-    and under ``guard=True`` the AND of the phases' verdicts.  Each phase
-    counts its own fault rounds."""
-    chained, total, ok = inputs, 0, True
+    under ``guard=True`` the AND of the phases' verdicts, and under
+    ``telemetry=True`` the phases' series concatenated (``max_rounds``
+    rows a phase; the ``done`` column marks the written ones).  Each
+    phase counts its own fault rounds."""
+    if telemetry:
+        prog.probe_names            # raises if the phases disagree
+    chained, total, ok, series = inputs, 0, True, []
     for phase in prog.phases:
         res = run_program(phase, g, *chained, static_iters=static_iters,
-                          guard=guard)
+                          guard=guard, telemetry=telemetry)
         chained, rounds = res[0], res[1]
         if guard:
             ok = ok and res[2]
+        if telemetry:
+            series.append(res[-1])
         total += rounds
-    return (chained, total, ok) if guard else (chained, total)
+    out = (chained, total, ok) if guard else (chained, total)
+    return out + (np.concatenate(series),) if telemetry else out
 
 
 def run_program(prog: SuperstepProgram, g: dict, *inputs,
-                static_iters: int = 0, guard: bool = False):
+                static_iters: int = 0, guard: bool = False,
+                telemetry: bool = False):
     """The ONE shared superstep loop.
 
     Returns ``(outputs_tuple, rounds)`` where ``rounds`` is the number of
@@ -286,15 +365,22 @@ def run_program(prog: SuperstepProgram, g: dict, *inputs,
     with ``ok`` a sticky host bool.  It does not combine with
     ``static_iters``.  Fault rounds: init and step 0 are round 0, step r
     is round r, outputs round -1.
+
+    ``telemetry=True`` writes the round's series row after each step and
+    appends the ``(max_rounds, 2 + K)`` float32 series as the LAST
+    element; it combines with ``guard``, not with ``static_iters``.
     """
+    _no_static_telemetry(static_iters, telemetry)
     if isinstance(prog, PhasedProgram):
         return run_phases(prog, g, *inputs, static_iters=static_iters,
-                          guard=guard)
+                          guard=guard, telemetry=telemetry)
     if isinstance(prog, AsyncSuperstepProgram):
         return run_program_async(prog, g, *inputs,
-                                 static_iters=static_iters, guard=guard)
+                                 static_iters=static_iters, guard=guard,
+                                 telemetry=telemetry)
     if guard:
-        return _run_guarded(prog, g, *inputs, static_iters=static_iters)
+        return _run_guarded(prog, g, *inputs, static_iters=static_iters,
+                            telemetry=telemetry)
     g = prog.prepare(g)
     comm = prog.comm
     comm.phase = "init"
@@ -302,6 +388,7 @@ def run_program(prog: SuperstepProgram, g: dict, *inputs,
     state = prog.init(g, *inputs)
     comm.phase = "round"
     rounds = 0
+    series = _series_init(prog) if telemetry else None
     if static_iters:
         for _ in range(static_iters):
             faults.set_round(rounds)
@@ -311,12 +398,14 @@ def run_program(prog: SuperstepProgram, g: dict, *inputs,
         while rounds < prog.max_rounds and not prog.halt(state):
             faults.set_round(rounds)
             state = prog.step(g, state)
+            if series is not None:
+                _series_write(prog, series, rounds, state)
             rounds += 1
     faults.set_round(-1)
     comm.phase = "outputs"
     out = prog.outputs(state)
     comm.phase = "round"
-    return out, rounds
+    return (out, rounds) if series is None else (out, rounds, series)
 
 
 def run_program_batched(prog, g: dict, *batched_inputs,
@@ -352,28 +441,33 @@ def run_program_batched(prog, g: dict, *batched_inputs,
 # it as guarded CHUNKS of at most k rounds and snapshots the carry
 # between chunks.  The carry is ``(state, handle, rounds, ok)``:
 # ``handle`` is ``()`` for BSP programs and the in-flight exchange for
-# async ones, ``rounds`` and ``ok`` host values.  Chunks run the rounds
-# of one guarded loop, so a chunked run gives the bits of an
+# async ones, ``rounds`` and ``ok`` host values; a telemetry carry adds
+# the series as carry[4] (a host array: a snapshot must copy it, so that
+# a rollback drops the rows of the discarded rounds).  Chunks run the
+# rounds of one guarded loop, so a chunked run gives the bits of an
 # uninterrupted one.  ``g`` is the graph ``prog.prepare`` returned: the
 # caller prepares once for all chunks.
 # --------------------------------------------------------------------------
 
 
-def _run_guarded(prog, g: dict, *inputs, static_iters: int = 0):
+def _run_guarded(prog, g: dict, *inputs, static_iters: int = 0,
+                 telemetry: bool = False):
     """The guarded loop of a BSP or async program: ``(outputs, rounds,
-    ok)``, stopped at the first bad round."""
+    ok[, series])``, stopped at the first bad round."""
     if static_iters:
         raise ValueError("guard=True is incompatible with static_iters")
     g = prog.prepare(g)
-    carry, _ = run_chunk(prog, g, init_carry(prog, g, *inputs),
+    carry, _ = run_chunk(prog, g,
+                         init_carry(prog, g, *inputs, telemetry=telemetry),
                          prog.max_rounds)
-    return carry_outputs(prog, g, carry), carry[2], carry[3]
+    return (carry_outputs(prog, g, carry),) + tuple(carry[2:])
 
 
-def init_carry(prog, g: dict, *inputs):
+def init_carry(prog, g: dict, *inputs, telemetry: bool = False):
     """The first carry: init + the round-0 verdict (an init's exchanges
     are fault round 0, so a tainted init reports ``ok`` False and the
-    caller re-inits rather than checkpointing poison)."""
+    caller re-inits rather than checkpointing poison).  ``telemetry=True``
+    appends the empty series as carry[4]."""
     comm = prog.comm
     comm.phase = "init"
     faults.set_round(0)
@@ -382,16 +476,18 @@ def init_carry(prog, g: dict, *inputs):
     else:
         state, handle = prog.init(g, *inputs), ()
     comm.phase = "round"
-    return state, handle, 0, _round_ok(prog, g, state, state)
+    carry = state, handle, 0, _round_ok(prog, g, state, state)
+    return carry + (_series_init(prog),) if telemetry else carry
 
 
 def run_chunk(prog, g: dict, carry, chunk: int):
     """Advance ``carry`` by up to ``chunk`` guarded rounds; stop early on
     halt, ``max_rounds`` or the first bad round.  Returns ``(carry,
     halted)``: the caller reads ``carry[3]`` (ok) to checkpoint or roll
-    back, and ``halted`` and ``carry[2]`` (rounds) to go on or stop."""
+    back, and ``halted`` and ``carry[2]`` (rounds) to go on or stop.  A
+    telemetry carry (five elements) gets each round's series row."""
     is_async = isinstance(prog, AsyncSuperstepProgram)
-    state, handle, r, ok = carry
+    state, handle, r, ok, *series = carry
     i = 0
     while ok and not prog.halt(state) and i < chunk \
             and r < prog.max_rounds:
@@ -402,9 +498,11 @@ def run_chunk(prog, g: dict, carry, chunk: int):
         else:
             state = prog.step(g, state)
         ok = _round_ok(prog, g, prev, state)
+        if series:
+            _series_write(prog, series[0], r, state)
         r, i = r + 1, i + 1
     faults.set_round(-1)
-    return (state, handle, r, ok), bool(prog.halt(state))
+    return (state, handle, r, ok, *series), bool(prog.halt(state))
 
 
 def carry_outputs(prog, g: dict, carry) -> tuple:

@@ -14,10 +14,17 @@ exceeds (the O(n^2/P) triangle-counting bitmap) are skipped with a note.
 sssp, betweenness, bfs/async, sssp/async) batched over B roots against
 one graph residency.  ``--layout coo`` is the escape hatch back to the
 COO scatter reference path; ``REPRO_LOCALOPS={auto,ref,ell,kernel}``
-further overrides the local-ops dispatch.
+further overrides the local-ops dispatch.  ``--obs`` also runs each
+program's ``telemetry=True`` build after its timed run (so the headline
+ms stays the plain number) and prints ``[obs]`` lines: rounds, wall
+time and wire bytes a round by op; ``--trace-out PATH`` (implies
+``--obs``) writes those runs as a validated Chrome trace, one track per
+part, to open in ui.perfetto.dev.
 
   PYTHONPATH=src python -m repro_torch.launch.graph_analytics \\
       --graph urand22 --parts 4 --multi-source 4 --exec-mode async
+  PYTHONPATH=src python -m repro_torch.launch.graph_analytics \\
+      --graph urand12 --device cpu --obs --trace-out build/obs/urand12.json
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from repro_torch.core.registry import program_label
 from repro_torch.graphs import generate_edges
 from repro_torch.kernels.frontier.kernel import bfs_pull
 from repro_torch.kernels.spmv.kernel import spmv_ell
+from repro_torch.obs import chrome_trace, write_trace
 
 INT_INF = 2 ** 30
 
@@ -56,7 +64,8 @@ def _timed(fn, args, device):
 def run(graph_name: str, parts: int, *, device: str | None = None,
         pr_iters: int = 50, verify: bool = True, seed: int = 42,
         multi_source: int = 0, layout: str = "ell",
-        exec_mode: str = "all") -> dict:
+        exec_mode: str = "all", obs: bool = False,
+        trace_out: str | None = None) -> dict:
     gcfg = graph_workloads.ALL[graph_name]
     print(f"[graph] generating {graph_name}: 2^{gcfg.scale} vertices, "
           f"{gcfg.num_edges:,} edges ({gcfg.generator})")
@@ -73,6 +82,8 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
     garr = eng.device_graph()
     root = 0
     results = {}
+    obs = obs or bool(trace_out)
+    engine_tracks = []     # (label, RunTelemetry, parts) for the export
     for algo, variant in registry.available():
         spec = registry.get_spec(algo, variant)
         name = program_label(algo, variant)
@@ -94,6 +105,18 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
         out, dt = _timed(prog, args, eng.device)
         results[name] = (out, dt)
         print(f"[graph] {name:14s} {dt * 1e3:9.1f} ms  rounds={out[-1]}")
+        if obs:
+            # a separate telemetry build, run after the timed one so the
+            # headline ms stays the plain number
+            tprog = eng.program(algo, variant, telemetry=True, **params)
+            tel = tprog.run_telemetry(tprog(*args)[-1])
+            engine_tracks.append((name, tel, parts))
+            s = tel.summary()
+            wire = s["wire_bytes_per_round"]
+            print(f"[obs]   {name:14s} rounds={s['rounds']:3d} "
+                  f"wall={s.get('wall_ms', 0.0):8.1f} ms  wire/round="
+                  + (" ".join(f"{op}:{b:,}B" for op, b in wire.items())
+                     or "none"))
 
     if multi_source:
         roots = list(range(multi_source))
@@ -170,6 +193,10 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
                     for b, s in zip(out[:-1], single[:-1]))
                 print(f"[verify] multi-source {label} root0 == "
                       f"single-source: {same}")
+    if trace_out and engine_tracks:
+        counts = write_trace(trace_out, chrome_trace(engine=engine_tracks))
+        print(f"[graph] wrote {trace_out} (chrome trace, "
+              f"{sum(counts.values())} events; open in ui.perfetto.dev)")
     return results
 
 
@@ -195,12 +222,21 @@ def main():
                          "synchronous programs only, async the "
                          "double-buffered ones; all runs both and "
                          "cross-checks them in verify")
+    ap.add_argument("--obs", action="store_true",
+                    help="also run each program's telemetry=True build "
+                         "(a separate cache entry) and print its "
+                         "per-round series summary and wire bytes a "
+                         "round by op")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON of the "
+                         "telemetry runs (implies --obs; open in "
+                         "ui.perfetto.dev)")
     ap.add_argument("--no-verify", action="store_true")
     args = ap.parse_args()
     run(args.graph, args.parts, device=args.device, pr_iters=args.pr_iters,
         verify=not args.no_verify, seed=args.seed,
         multi_source=args.multi_source, layout=args.layout,
-        exec_mode=args.exec_mode)
+        exec_mode=args.exec_mode, obs=args.obs, trace_out=args.trace_out)
 
 
 if __name__ == "__main__":

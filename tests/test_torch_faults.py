@@ -222,8 +222,6 @@ def test_max_recoveries_bounds_the_rollback_loop(eng):
 def test_checkpoint_every_validation(eng):
     with pytest.raises(ValueError):
         CheckpointRunner(eng, "bfs", "fast", checkpoint_every=0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CheckpointRunner(eng, "bfs", "fast", telemetry=True)
 
 
 # -- a guarded round's host syncs ----------------------------------------

@@ -35,6 +35,9 @@ def test_sources_import_no_jax_or_reference():
     assert len(files) > 20, files
     assert {os.path.join(PORT, "core", m) for m in
             ("faults.py", "recovery.py")} <= set(files)
+    assert {os.path.join(PORT, "obs", m) for m in
+            ("__init__.py", "registry.py", "spans.py", "telemetry.py",
+             "report.py", "trace_export.py")} <= set(files)
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, f"forbidden imports: {bad}"
@@ -64,3 +67,36 @@ def test_importing_every_module_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("IMPORTED")[1])
     assert n >= 20, r.stdout
+
+
+_TELEMETRY_RUN = r"""
+import sys
+import repro_torch.obs
+from repro_torch.core import CheckpointRunner, GraphEngine, partition_graph
+from repro_torch.graphs import urand_edges
+from repro_torch.obs import SpanRecorder, chrome_trace, validate_chrome_trace
+eng = GraphEngine(partition_graph(urand_edges(128, 512, seed=3), 128, 2),
+                  device="cpu")
+garr = eng.device_graph()
+prog = eng.program("bfs", "fast", telemetry=True)
+tel = prog.run_telemetry(prog(garr, 0)[-1])
+rec = SpanRecorder()
+rep = CheckpointRunner(eng, "pagerank", "fast", telemetry=True,
+                       obs=rec).run(garr)
+validate_chrome_trace(chrome_trace(rec.spans(), rec.events(),
+                                   engine=[("bfs", tel, 2)]))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("TELEMETRY-RUN", tel.series.rounds, rep.telemetry["rounds"])
+"""
+
+
+def test_telemetry_run_loads_no_jax():
+    """Importing ``repro_torch.obs``, a telemetry build's run and a traced
+    checkpointed run leave jax and the JAX package unloaded."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", _TELEMETRY_RUN], env=env,
+                       capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "TELEMETRY-RUN" in r.stdout, r.stdout
