@@ -27,6 +27,10 @@ against its plain-PyTorch version:
   beside its plain one on the same partitions, traced recovered runs of
   bfs/fast and pagerank/fast, and one Chrome trace of them all (kernels
   ``spmv_ell`` and ``bfs_pull``);
+- the graph query server: ``serve.GraphServer`` over every registered
+  program and ``launch/graph_serve.py::run`` replaying a Poisson trace
+  (kernels ``spmv_ell`` and ``bfs_pull`` on the served pagerank,
+  betweenness and bfs/fast queries);
 - LM token serving: ``launch/serve.py::serve`` on TinyLlama-1.1B at full
   width, weights drawn from a seeded ``torch.Generator`` on the card
   (kernel ``flash_attention_fwd``, one launch per prefill layer).
@@ -155,6 +159,29 @@ prints no result):
            telemetry off and on (median of 3 each), syncs, launches, wire
            bytes a round by op; the recovered runs' events; the trace's
            events per ``ph``; ``[obs done]`` the phase's seconds.
+  serve    at parts 1 and 4 in mode auto (triangles on the TRI_N-vertex
+           graph): a ``GraphServer(buckets=(1, 8, 32), depth=2)`` warmed
+           for every registered program (registry defaults; pagerank/async
+           and pagerank/warm at ASYNC_PR_PARAMS); each rooted program
+           served roots 0, 0-7 and 0-9 in three closed-loop calls (rungs 1
+           and 8 full, rung 32 padded), each refresh program once, then
+           the three seeded programs from the warm seeds the refreshes
+           left in the seed store.  Every result ok, on the ladder's rung,
+           its fields and rounds bit-identical to a direct
+           ``engine.program(...)`` call on the same input (batched bfs/fast
+           against a ``direction="pull"`` run).  Then at SERVE_PARTS
+           ``launch/graph_serve.run`` on the same partition replays
+           SERVE_REPLAY (``bfs:8,sssp:4,cc:1``, 16 q/s, 8 s): every query
+           ok; q/s and p50/p95/p99 a (program, bucket) cell beside the
+           card line.  Then a traced session (``obs=SpanRecorder()``):
+           every stage's span kind present, latency cells derived from the
+           query spans equal ``ServeMetrics``', the Chrome trace validated
+           and written to build/obs/chip_smoke_serve.json, the medians of
+           the ``dispatch`` and ``device`` spans.  ``spmv_ell`` and
+           ``bfs_pull`` launches counted from zero around the serving
+           calls (not the direct ones), each > 0.  ``[serve]`` lines:
+           served and direct ms per call; ``[serve done]`` the phase's
+           seconds.
   llm-parity  flash_attention_fwd against its plain version (ref.py) on
            the shapes of tests/test_kernels_flash.py (sweep x {causal,
            causal + window 64, non-causal}, cross lengths, softcap 20,
@@ -247,6 +274,19 @@ INCREMENTAL = (("cc", "incremental"), ("kcore", "incremental"),
 # trace it writes (build/ is not committed)
 OBS_RECOVERED = (("bfs", "fast"), ("pagerank", "fast"))
 OBS_TRACE = HERE / "build" / "obs" / "chip_smoke.json"
+# the serve phase: a GraphServer a parts count over every registered
+# program (rooted ones served roots 0, 0-7 and 0-9: rungs 1 and 8 full,
+# rung 32 padded), then the launcher's replay of the issue's mix and a
+# traced session at SERVE_PARTS
+SERVE_BUCKETS = (1, 8, 32)
+SERVE_ROOTS = ((0,), tuple(range(8)), tuple(range(10)))
+SERVE_PARTS = 4
+SERVE_REPLAY = {"mix": "bfs:8,sssp:4,cc:1", "duration": 8.0, "rate": 16.0,
+                "buckets": (1, 8, 32, 128), "depth": 2, "zipf_s": 1.05,
+                "seed": SEED}
+SERVE_TRACE = HERE / "build" / "obs" / "chip_smoke_serve.json"
+SERVE_STAGES = ("admission", "validate", "coalesce_wait", "dispatch",
+                "device", "demux", "query")
 ASYNC_SIBLING = {"bfs/async": "bfs/fast", "sssp/async": "sssp",
                  "cc/async": "cc", "pagerank/async": "pagerank/fast",
                  "cc/incremental": "cc", "kcore/incremental": "kcore",
@@ -349,7 +389,11 @@ class Port:
         from repro_torch.kernels.flash_attention.ref import \
             flash_attention_ref
         from repro_torch import models, obs
+        from repro_torch import serve as graph_server
+        from repro_torch.launch import graph_serve
         from repro_torch.launch.serve import serve
+        self.graph_server = graph_server
+        self.graph_serve = graph_serve
         self.arch_registry = arch_registry
         self.batch_at = batch_at
         self.flash_kernel = flash_kernel
@@ -1376,13 +1420,16 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
     chaos = run_chaos(port, engines, main, bsp, asy)
     # -- observability: telemetry builds, probes, traced recovery ---------
     obs = run_obs(port, engines, main, chaos["cells"])
+    # -- the graph query server and its launcher --------------------------
+    served = run_serve(port, graph, engines)
     return {"launches": main_launches, "parity_err": parity_err,
             "kernel_cells": kernel_cells, "parts": max(parts_list),
             "bsp_launches": bsp["launches"],
             "multi_launches": bsp["multi_launches"],
             "async_launches": asy["launches"],
             "inc_launches": asy["inc_launches"],
-            "chaos_launches": chaos["launches"], "obs_launches": obs}
+            "chaos_launches": chaos["launches"], "obs_launches": obs,
+            "serve_launches": served}
 
 def suite_fields(eng, prog, outs) -> dict:
     """Output name -> host value (vertex fields gathered to numpy)."""
@@ -2329,6 +2376,204 @@ def run_obs(port: Port, engines: dict, main: dict, chaos: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the graph query server
+# ---------------------------------------------------------------------------
+
+def timed_direct(port: Port, eng, garr, prog, args) -> tuple:
+    """One synchronized direct call: (fields, rounds, ms)."""
+    torch = port.torch
+    _sync(torch, eng.device)
+    t0 = time.perf_counter()
+    *outs, rounds = prog(garr, *args)
+    _sync(torch, eng.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    return suite_fields(eng, prog, outs), rounds, ms
+
+
+def serve_checked(port: Port, server, key, tag: str, counted) -> dict:
+    """``key``'s queries through ``server`` against direct calls of the
+    engine's program on the same inputs: rooted keys served roots
+    SERVE_ROOTS (one closed-loop call each), refresh keys once, seeded
+    keys once from the warm seed the store holds.  Every result ok, its
+    bucket the ladder's, its rounds and fields bit-identical to the
+    direct call's.  Returns the cells: bucket, rounds, served ms (the
+    serve call, host clock) and direct ms (the direct calls it
+    answers)."""
+    serve, eng = port.graph_server, server.engine
+    spec, params = key.spec, dict(key.params)
+    cells = {}
+
+    def one(queries, direct):
+        res, ms = counted(lambda: server.serve(queries))
+        bucket = server.ladder.pick(len(queries)) if key.rooted else 0
+        for q, r, (fields, rounds, _) in zip(queries, res, direct):
+            check(r.ok and r.bucket == bucket and r.epoch == 0
+                  and r.rounds == rounds and same_fields(r.fields, fields),
+                  f"serve {tag} {key.label} root={q.root}: {r.status}, "
+                  f"bucket {r.bucket} (want {bucket}), rounds {r.rounds} "
+                  f"(direct {rounds}), or fields differ from the direct "
+                  f"call's")
+        cell = {"n": len(queries), "bucket": bucket,
+                "rounds": [r.rounds for r in res], "served_ms": ms,
+                "direct_ms": sum(d[2] for d in direct)}
+        log(f"[serve] {tag} {key.label:19s} n={cell['n']:2d} "
+            f"bucket={bucket:2d} rounds {cell['rounds']} served "
+            f"{ms:.2f} ms  direct {cell['direct_ms']:.2f} ms")
+        return cell
+
+    if key.rooted:
+        # batched bfs/fast pins direction="pull": the direct run does too
+        prog = eng.program(key.algo, key.variant,
+                           **{**spec.batch_defaults, **params})
+        direct = {r: timed_direct(port, eng, server.garr, prog, (r,))
+                  for r in sorted(set(sum(SERVE_ROOTS, ())))}
+        for roots in SERVE_ROOTS:
+            cells[f"n={len(roots)}"] = one(
+                [serve.Query(key, r) for r in roots],
+                [direct[r] for r in roots])
+        return cells
+    prog = eng.program(key.algo, key.variant, **params)
+    args = ()
+    if key.seeded:
+        (seed,), warm = server.resolve_seed(key)
+        check(warm, f"serve {tag} {key.label}: no warm seed in the store")
+        args = (eng.scatter_vertex_field(
+            seed, port.incremental.KIND_DTYPES[spec.input_kinds[0]]),)
+    cells["n=1"] = one([serve.Query(key)],
+                       [timed_direct(port, eng, server.garr, prog, args)])
+    return cells
+
+
+def run_serve(port: Port, graph: str, engines: dict) -> dict:
+    """GraphServer over every registered program at each parts count
+    (triangles on a TRI_N-vertex graph), served equal to direct; the
+    launcher's replay of SERVE_REPLAY at SERVE_PARTS; a traced session
+    whose latency cells reconcile with the metrics.  Returns the kernel
+    launches of the serving calls (counted from zero around each; the
+    direct calls they are checked against are not counted)."""
+    serve, obs = port.graph_server, port.obs
+    t_phase = time.perf_counter()
+    total = {"spmv_ell": 0, "bfs_pull": 0}
+    cells = {}
+
+    def counted(fn):
+        before = port.launches()
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = port.launches()
+        for k in total:
+            total[k] += after[k] - before[k]
+        return out, ms
+
+    pairs = [(f"{a}/{v}", port.registry.get_spec(a, v))
+             for a, v in port.registry.available()]
+    tri_edges = port.urand_edges(TRI_N, 16 * TRI_N, SEED)
+    with port.localops.using("auto"):
+        for parts, (_, eng, _) in engines.items():
+            eng_t = port.GraphEngine(
+                port.partition_graph(tri_edges, TRI_N, parts),
+                device=eng.device)
+            for e, names in ((eng, [k for k, s in pairs
+                                    if s.algo != "triangles"]),
+                             (eng_t, ["triangles"])):
+                tag = f"parts={parts}" + (f" n={TRI_N}" if e is eng_t
+                                          else "")
+                server = serve.GraphServer(e, buckets=SERVE_BUCKETS, depth=2)
+                keys = [serve.make_key(name, **(
+                    ASYNC_PR_PARAMS if name in ("pagerank/async",
+                                                "pagerank/warm") else {}))
+                        for name in names]
+                n_warm, warm_ms = counted(lambda: server.warmup(keys))
+                log(f"[serve] {tag}: warmed {n_warm} (program x rung) "
+                    f"launches in {warm_ms:.1f} ms, ladder "
+                    f"{server.ladder.sizes}")
+                # seeded keys last: their warm seeds are the refreshes'
+                for key in sorted(keys, key=lambda k: k.seeded):
+                    for n, cell in serve_checked(port, server, key, tag,
+                                                 counted).items():
+                        cells[f"{key.label}/{n}/{tag}"] = cell
+                del server
+            del eng_t
+    log(f"[serve] served == direct, bit for bit, for every registered "
+        f"program at parts {list(engines)}; launches so far {total}")
+
+    # -- the launcher's replay ---------------------------------------------
+    eng = engines[SERVE_PARTS][1]
+    card = card_line() if eng.device.type == "cuda" else "cpu"
+    rp = SERVE_REPLAY
+    n_trace = len(serve.synthetic_trace(
+        eng.g.n_orig, rp["mix"], rate=rp["rate"], duration=rp["duration"],
+        zipf_s=rp["zipf_s"], seed=rp["seed"]))
+    with port.localops.using("auto"):
+        server, run_ms = counted(lambda: port.graph_serve.run(
+            graph, SERVE_PARTS, engine=eng, **rp))
+    m = server.metrics
+    rows = m.rows()
+    check(sum(r["count"] for r in rows) == n_trace
+          and not any(m.counts.values()),
+          f"serve replay: {sum(r['count'] for r in rows)} of {n_trace} "
+          f"queries ok, counts {m.counts}")
+    qps = n_trace / m.window_s
+    for r in rows:
+        log(f"[serve] replay parts={SERVE_PARTS} {r['algo']:9s} bucket="
+            f"{r['bucket']:3d} count {r['count']:3d}  p50 {r['p50_ms']} ms"
+            f"  p95 {r['p95_ms']} ms  p99 {r['p99_ms']} ms  ({card})")
+    log(f"[serve] replay parts={SERVE_PARTS} {rp['mix']} at {rp['rate']} "
+        f"q/s for {rp['duration']} s: {n_trace} queries all ok, "
+        f"{qps:.3f} q/s over {m.window_s:.3f} s ({card}); run() "
+        f"{run_ms:.1f} ms with warmup")
+    cells["replay"] = {"queries": n_trace, "qps": qps,
+                       "window_s": m.window_s, "rows": rows, "card": card}
+    del server
+
+    # -- a traced session ----------------------------------------------------
+    rec = obs.SpanRecorder()
+    with port.localops.using("auto"):
+        server = serve.GraphServer(eng, buckets=SERVE_BUCKETS, depth=2,
+                                   obs=rec)
+        queries = ([serve.query("bfs", root=r) for r in range(10)]
+                   + [serve.query("sssp", root=r) for r in range(8)]
+                   + [serve.query("pagerank"), serve.query("cc")])
+        server.warmup(list(dict.fromkeys(q.key for q in queries)))
+        res, ms = counted(lambda: server.serve(queries))
+    check(all(r.ok for r in res), f"serve traced: statuses "
+          f"{sorted({r.status for r in res})}")
+    spans = rec.spans()
+    kinds = {sp.kind for sp in spans}
+    check(set(SERVE_STAGES) <= kinds,
+          f"serve traced: span kinds {sorted(kinds)} lack "
+          f"{sorted(set(SERVE_STAGES) - kinds)}")
+    check(obs.derive_latency_cells(rec) == server.metrics.latencies(),
+          "serve traced: latency cells from the query spans differ from "
+          "ServeMetrics'")
+    counts = obs.write_trace(SERVE_TRACE, obs.chrome_trace(spans,
+                                                           rec.events()))
+    split = {kind: [sp.dur * 1e3 for sp in spans if sp.kind == kind]
+             for kind in ("dispatch", "device")}
+    log(f"[serve] traced parts={SERVE_PARTS}: {len(res)} queries ok in "
+        f"{ms:.2f} ms, {len(spans)} spans of {len(kinds)} kinds, latency "
+        f"cells == ServeMetrics', trace {SERVE_TRACE.relative_to(HERE)} "
+        f"{counts}; dispatch span median "
+        f"{statistics.median(split['dispatch']):.3f} ms, device span "
+        f"median {statistics.median(split['device']):.3f} ms "
+        f"(per launch: dispatch "
+        f"{[round(x, 3) for x in split['dispatch']]}, device "
+        f"{[round(x, 3) for x in split['device']]})")
+    cells["traced"] = {"queries": len(res), "ms": ms, "trace": counts,
+                       "dispatch_ms": split["dispatch"],
+                       "device_ms": split["device"]}
+    del server, res
+    for name in total:
+        check(total[name] > 0, f"serve path: {name} never launched")
+    secs = time.perf_counter() - t_phase
+    log("[times] " + json.dumps({"serve": cells, "launches": total,
+                                 "seconds": secs}, default=str))
+    log(f"[serve done] {secs:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # LM serving: flash_attention_fwd
 # ---------------------------------------------------------------------------
 
@@ -2630,15 +2875,16 @@ def kernels_record(result: dict, llm: dict) -> dict:
     count; flash_attention_fwd at one TinyLlama prefill layer.  A graph
     kernel's launches are those of every path it runs on (the main path,
     the rest of the BSP suite, multi-source, the async programs, the
-    incremental ones, chaos, the telemetry runs), each counted from zero
-    around its run."""
+    incremental ones, chaos, the telemetry runs, the query server), each
+    counted from zero around its run."""
     p = result["parts"]
     paths = {"graph-main": result["launches"], "bsp-suite":
              result["bsp_launches"], "multi-source": result["multi_launches"],
              "async": result["async_launches"],
              "incremental": result["inc_launches"],
              "chaos": result["chaos_launches"],
-             "obs": result["obs_launches"]}
+             "obs": result["obs_launches"],
+             "serve": result["serve_launches"]}
     rows = []
     for name, src, replaces, cell_key, design in (
             ("spmv_ell", "src/repro_torch/kernels/spmv/csrc/spmv_ell.cu",

@@ -259,6 +259,31 @@ class GraphEngine:
         self._cache[key] = compiled
         return compiled
 
+    # -- thin legacy wrappers -----------------------------------------------
+    def bfs(self, mode: str = "fast", max_levels: int = 64,
+            static_iters: int = 0) -> CompiledProgram:
+        return self.program("bfs", mode, static_iters=static_iters,
+                            max_levels=max_levels)
+
+    def pagerank(self, mode: str = "fast", iters: int = 50,
+                 tol: float = 1e-6, compress=True,
+                 static_iters: int = 0) -> CompiledProgram:
+        params = {"iters": iters, "tol": tol}
+        if mode == "fast":
+            params["compress"] = compress
+        return self.program("pagerank", mode, static_iters=static_iters,
+                            **params)
+
+    def sssp(self, max_rounds: int = 64,
+             static_iters: int = 0) -> CompiledProgram:
+        return self.program("sssp", static_iters=static_iters,
+                            max_rounds=max_rounds)
+
+    def cc(self, max_rounds: int = 64,
+           static_iters: int = 0) -> CompiledProgram:
+        return self.program("cc", static_iters=static_iters,
+                            max_rounds=max_rounds)
+
     # -- helpers -------------------------------------------------------------
     def device_graph(self) -> dict:
         return self.g.device_arrays(self.layout, self.device)

@@ -415,9 +415,12 @@ def run_program_batched(prog, g: dict, *batched_inputs,
 
     Returns ``(outputs, rounds)``: vertex outputs stacked to
     ``(P, B, n_local)``, other outputs as length-B lists, and ``rounds``
-    a length-B list.  The loop halts on host values, so the B queries
-    run one after another; a non-phased program's ``prepare`` runs once
-    for all of them.
+    a length-B list.  The loop halts on host values, so the queries run
+    one after another; a non-phased program's ``prepare`` runs once for
+    all of them.  Each distinct input tuple runs once: a lane that
+    repeats an earlier lane's inputs (the server pads a batch to its
+    bucket with copies of the last root) takes that run's outputs, the
+    bits a run of its own gives, since a run is deterministic.
     """
     if not isinstance(prog, PhasedProgram):
         g = prog.prepare(g)
@@ -425,8 +428,14 @@ def run_program_batched(prog, g: dict, *batched_inputs,
     queries = list(zip(*batched_inputs))
     if not queries:
         raise ValueError(f"{prog.key}: batched inputs are empty")
-    runs = [run_program(prog, g, *q, static_iters=static_iters)
-            for q in queries]
+    keys = [tuple(x.item() if isinstance(x, torch.Tensor) else x
+                  for x in q) for q in queries]
+    distinct = {}
+    for key, q in zip(keys, queries):
+        if key not in distinct:
+            distinct[key] = run_program(prog, g, *q,
+                                        static_iters=static_iters)
+    runs = [distinct[key] for key in keys]
     outs = tuple(
         torch.stack([r[0][i] for r in runs], dim=1) if is_v
         else [r[0][i] for r in runs]

@@ -1,0 +1,533 @@
+"""The resident-engine graph server.
+
+``GraphServer`` keeps a :class:`~repro_torch.core.api.GraphEngine` and
+its device-resident graph alive across queries and drives
+mixed-algorithm traffic through the engine's program cache:
+
+  admission  ``submit()`` validates against the registry, stamps
+             ``(qid, t_submit)`` and queues per coalescing key.
+  coalescing ``serve.coalescer``: source queries pack into the bucket
+             ladder (padding with duplicate roots) so every launch hits
+             an already-built ``batch=bucket`` program; refresh queries
+             of one key share a single launch.
+  execution  ``DoubleBufferedExecutor``: up to ``depth`` launches ride
+             in flight and the pipeline blocks only at demux.  A
+             program's host loop reads a halt value every round, so
+             what overlaps the next batch's formation is the tail of a
+             launch, not the launch (``serve.executor``).
+  demux      per-query answers slice back out of the batched
+             ``(P, B, n_local)`` outputs into host-side
+             :class:`QueryResult`\\ s, identical to what a direct
+             ``engine.program(...)`` call returns.  Padded lanes are
+             dropped on the device before the one copy to the host.
+
+Synchronous by construction: ``pump()`` advances the pipeline one step
+and the caller owns the loop (``serve`` for a closed-loop query list,
+``serve_trace`` to replay a timed arrival trace in real time).  No
+threads.
+
+**The graph is static here.**  Mutations and durability (``mutate``,
+``dynamic_graph``, ``GraphServer.recover``, ``persistence=``) are
+ROADMAP item 12b and raise ``NotImplementedError``; the mutation log
+stays empty and the snapshot epoch stays 0.  Seeded queries
+(``pagerank/warm``, ``cc/incremental``, ``kcore/incremental``) resolve
+their vertex-field seed from the server's seed store — previously
+served outputs, adopted warm only when the mutation history since
+their epoch keeps them exact (``registry.IncrementalSpec.mutations``),
+cold otherwise.
+
+**Overload & failure resilience.**  Every terminal disposition is a
+typed :class:`QueryResult` (``status`` in ``ok`` / ``timed_out`` /
+``shed`` / ``failed``) — the server never silently drops an admitted
+query and never lets one bad query take the pipeline down:
+
+  * **validation** — :func:`~repro_torch.serve.query.validate_query`
+    runs at admission (``validate=False`` opts out): out-of-range
+    roots, non-finite float params and corrupt seed vectors are
+    rejected BEFORE they can ride — or poison — a coalesced launch.
+  * **deadlines** — a query may carry ``deadline_s`` (or inherit
+    ``default_deadline_s``), an admission-to-demux budget.  Budgets
+    never block a batch: a query already over budget when its batch
+    forms is answered ``timed_out`` without launching, and one whose
+    launch lands late has its answer withheld at demux.  Latency cells
+    in the metrics record only ``ok`` answers; misses ride the
+    ``timed_out`` counter.
+  * **load shedding** — ``max_queued`` bounds the admission queue; an
+    overflowing admission sheds the pending query with the soonest
+    absolute deadline (oldest-deadline-first — see
+    :class:`~repro_torch.serve.coalescer.Coalescer`), resolved as
+    ``shed``.
+  * **retry & quarantine** — a launch that raises (at dispatch or at
+    the executor's wait on its device work) is bisected: multi-query
+    batches resubmit their members singly, so healthy queries complete
+    and the poison one keeps failing alone; a singleton retries with
+    exponential backoff (``retry_backoff_s * 2**attempt``) up to
+    ``max_retries``, then lands in ``server.quarantined`` with a
+    ``failed`` result carrying the exception.  The executor itself never
+    wedges — a failed launch cannot orphan its in-flight peers
+    (``serve.executor``).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import registry
+from repro_torch.core.api import GraphEngine
+from repro_torch.core.incremental import KIND_DTYPES, cold_seed
+from repro_torch.obs import NULL_RECORDER
+from repro_torch.serve.coalescer import Batch, BucketLadder, Coalescer
+from repro_torch.serve.executor import DoubleBufferedExecutor, Launch
+from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.query import Query, QueryKey, QueryResult, \
+    make_key, validate_query
+
+
+def _item_12b(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: dynamic graphs and durability are "
+        "ROADMAP.md item 12b")
+
+
+def _host_scalar(value):
+    """A scalar output as the host value a demuxed field holds."""
+    if isinstance(value, torch.Tensor):
+        value = value.cpu()
+    return np.asarray(value)[()]
+
+
+class GraphServer:
+    def __init__(self, engine: GraphEngine, *, buckets=None, depth: int = 2,
+                 max_queued: int | None = None,
+                 default_deadline_s: float | None = None,
+                 max_retries: int = 2, retry_backoff_s: float = 0.02,
+                 validate: bool = True, persistence=None, obs=None):
+        if persistence is not None:
+            raise _item_12b("GraphServer(persistence=...)")
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        self.engine = engine
+        # serving-path observability: an obs.SpanRecorder records every
+        # pipeline stage (admission -> validate -> coalesce_wait ->
+        # dispatch -> device -> demux -> query) plus resilience events.
+        # The default NULL_RECORDER is disabled — each site pays one
+        # attribute read and allocates nothing.
+        self.obs = obs if obs is not None else NULL_RECORDER
+        self.garr = engine.device_graph()      # resident device graph
+        self.ladder = BucketLadder(buckets) if buckets else BucketLadder()
+        self.coalescer = Coalescer(self.ladder, max_queued=max_queued)
+        self.executor = DoubleBufferedExecutor(depth)
+        self.metrics = ServeMetrics()
+        self.default_deadline_s = default_deadline_s
+        self.max_retries = int(max_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.validate = bool(validate)
+        # quarantined poison queries (their `failed` results), and
+        # out-of-band resolutions (shed at admission) the next pump()
+        # hands back to whoever drives the loop
+        self.quarantined: list[QueryResult] = []
+        self._oob: list[QueryResult] = []
+        # mailbox of demuxed-but-uncollected answers: serve()/
+        # serve_trace() POP what they return, so a long-running server
+        # holds only results nobody has picked up yet (callers driving
+        # submit/pump directly should pop too — vertex fields are
+        # (n_orig,) arrays and an unbounded dict grows without end)
+        self.results: dict[int, QueryResult] = {}
+        self._next_qid = 0
+        # the snapshot epoch, the mutation history (what _seeds entries
+        # are judged against; empty until item 12b) and the seed store
+        # itself — (algo, field) -> (epoch, (n_orig,) array) harvested
+        # from served refresh results
+        self.epoch = 0
+        self.mutation_log: list[dict] = []
+        self._seeds: dict[tuple[str, str], tuple[int, np.ndarray]] = {}
+
+    # -- admission -----------------------------------------------------------
+    def submit(self, algo: str, variant: str | None = None, *,
+               root: int | None = None,
+               deadline_s: float | None = None, **params) -> int:
+        """Admit one query; returns its qid (resolved in ``results``)."""
+        return self.submit_query(
+            Query(make_key(algo, variant, **params), root,
+                  deadline_s=deadline_s))
+
+    def submit_query(self, q: Query, t_submit: float | None = None) -> int:
+        if q.qid != -1:
+            # admission stamps the object in place; re-submitting it
+            # would re-stamp it and orphan the first qid's result
+            raise ValueError(
+                f"query already admitted as qid={q.qid}; build a fresh "
+                "Query to resubmit")
+        with self.obs.span("admission", "server", label=q.key.label):
+            if self.validate:
+                try:
+                    with self.obs.span("validate", "server"):
+                        validate_query(q, self.engine.g.n_orig)
+                except ValueError:
+                    self.metrics.count("rejected")
+                    if self.obs.enabled:
+                        self.obs.event("rejected", "server",
+                                       label=q.key.label)
+                    raise
+            q.qid, self._next_qid = self._next_qid, self._next_qid + 1
+            q.t_submit = (time.perf_counter() if t_submit is None
+                          else t_submit)
+            q.epoch = self.epoch
+            if q.deadline_s is None:
+                q.deadline_s = self.default_deadline_s
+            # the metrics window opens at FIRST ADMISSION (idempotent),
+            # so the first launch's queue + dispatch wait counts against
+            # qps — record()'s own start() is only a fallback for
+            # standalone use
+            self.metrics.start()
+            shed = self.coalescer.admit(q)
+        if shed is not None:
+            self._oob.append(self._resolve(shed, "shed"))
+        return q.qid
+
+    def _resolve(self, q: Query, status: str,
+                 error: Exception | None = None,
+                 t_done: float | None = None) -> QueryResult:
+        """Terminal non-``ok`` disposition: typed result into the
+        mailbox plus the matching resilience counter."""
+        t_done = time.perf_counter() if t_done is None else t_done
+        res = QueryResult(
+            qid=q.qid, key=q.key, root=q.root, fields={}, rounds=-1,
+            latency_s=t_done - q.t_submit, bucket=0, epoch=q.epoch,
+            status=status, error=error)
+        self.metrics.count(
+            "quarantined" if status == "failed" else status)
+        if status == "failed":
+            self.quarantined.append(res)
+        if self.obs.enabled:
+            # the query's async span closes here even on a non-ok
+            # disposition; the matching resilience event marks WHY
+            self.obs.add_span("query", "server", q.t_submit, t_done,
+                              qid=q.qid, label=q.key.label, bucket=0,
+                              status=status,
+                              latency_s=res.latency_s)
+            if status == "failed":
+                self.obs.event("launch_failure", "executor", qid=q.qid,
+                               label=q.key.label)
+            else:
+                self.obs.event(status, "server", qid=q.qid,
+                               label=q.key.label)
+        self.results[q.qid] = res
+        return res
+
+    # -- warmup --------------------------------------------------------------
+    def warmup(self, keys) -> int:
+        """Build and run once every (key x ladder rung) so serving never
+        pays a build (or a kernel's first load); returns the launch
+        count.  Source keys warm every bucket; refresh keys warm the
+        single unbatched program.  Warmup launches bypass the metrics
+        window."""
+        launches = 0
+        for key in keys:
+            if isinstance(key, str):
+                key = make_key(key)
+            buckets = self.ladder.sizes if key.rooted else (0,)
+            for b in buckets:
+                batch = Batch(key, [], b, [0] * b)
+                out = self._dispatch(batch)
+                # warming mid-serving may retire REAL in-flight
+                # launches to free slots: demux them, don't drop them
+                for launch in self.executor.push(batch, out):
+                    self._demux(launch)
+                launches += 1
+        for launch in self.executor.drain():
+            self._demux(launch)
+        return launches
+
+    # -- dynamic graphs (ROADMAP item 12b) -----------------------------------
+    def dynamic_graph(self):
+        raise _item_12b("GraphServer.dynamic_graph")
+
+    def mutate(self, inserts=None, deletes=None):
+        raise _item_12b("GraphServer.mutate")
+
+    @classmethod
+    def recover(cls, dir, **kwargs) -> "GraphServer":
+        raise _item_12b("GraphServer.recover")
+
+    def resolve_seed(self, key: QueryKey) -> tuple[tuple, bool]:
+        """(seed arrays, warm?) for a seeded query without an explicit
+        seed.  A stored previous-epoch output is adopted WARM only when
+        every mutation since its epoch is of a kind the program stays
+        exact under (``IncrementalSpec.mutations``); otherwise the cold
+        seed — still exact, just a full-rate recompute."""
+        inc = key.spec.incremental
+        if inc is not None:
+            stored = self._seeds.get((key.algo, inc.seed_output))
+            if stored is not None:
+                seed_epoch, arr = stored
+                if self._mutations_ok(seed_epoch, inc.mutations):
+                    return (arr,), True
+        return cold_seed(key.spec, self.engine.g), False
+
+    def _mutations_ok(self, since_epoch: int, kinds: str) -> bool:
+        if kinds == "any":
+            return True
+        for entry in self.mutation_log:
+            if entry["epoch"] <= since_epoch:
+                continue
+            if kinds == "insert" and entry["n_delete"]:
+                return False
+            if kinds == "delete" and entry["n_insert"]:
+                return False
+        return True
+
+    def _harvest_seeds(self, key: QueryKey, fields: dict,
+                       epoch: int) -> None:
+        """Keep the newest served output usable as a warm seed: any
+        incremental variant of this algo whose ``seed_output`` is among
+        the result fields gets (epoch, field) stored."""
+        for algo, variant in registry.available():
+            spec = registry.get_spec(algo, variant)
+            inc = spec.incremental
+            if inc is None or inc.of != key.algo:
+                continue
+            arr = fields.get(inc.seed_output)
+            if arr is None:
+                continue
+            prev = self._seeds.get((key.algo, inc.seed_output))
+            if prev is None or prev[0] <= epoch:
+                self._seeds[(key.algo, inc.seed_output)] = (epoch, arr)
+
+    # -- the pipeline --------------------------------------------------------
+    def pump(self) -> list[QueryResult]:
+        """Advance one step: form + dispatch one batch if any query is
+        pending (retiring the oldest launch when the pipeline is full),
+        else retire one in-flight launch.  Returns completed results —
+        including typed shed / timed-out / failed dispositions."""
+        done = self._oob
+        self._oob = []
+        while True:
+            batch = self.coalescer.next_batch()
+            if batch is None:
+                launch = self.executor.complete_one()
+                if launch is not None:
+                    done.extend(self._demux(launch))
+                return done
+            batch, expired = self._check_deadlines(batch)
+            done.extend(expired)
+            if batch is not None:
+                done.extend(self._launch(batch))
+                return done
+            # every member had expired in the queue: try the next batch
+
+    def _check_deadlines(self, batch: Batch):
+        """Expire batch members already over budget BEFORE the launch
+        (a deadline never blocks the batch — the live members re-pack
+        and go).  Returns ``(batch | None, timed-out results)``."""
+        now = time.perf_counter()
+        live = [q for q in batch.queries if now <= q.deadline_abs]
+        expired = [self._resolve(q, "timed_out", t_done=now)
+                   for q in batch.queries if now > q.deadline_abs]
+        if not expired:
+            return batch, []
+        if not live:
+            return None, expired
+        if batch.bucket:
+            bucket = self.ladder.pick(len(live))
+            roots = [q.root for q in live]
+            roots += [roots[-1]] * (bucket - len(roots))
+            batch = Batch(batch.key, live, bucket, roots, batch.epoch)
+        else:
+            batch = Batch(batch.key, live, batch.bucket, [], batch.epoch)
+        return batch, expired
+
+    def _singleton(self, q: Query, epoch: int) -> Batch:
+        """A one-query batch for the retry / bisection path."""
+        if q.key.rooted:
+            b = self.ladder.pick(1)
+            return Batch(q.key, [q], b, [q.root] * b, epoch)
+        return Batch(q.key, [q], 0, [], epoch)
+
+    def _launch(self, batch: Batch) -> list[QueryResult]:
+        """Dispatch one batch; a raising dispatch routes to retry /
+        quarantine instead of propagating.  Returns whatever completed
+        as a side effect (retired peers, failure dispositions)."""
+        if self.obs.enabled and batch.queries and batch.t_formed:
+            # coalesce-wait: first member's admission -> batch formed
+            self.obs.add_span(
+                "coalesce_wait", "coalescer",
+                min(q.t_submit for q in batch.queries), batch.t_formed,
+                label=batch.key.label, bucket=batch.bucket,
+                n=batch.n_real)
+        try:
+            with self.obs.span("dispatch", "executor",
+                               label=batch.key.label, bucket=batch.bucket,
+                               n=batch.n_real):
+                out = self._dispatch(batch)
+        except Exception as e:
+            return self._on_launch_failure(batch, e)
+        done = []
+        for launch in self.executor.push(batch, out):
+            done.extend(self._demux(launch))
+        return done
+
+    def _on_launch_failure(self, batch: Batch,
+                           exc: Exception) -> list[QueryResult]:
+        if not batch.queries:
+            raise exc                      # warmup launch: surface it
+        if len(batch.queries) > 1:
+            # poison-query quarantine, step 1: bisect by resubmitting
+            # the members singly — healthy queries complete, the poison
+            # one keeps failing alone and exhausts its retries below
+            done = []
+            for q in batch.queries:
+                done.extend(self._launch(self._singleton(q, batch.epoch)))
+            return done
+        q = batch.queries[0]
+        q.attempts += 1
+        if q.attempts > self.max_retries:
+            return [self._resolve(q, "failed", error=exc)]
+        self.metrics.count("retries")
+        if self.retry_backoff_s:
+            time.sleep(self.retry_backoff_s * (2 ** (q.attempts - 1)))
+        return self._launch(self._singleton(q, batch.epoch))
+
+    def drain(self) -> list[QueryResult]:
+        """Run the pipeline dry: every pending query dispatched, every
+        in-flight launch demuxed."""
+        done = self._oob
+        self._oob = []
+        while self.coalescer.has_pending() or len(self.executor):
+            done.extend(self.pump())
+        self.metrics.stop()
+        return done
+
+    def serve(self, queries) -> list[QueryResult]:
+        """Closed loop: admit everything, drain, return (and collect
+        from the mailbox) results in submission order."""
+        qids = [self.submit_query(q) for q in queries]
+        self.drain()
+        return [self.results.pop(qid) for qid in qids]
+
+    def serve_trace(self, trace) -> list[QueryResult]:
+        """Replay a timed arrival trace (``[(t_s, Query)]``, as built by
+        ``serve.workload.synthetic_trace``) in real time: a query is
+        admitted when its arrival time passes; between arrivals the
+        pipeline keeps pumping, so queued work and in-flight launches
+        overlap the wait.  Latency runs from the intended arrival.  An
+        event that is not a ``Query`` (a mutation batch) raises: the
+        graph is static until item 12b."""
+        trace = sorted(trace, key=lambda e: e[0])
+        for _, item in trace:
+            if not isinstance(item, Query):
+                raise _item_12b(
+                    f"serve_trace event {type(item).__name__}")
+        t0 = time.perf_counter()
+        done, i = [], 0
+        while i < len(trace) or self.coalescer.has_pending() \
+                or len(self.executor) or self._oob:
+            now = time.perf_counter() - t0
+            while i < len(trace) and trace[i][0] <= now:
+                self.submit_query(trace[i][1], t_submit=t0 + trace[i][0])
+                i += 1
+            if self.coalescer.has_pending() or len(self.executor) \
+                    or self._oob:
+                for res in self.pump():
+                    self.results.pop(res.qid, None)   # collected here
+                    done.append(res)
+            elif i < len(trace):
+                time.sleep(min(trace[i][0] - now, 0.005))
+        self.metrics.stop()
+        return done
+
+    # -- dispatch / demux ----------------------------------------------------
+    def _program(self, key: QueryKey, bucket: int):
+        return self.engine.program(
+            key.algo, key.variant, batch=bucket or None, **dict(key.params))
+
+    def _dispatch(self, batch: Batch):
+        prog = self._program(batch.key, batch.bucket)
+        if batch.key.seeded:
+            # one seeded launch per query; warmup batches (no queries)
+            # resolve a cold seed just to run the right program
+            explicit = batch.queries[0].seed if batch.queries else None
+            seed = explicit if explicit is not None \
+                else self.resolve_seed(batch.key)[0]
+            args = tuple(
+                self.engine.scatter_vertex_field(a, KIND_DTYPES[kind])
+                for a, kind in zip(seed, batch.key.spec.input_kinds))
+            return prog(self.garr, *args)
+        if batch.bucket:
+            # host values: the batched runner reads each lane's root on
+            # the host, and a device tensor would cost a sync a lane
+            return prog(self.garr, [int(r) for r in batch.roots])
+        return prog(self.garr)
+
+    def _demux(self, launch: Launch) -> list[QueryResult]:
+        batch = launch.payload
+        if self.obs.enabled and batch.queries:
+            # in-flight interval stamped by the executor (push -> its
+            # wait returned); warmup launches stay un-traced
+            self.obs.add_span(
+                "device", "device", launch.t_dispatch, launch.t_done,
+                label=batch.key.label, bucket=batch.bucket,
+                n=batch.n_real, launch_seq=launch.seq,
+                failed=launch.error is not None)
+        if launch.error is not None:
+            # the device surfaced a failure at the executor's wait: same
+            # routing as a dispatch-time raise
+            return self._on_launch_failure(batch, launch.error)
+        if not batch.queries:              # warmup launch: nothing to slice
+            return []
+        with self.obs.span("demux", "server", label=batch.key.label,
+                           bucket=batch.bucket, n=batch.n_real):
+            prog = self._program(batch.key, batch.bucket)
+            names = prog.program.output_names
+            is_vertex = prog.program.output_is_vertex
+            *outs, rounds = launch.out
+            eng = self.engine
+            if batch.bucket:
+                # drop padded dup-root lanes ON DEVICE so the host copy
+                # in this (only) synchronous section is proportional to
+                # real queries, not the bucket width
+                k = batch.n_real
+                gathered = [eng.gather_batched_vertex_field(o[:, :k]) if v
+                            else [_host_scalar(x) for x in o[:k]]
+                            for o, v in zip(outs, is_vertex)]
+                per_query = [
+                    ({n: g[i] for n, g in zip(names, gathered)},
+                     int(rounds[i]))
+                    for i in range(k)]
+            else:
+                shared = {n: (eng.gather_vertex_field(o) if v
+                              else _host_scalar(o))
+                          for n, (o, v) in zip(names, zip(outs, is_vertex))}
+                per_query = [(shared, int(rounds))] * batch.n_real
+                # refresh outputs double as warm seeds for the
+                # incremental variants of the same algorithm
+                self._harvest_seeds(batch.key, shared, batch.epoch)
+            results = []
+            for q, (fields, r) in zip(batch.queries, per_query):
+                if launch.t_done > q.deadline_abs:
+                    # the answer exists but missed its budget: withhold
+                    # it (a client gone by now must not see a stale
+                    # success)
+                    results.append(
+                        self._resolve(q, "timed_out", t_done=launch.t_done))
+                    continue
+                res = QueryResult(
+                    qid=q.qid, key=q.key, root=q.root, fields=fields,
+                    rounds=r, latency_s=launch.t_done - q.t_submit,
+                    bucket=batch.bucket, epoch=batch.epoch)
+                self.metrics.record(q.key.label, batch.bucket,
+                                    res.latency_s)
+                if self.obs.enabled:
+                    # the query's async span closes with the IDENTICAL
+                    # latency_s float metrics just recorded — the
+                    # exact-reconciliation invariant the obs tests pin
+                    self.obs.add_span(
+                        "query", "server", q.t_submit, launch.t_done,
+                        qid=q.qid, label=q.key.label, bucket=batch.bucket,
+                        status="ok", latency_s=res.latency_s)
+                self.results[q.qid] = res
+                results.append(res)
+            return results

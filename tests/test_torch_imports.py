@@ -38,6 +38,10 @@ def test_sources_import_no_jax_or_reference():
     assert {os.path.join(PORT, "obs", m) for m in
             ("__init__.py", "registry.py", "spans.py", "telemetry.py",
              "report.py", "trace_export.py")} <= set(files)
+    assert {os.path.join(PORT, *m) for m in
+            (("serve", "server.py"), ("serve", "executor.py"),
+             ("core", "compat.py"), ("launch", "graph_serve.py"))} \
+        <= set(files)
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, f"forbidden imports: {bad}"
