@@ -31,6 +31,11 @@ against its plain-PyTorch version:
   program and ``launch/graph_serve.py::run`` replaying a Poisson trace
   (kernels ``spmv_ell`` and ``bfs_pull`` on the served pagerank,
   betweenness and bfs/fast queries);
+- dynamic graphs and durability: ``GraphServer.mutate`` patching the
+  resident graph in place, the rebuild path, a write-ahead-logged server
+  recovered with ``GraphServer.recover``, and the launcher's replay under
+  a mutation stream (kernels ``spmv_ell`` and ``bfs_pull`` over the
+  patched and rebuilt ELL views);
 - LM token serving: ``launch/serve.py::serve`` on TinyLlama-1.1B at full
   width, weights drawn from a seeded ``torch.Generator`` on the card
   (kernel ``flash_attention_fwd``, one launch per prefill layer).
@@ -182,6 +187,41 @@ prints no result):
            calls (not the direct ones), each > 0.  ``[serve]`` lines:
            served and direct ms per call; ``[serve done]`` the phase's
            seconds.
+  mutate   writes the partitions' host mirrors, so it runs last.  At
+           parts 1 and 4: a ``GraphServer`` and its ``DynamicGraph`` (index
+           build s and bytes, peak host RSS); cc, kcore and pagerank/fast
+           served at epoch 0 (the warm seeds); a delete-only batch of
+           MUTATE_BATCH sampled live edges (kcore/incremental warm equals
+           cold kcore); a mixed batch of MUTATE_BATCH deletes and as many
+           sampled insertable edges (slots and arrays patched, host and
+           device patch ms apart, no rebuild), with a bfs/fast query
+           admitted before it answering the pre-mutation parents; every
+           patched device tensor equal to its host mirror, and spmv_ell on
+           ell_in, ell_dst and ell_out and bfs_pull on ell_in each in one
+           multi-bucket call, bit-equal to the plain version; bfs/fast,
+           pagerank/bsp, pagerank/fast, sssp, cc and betweenness served at
+           the new epoch (root 0) equal to direct calls bit for bit, and
+           against host references on ``current_edges()`` (min-id level
+           parents, Dijkstra within 1e-5, min-id components, float64
+           power iteration within 1e-4); pagerank/warm from the warm and
+           from the cold seed, each within 1e-4 of the converged float64;
+           an insert-only batch (cc/incremental warm
+           equals cold cc).  Then on MUTATE_REBUILD_GRAPH at both parts
+           counts an edge inserted just past its free pools: the rebuild
+           path, mirrors on the device, the kernels and the served checks
+           on the new layout.  Then at SERVE_PARTS a durable server
+           (fsync, MUTATE_DURABLE: 4 batches of 64 edges, snapshots every
+           2 epochs; snapshot bytes and ms, WAL append ms) recovered in
+           this process, then again with its newest snapshot removed
+           (snapshot 2 + two WAL records replayed): epoch, edge digest,
+           bfs/fast and pagerank/fast bit-identical both times.  Then ``launch/graph_serve.run`` replays
+           SERVE_REPLAY with a 64-edge batch every second and a WAL
+           (MUTATE_REPLAY): every query ok, final epoch 7 (its insert
+           batches rebuild at urand22), q/s and p50/p95/p99 a cell, each
+           mutation's s; recovered from its directory (a snapshot at
+           epoch 7) to epoch 7 and the same edge digest.  ``spmv_ell`` and ``bfs_pull`` launches counted around
+           the served and replayed queries, each > 0.  ``[mutate]`` lines;
+           ``[mutate done]`` the phase's seconds.
   llm-parity  flash_attention_fwd against its plain version (ref.py) on
            the shapes of tests/test_kernels_flash.py (sweep x {causal,
            causal + window 64, non-causal}, cross lengths, softcap 20,
@@ -287,6 +327,22 @@ SERVE_REPLAY = {"mix": "bfs:8,sssp:4,cc:1", "duration": 8.0, "rate": 16.0,
 SERVE_TRACE = HERE / "build" / "obs" / "chip_smoke_serve.json"
 SERVE_STAGES = ("admission", "validate", "coalesce_wait", "dispatch",
                 "device", "demux", "query")
+# the mutate phase: patch batches of MUTATE_BATCH edges a half at each
+# parts count (delete-only, mixed, insert-only: urand22 has no COO slack
+# at parts 1, so deletes come first), the programs served after them, the
+# rebuild path on MUTATE_REBUILD_GRAPH (partitioned in seconds), a durable
+# server at SERVE_PARTS (MUTATE_DURABLE) and the launcher's replay under
+# churn (MUTATE_REPLAY: every insert batch of its stream overflows a row
+# at urand22 and re-partitions; a snapshot at its last epoch, so its
+# recovery replays no record: the durable server's test does)
+MUTATE_BATCH = 4096
+MUTATE_SERVED = ("bfs/fast", "pagerank/bsp", "pagerank/fast", "sssp", "cc",
+                 "betweenness")
+MUTATE_REBUILD_GRAPH = "urand18"
+MUTATE_DIR = HERE / "build" / "persist"
+MUTATE_DURABLE = {"batches": 4, "size": 64, "snapshot_every": 2}
+MUTATE_REPLAY = {**SERVE_REPLAY, "mutate_every": 1.0, "mutate_size": 64,
+                 "snapshot_every": 7}
 ASYNC_SIBLING = {"bfs/async": "bfs/fast", "sssp/async": "sssp",
                  "cc/async": "cc", "pagerank/async": "pagerank/fast",
                  "cc/incremental": "cc", "kcore/incremental": "kcore",
@@ -390,9 +446,11 @@ class Port:
             flash_attention_ref
         from repro_torch import models, obs
         from repro_torch import serve as graph_server
+        from repro_torch.serve import persist
         from repro_torch.launch import graph_serve
         from repro_torch.launch.serve import serve
         self.graph_server = graph_server
+        self.persist = persist
         self.graph_serve = graph_serve
         self.arch_registry = arch_registry
         self.batch_at = batch_at
@@ -601,11 +659,12 @@ def undirected_matrix(m):
     return u
 
 
-def min_id_components(u) -> np.ndarray:
+def min_id_components(u, connection: str = "strong") -> np.ndarray:
     """Per vertex, the smallest vertex id of its weakly connected
-    component (strong components of the symmetric ``u``)."""
+    component: strong components of the symmetric ``u``, or
+    ``connection="weak"`` components of a directed ``u``."""
     from scipy.sparse.csgraph import connected_components
-    _, labels = connected_components(u, directed=True, connection="strong")
+    _, labels = connected_components(u, directed=True, connection=connection)
     _, first = np.unique(labels, return_index=True)
     return first[labels]
 
@@ -956,39 +1015,52 @@ class Parity:
         self.frontier_table(flat, bits, unv, table, n_cols)
         self.frontier_table(flat, bits, unv.to(torch.int32), table, n_cols)
 
+    def _inputs(self, g, name):
+        """Random x, frontier bitmap (with its guard word) and flags for
+        structure ``name``: ell_in gathers all-gathered contributions (one
+        vector for every part, as broadcast_global gives it), the
+        edge-position structures per-edge values of each part."""
+        torch, dev, p = self.torch, self.device, g.parts
+        meta = g.ell_meta[name]
+        x = torch.rand((1 if name == "ell_in" else p, meta.sentinel),
+                       device=dev).expand(p, -1)
+        bits_g = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, g.n // 32 + 1),
+                               dtype=torch.int32, device=dev).expand(p, -1)
+        unv = torch.randint(0, 2, (p, meta.n_rows), dtype=torch.uint8,
+                            device=dev)
+        return meta, x, bits_g, unv
+
     def graph_buckets(self, g, garr, rng):
         """Every ELL bucket a path hands a kernel, alone: ell_in (spmv and
         bfs_pull), ell_dst, ell_out (betweenness's two combines) and
-        ell_src (spmv); then each structure in one multi-bucket call as
-        the paths make it (x with no pad slot, the bitmap with no guard
-        word, uint8 flags).  Random x, bits and flags."""
-        torch, dev = self.torch, self.device
-        p = g.parts
+        ell_src (spmv); then each structure in one multi-bucket call
+        (``tables``).  Random x, bits and flags."""
+        torch = self.torch
         shapes = []
-        bits_g = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, g.n // 32 + 1),
-                               dtype=torch.int32, device=dev)
         for name in ("ell_in", "ell_dst", "ell_out", "ell_src"):
-            meta = g.ell_meta[name]
-            flat = garr[f"{name}_idx"]
-            # ell_in gathers all-gathered contributions (one vector for
-            # every part, as broadcast_global gives it); the edge-position
-            # structures per-edge values of each part
-            x = torch.rand((1 if name == "ell_in" else p, meta.sentinel),
-                           device=dev).expand(p, -1)
-            unv = torch.randint(0, 2, (p, meta.n_rows), dtype=torch.uint8,
-                                device=dev)
-            for r0, rows, blk in nonempty_buckets(self.port, meta.buckets,
-                                                  flat):
+            meta, x, bits_g, unv = self._inputs(g, name)
+            for r0, rows, blk in nonempty_buckets(
+                    self.port, meta.buckets, garr[f"{name}_idx"]):
                 self.spmv(blk, None, x, skip=meta.sentinel)
                 if name == "ell_in":
-                    self.frontier(blk, bits_g.expand(p, -1),
+                    self.frontier(blk, bits_g,
                                   unv[:, r0:r0 + rows].to(torch.int32))
                 shapes.append((name, tuple(blk.shape)))
+        self.tables(g, garr, ("ell_in", "ell_dst", "ell_out", "ell_src"))
+        return shapes
+
+    def tables(self, g, garr, names) -> None:
+        """Each structure of ``names`` in one multi-bucket call as the
+        paths make it (x with no pad slot, the bitmap with no guard word,
+        uint8 flags): spmv_ell on each, bfs_pull on ell_in.  Random x,
+        bits and flags."""
+        for name in names:
+            meta, x, bits_g, unv = self._inputs(g, name)
+            flat = garr[f"{name}_idx"]
             self.spmv_table(flat, x, meta.buckets, meta.sentinel)
             if name == "ell_in":
-                self.frontier_table(flat, bits_g[:, :-1].expand(p, -1), unv,
+                self.frontier_table(flat, bits_g[:, :-1], unv,
                                     meta.buckets, meta.sentinel)
-        return shapes
 
 
 def run_programs(port: Port, eng, garr, mode: str) -> dict:
@@ -1422,6 +1494,8 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
     obs = run_obs(port, engines, main, chaos["cells"])
     # -- the graph query server and its launcher --------------------------
     served = run_serve(port, graph, engines)
+    # -- dynamic graphs and durability (writes the engines' mirrors) ------
+    mutated = run_mutate(port, graph, engines, parity)
     return {"launches": main_launches, "parity_err": parity_err,
             "kernel_cells": kernel_cells, "parts": max(parts_list),
             "bsp_launches": bsp["launches"],
@@ -1429,7 +1503,7 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
             "async_launches": asy["launches"],
             "inc_launches": asy["inc_launches"],
             "chaos_launches": chaos["launches"], "obs_launches": obs,
-            "serve_launches": served}
+            "serve_launches": served, "mutate_launches": mutated}
 
 def suite_fields(eng, prog, outs) -> dict:
     """Output name -> host value (vertex fields gathered to numpy)."""
@@ -2390,15 +2464,18 @@ def timed_direct(port: Port, eng, garr, prog, args) -> tuple:
     return suite_fields(eng, prog, outs), rounds, ms
 
 
-def serve_checked(port: Port, server, key, tag: str, counted) -> dict:
+def serve_checked(port: Port, server, key, tag: str, counted,
+                  roots=SERVE_ROOTS, phase: str = "serve",
+                  got: dict | None = None) -> dict:
     """``key``'s queries through ``server`` against direct calls of the
-    engine's program on the same inputs: rooted keys served roots
-    SERVE_ROOTS (one closed-loop call each), refresh keys once, seeded
-    keys once from the warm seed the store holds.  Every result ok, its
-    bucket the ladder's, its rounds and fields bit-identical to the
-    direct call's.  Returns the cells: bucket, rounds, served ms (the
-    serve call, host clock) and direct ms (the direct calls it
-    answers)."""
+    engine's program on the same inputs: rooted keys served ``roots``
+    (one closed-loop call each), refresh keys once, seeded keys once
+    from the warm seed the store holds.  Every result ok, at the
+    server's epoch, its bucket the ladder's, its rounds and fields
+    bit-identical to the direct call's (``got`` collects the first
+    result's fields under the key's label).  Returns the cells: bucket,
+    rounds, served ms (the serve call, host clock) and direct ms (the
+    direct calls it answers)."""
     serve, eng = port.graph_server, server.engine
     spec, params = key.spec, dict(key.params)
     cells = {}
@@ -2407,16 +2484,18 @@ def serve_checked(port: Port, server, key, tag: str, counted) -> dict:
         res, ms = counted(lambda: server.serve(queries))
         bucket = server.ladder.pick(len(queries)) if key.rooted else 0
         for q, r, (fields, rounds, _) in zip(queries, res, direct):
-            check(r.ok and r.bucket == bucket and r.epoch == 0
+            check(r.ok and r.bucket == bucket and r.epoch == server.epoch
                   and r.rounds == rounds and same_fields(r.fields, fields),
-                  f"serve {tag} {key.label} root={q.root}: {r.status}, "
-                  f"bucket {r.bucket} (want {bucket}), rounds {r.rounds} "
-                  f"(direct {rounds}), or fields differ from the direct "
-                  f"call's")
+                  f"{phase} {tag} {key.label} root={q.root}: {r.status}, "
+                  f"bucket {r.bucket} (want {bucket}), epoch {r.epoch}, "
+                  f"rounds {r.rounds} (direct {rounds}), or fields differ "
+                  f"from the direct call's")
         cell = {"n": len(queries), "bucket": bucket,
                 "rounds": [r.rounds for r in res], "served_ms": ms,
                 "direct_ms": sum(d[2] for d in direct)}
-        log(f"[serve] {tag} {key.label:19s} n={cell['n']:2d} "
+        if got is not None:
+            got.setdefault(key.label, res[0].fields)
+        log(f"[{phase}] {tag} {key.label:19s} n={cell['n']:2d} "
             f"bucket={bucket:2d} rounds {cell['rounds']} served "
             f"{ms:.2f} ms  direct {cell['direct_ms']:.2f} ms")
         return cell
@@ -2426,11 +2505,10 @@ def serve_checked(port: Port, server, key, tag: str, counted) -> dict:
         prog = eng.program(key.algo, key.variant,
                            **{**spec.batch_defaults, **params})
         direct = {r: timed_direct(port, eng, server.garr, prog, (r,))
-                  for r in sorted(set(sum(SERVE_ROOTS, ())))}
-        for roots in SERVE_ROOTS:
-            cells[f"n={len(roots)}"] = one(
-                [serve.Query(key, r) for r in roots],
-                [direct[r] for r in roots])
+                  for r in sorted(set(sum(roots, ())))}
+        for rs in roots:
+            cells[f"n={len(rs)}"] = one([serve.Query(key, r) for r in rs],
+                                        [direct[r] for r in rs])
         return cells
     prog = eng.program(key.algo, key.variant, **params)
     args = ()
@@ -2570,6 +2648,420 @@ def run_serve(port: Port, graph: str, engines: dict) -> dict:
     log("[times] " + json.dumps({"serve": cells, "launches": total,
                                  "seconds": secs}, default=str))
     log(f"[serve done] {secs:.1f} s")
+    return total
+
+
+def host_mb() -> float:
+    """Peak resident host memory of this process so far, MiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def index_bytes(dyn) -> int:
+    """Bytes of the planner's arrays (occupancy, row layouts) and free
+    stacks (8 bytes an entry)."""
+    arrays = list(dyn._occ.values()) + [a for pair in
+                                        dyn._row_layout.values()
+                                        for a in pair]
+    return sum(a.nbytes for a in arrays) + 8 * sum(
+        len(x) for x in dyn._free_out + dyn._free_in)
+
+
+def timed_apply(port: Port, server, **batch):
+    """``server.mutate(**batch)`` with the device patches timed apart
+    (each synchronized: the tensor's clone, the slot lists' copy to the
+    card and the write): (stats, host ms, patch ms); host ms is the rest
+    of ``apply``, the planner and the slot lists' assembly."""
+    torch, dyn = port.torch, server.dynamic_graph()
+    patch_s = []
+    patch = dyn._patch_fn
+
+    def timed(arr, slots, vals):
+        _sync(torch, server.engine.device)
+        t0 = time.perf_counter()
+        out = patch(arr, slots, vals)
+        _sync(torch, server.engine.device)
+        patch_s.append(time.perf_counter() - t0)
+        return out
+
+    dyn._patch_fn = timed
+    try:
+        stats = server.mutate(**batch)
+    finally:
+        dyn._patch_fn = patch
+    patch_ms = sum(patch_s) * 1e3
+    return stats, stats.apply_s * 1e3 - patch_ms, patch_ms
+
+
+def mirrors_on_device(torch, g, garr) -> bool:
+    """Every device tensor equals its host mirror, bit for bit."""
+    host = {k: getattr(g, k) for k in ("out_src_local", "out_dst_global",
+                                       "in_src_global", "in_dst_local",
+                                       "out_degree", "in_degree")}
+    host.update(g.ell_arrays)
+    return all(torch.equal(t.cpu(), torch.from_numpy(
+        np.ascontiguousarray(host[k]))) for k, t in garr.items())
+
+
+def oracle_checks(port: Port, server, got: dict, tag: str) -> tuple:
+    """The served fields of MUTATE_SERVED against host references on the
+    server's ``current_edges()``: BFS parents the min-id in-neighbour a
+    level up, sssp within SSSP_RTOL / SSSP_ATOL of Dijkstra, cc labels the
+    min-id components, pagerank within PR_F64_TOL of the float64 power
+    iteration of the same rounds.  Returns the errors and the matrix."""
+    t0 = time.perf_counter()
+    cur = server.dynamic_graph().current_edges()
+    n = server.engine.g.n_orig
+    m = out_matrix(cur, n)
+    level = bfs_levels(m, ROOT)
+    check(np.array_equal(got["bfs_fast"]["parents"],
+                         min_level_parents(cur, n, ROOT, level)),
+          f"mutate {tag} bfs/fast: a parent is not the min-id in-neighbor "
+          f"one level up on current_edges()")
+    dist = got["sssp"]["dist"]
+    errs = {"sssp": close(f"mutate {tag} sssp vs dijkstra",
+                          np.where(dist >= 1e29, np.inf, dist),
+                          sssp_dijkstra(m, ROOT), SSSP_RTOL, SSSP_ATOL)}
+    check(np.array_equal(got["cc"]["labels"],
+                         min_id_components(m, connection="weak")),
+          f"mutate {tag} cc: labels differ from the min-id components")
+    want = pagerank_f64(m, {got[label]["rounds"]
+                            for label in ("pagerank_bsp", "pagerank_fast")})
+    for label in ("pagerank_bsp", "pagerank_fast"):
+        err = max_rel(got[label]["rank"], want[got[label]["rounds"]])
+        check(err < PR_F64_TOL, f"mutate {tag} {label}: max rel err "
+                                f"{err:.3e} vs float64")
+        errs[label] = err
+    log(f"[mutate] {tag} oracles on current_edges() ({len(cur):,} edges, "
+        f"{time.perf_counter() - t0:.1f} s): bfs/fast parents exact, sssp "
+        f"max rel {errs['sssp']:.3e}, cc labels exact, pagerank bsp / fast "
+        f"max rel {errs['pagerank_bsp']:.3e} / {errs['pagerank_fast']:.3e}")
+    return errs, m
+
+
+def served_after(port: Port, server, tag: str, counted) -> dict:
+    """MUTATE_SERVED through ``server`` at its epoch, root ROOT, each
+    equal to a direct call on the same patched graph; the fields, with
+    each pagerank's rounds."""
+    serve, got, cells = port.graph_server, {}, {}
+    for name in MUTATE_SERVED:
+        key = serve.make_key(name)
+        cells[key.label] = serve_checked(
+            port, server, key, f"{tag} epoch={server.epoch}", counted,
+            roots=((ROOT,),), phase="mutate", got=got)
+        if not key.rooted:
+            got[key.label] = dict(got[key.label],
+                                  rounds=cells[key.label]["n=1"]
+                                  ["rounds"][0])
+    return got, cells
+
+
+def run_mutate(port: Port, graph: str, engines: dict, parity) -> dict:
+    """Dynamic graphs and durability on the card (module docstring,
+    ``mutate``).  Writes the engines' host mirrors: the last graph phase.
+    Returns the kernel launches of the phase's served and replayed
+    queries (parity checks and direct calls are not counted)."""
+    torch, serve, persist = port.torch, port.graph_server, port.persist
+    t_phase = time.perf_counter()
+    total = {"spmv_ell": 0, "bfs_pull": 0}
+    cells = {}
+
+    def counted(fn):
+        before = port.launches()
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = port.launches()
+        for k in total:
+            total[k] += after[k] - before[k]
+        return out, ms
+
+    def q(name, **kw):
+        return serve.Query(serve.make_key(name, **kw))
+
+    rng = np.random.default_rng(SEED)
+    for parts, (_, eng, _) in engines.items():
+        tag = f"parts={parts}"
+        server = serve.GraphServer(eng, buckets=SERVE_BUCKETS, depth=2)
+        # -- 1. the index over the resident graph --------------------------
+        rss0, t0 = host_mb(), time.perf_counter()
+        dyn = server.dynamic_graph()
+        index_s = time.perf_counter() - t0
+        log(f"[mutate] {tag}: index built in {index_s:.2f} s, "
+            f"{index_bytes(dyn) / 2 ** 20:.1f} MiB of arrays and free "
+            f"stacks, peak host RSS {rss0:.0f} -> {host_mb():.0f} MiB")
+        cell = {"index_s": index_s, "index_bytes": index_bytes(dyn)}
+        # epoch 0: the refreshes whose outputs seed the incremental ones
+        res, _ = counted(lambda: server.serve(
+            [q("cc"), q("kcore"), q("pagerank/fast")]))
+        check(all(r.ok for r in res), f"mutate {tag}: epoch-0 refreshes")
+
+        # -- delete-only batch: kcore/incremental warm == cold kcore ------
+        stats, plan_ms, patch_ms = timed_apply(
+            port, server, deletes=dyn.sample_deletable(MUTATE_BATCH, rng))
+        check(not stats.rebuild, f"mutate {tag}: delete batch rebuilt")
+        check(server.resolve_seed(serve.make_key("kcore/incremental"))[1],
+              f"mutate {tag}: no warm kcore seed after a delete batch")
+        (warm, cold), _ = counted(lambda: server.serve(
+            [q("kcore/incremental"), q("kcore")]))
+        check(warm.ok and cold.ok and same_fields(warm.fields, cold.fields),
+              f"mutate {tag}: kcore/incremental warm differs from cold "
+              f"kcore after a delete batch")
+        log(f"[mutate] {tag} delete x{MUTATE_BATCH}: {stats.slots_patched} "
+            f"slots in {stats.arrays_patched} arrays, host {plan_ms:.1f} "
+            f"ms + patch {patch_ms:.1f} ms; kcore/incremental warm == cold "
+            f"kcore, rounds {warm.rounds} warm vs {cold.rounds} cold")
+        cell["delete"] = {"slots": stats.slots_patched, "plan_ms": plan_ms,
+                          "patch_ms": patch_ms,
+                          "kcore_rounds": (warm.rounds, cold.rounds)}
+
+        # -- epoch isolation: admitted before the mixed batch -------------
+        key_bfs = serve.make_key("bfs/fast")
+        prog = eng.program("bfs", "fast", **key_bfs.spec.batch_defaults)
+        before_fields, _, _ = timed_direct(port, eng, server.garr, prog,
+                                           (ROOT,))
+        epoch0 = server.epoch
+        q_old = serve.Query(key_bfs, ROOT)
+        server.submit_query(q_old)              # queued, not pumped
+
+        # -- the mixed batch: the patch path measured --------------------
+        dels = dyn.sample_deletable(MUTATE_BATCH, rng)
+        ins = dyn.sample_insertable(MUTATE_BATCH, rng)
+        stats, plan_ms, patch_ms = timed_apply(port, server, inserts=ins,
+                                               deletes=dels)
+        check(not stats.rebuild and stats.slots_patched > 0,
+              f"mutate {tag}: the mixed batch rebuilt or patched nothing")
+        log(f"[mutate] {tag} mixed x{MUTATE_BATCH}+{MUTATE_BATCH}: "
+            f"rebuild {stats.rebuild}, {stats.slots_patched} slots in "
+            f"{stats.arrays_patched} arrays, apply {stats.apply_s * 1e3:.1f}"
+            f" ms = host {plan_ms:.1f} + device patch {patch_ms:.1f} ms")
+        cell["mixed"] = {"slots": stats.slots_patched,
+                         "arrays": stats.arrays_patched,
+                         "apply_ms": stats.apply_s * 1e3,
+                         "plan_ms": plan_ms, "patch_ms": patch_ms}
+        counted(server.drain)
+        old = server.results.pop(q_old.qid)
+        check(old.ok and old.epoch == epoch0
+              and same_fields(old.fields, before_fields),
+              f"mutate {tag}: a bfs/fast query admitted before the batch "
+              f"answered epoch {old.epoch}, or not the pre-mutation parents")
+        log(f"[mutate] {tag}: a bfs/fast query admitted at epoch {epoch0} "
+            f"answered the pre-mutation parents after the batch")
+
+        # -- kernels on the patched views --------------------------------
+        check(mirrors_on_device(torch, eng.g, server.garr),
+              f"mutate {tag}: a patched device tensor differs from its "
+              f"host mirror")
+        parity.tables(eng.g, server.garr, ("ell_in", "ell_dst", "ell_out"))
+        log(f"[mutate] {tag}: patched tensors == host mirrors; spmv_ell on "
+            f"ell_in, ell_dst, ell_out and bfs_pull on ell_in bit-equal to "
+            f"their plain versions (one multi-bucket call each)")
+
+        # -- served after the mutation ------------------------------------
+        got, cell["served"] = served_after(port, server, tag, counted)
+        cell["oracle"], m = oracle_checks(port, server, got, tag)
+        key = serve.make_key("pagerank/warm", **ASYNC_PR_PARAMS)
+        check(server.resolve_seed(key)[1],
+              f"mutate {tag}: no warm pagerank seed")
+        cold_seed = port.incremental.cold_seed(key.spec, eng.g)
+        (warm, cold), _ = counted(lambda: server.serve(
+            [serve.Query(key), serve.Query(key, seed=cold_seed)]))
+        want = pagerank_f64_converged(m)
+        err = max(max_rel(r["rank"], want) for r in (warm, cold))
+        check(warm.ok and cold.ok and err < PR_F64_TOL,
+              f"mutate {tag} pagerank/warm: {warm.status} / {cold.status}, "
+              f"max rel err {err:.3e} vs converged float64")
+        del m
+        log(f"[mutate] {tag} pagerank/warm after the mixed batch: rounds "
+            f"{warm.rounds} warm vs {cold.rounds} cold, max rel {err:.3e} "
+            f"vs converged float64")
+        cell["pagerank_warm"] = {"rounds": (warm.rounds, cold.rounds),
+                                 "err": err}
+
+        # -- insert-only batch: cc/incremental warm == cold cc ------------
+        stats, plan_ms, patch_ms = timed_apply(
+            port, server, inserts=dyn.sample_insertable(MUTATE_BATCH, rng))
+        check(not stats.rebuild, f"mutate {tag}: insert batch rebuilt")
+        check(server.resolve_seed(serve.make_key("cc/incremental"))[1],
+              f"mutate {tag}: no warm cc seed after an insert batch")
+        (warm, cold), _ = counted(lambda: server.serve(
+            [q("cc/incremental"), q("cc")]))
+        check(warm.ok and cold.ok and same_fields(warm.fields, cold.fields),
+              f"mutate {tag}: cc/incremental warm differs from cold cc "
+              f"after an insert batch")
+        log(f"[mutate] {tag} insert x{MUTATE_BATCH}: {stats.slots_patched} "
+            f"slots, host {plan_ms:.1f} ms + patch {patch_ms:.1f} ms; "
+            f"cc/incremental warm == cold cc, rounds {warm.rounds} warm vs "
+            f"{cold.rounds} cold; epoch {server.epoch}")
+        cell["insert"] = {"slots": stats.slots_patched, "plan_ms": plan_ms,
+                          "patch_ms": patch_ms,
+                          "cc_rounds": (warm.rounds, cold.rounds)}
+        cells[tag] = cell
+        del server, dyn
+
+    # -- 7. the rebuild path on a graph that partitions in seconds ---------
+    gcfg = port.graph_workloads.ALL[MUTATE_REBUILD_GRAPH]
+    edges = port.generate_edges(gcfg, SEED)
+    for parts in engines:
+        tag = f"{MUTATE_REBUILD_GRAPH} parts={parts}"
+        eng = port.GraphEngine(port.partition_graph(
+            edges, gcfg.num_vertices, parts), device=engines[parts][1].device)
+        server = serve.GraphServer(eng, buckets=SERVE_BUCKETS, depth=2)
+        dyn = server.dynamic_graph()
+        u, v = (int(x) for x in dyn.current_edges()[0])
+        k = 1                                  # just past the free pools
+        while not dyn.plan(np.tile([[u, v]], (k, 1)))[2]:
+            k += 1
+        g_before = eng.g
+        stats = server.mutate(inserts=np.tile([[u, v]], (k, 1)))
+        check(stats.rebuild and eng.g is not g_before,
+              f"mutate {tag}: {k} copies of ({u}, {v}) did not rebuild")
+        check(mirrors_on_device(torch, eng.g, server.garr),
+              f"mutate {tag}: rebuilt device tensors differ from the mirrors")
+        parity.tables(eng.g, server.garr, ("ell_in", "ell_dst", "ell_out"))
+        got, _ = served_after(port, server, tag, counted)
+        oracle_checks(port, server, got, tag)
+        log(f"[mutate] {tag}: {k} copies of ({u}, {v}) overflowed; rebuilt "
+            f"in {stats.apply_s:.2f} s; kernels bit-equal on the new "
+            f"layout, served == direct, oracles hold")
+        cells[f"rebuild/{tag}"] = {"rebuild_s": stats.apply_s, "copies": k}
+        del server, dyn, eng
+
+    # -- 8. durability at SERVE_PARTS ---------------------------------------
+    import shutil
+    eng = engines[SERVE_PARTS][1]
+    card = card_line() if eng.device.type == "cuda" else "cpu"
+    pdir = MUTATE_DIR / "durable"
+    shutil.rmtree(pdir, ignore_errors=True)
+    rec = port.obs.SpanRecorder()
+    d = MUTATE_DURABLE
+    t0 = time.perf_counter()
+    server = serve.GraphServer(eng, buckets=SERVE_BUCKETS, depth=2,
+                               obs=rec, persistence=serve.Persistence(
+                                   dir=str(pdir),
+                                   snapshot_every=d["snapshot_every"]))
+    create_s = time.perf_counter() - t0         # upload, index, snapshot 0
+    dyn = server.dynamic_graph()
+    for i in range(d["batches"]):
+        if i % 2 == 0:
+            server.mutate(deletes=dyn.sample_deletable(d["size"], rng))
+        else:
+            server.mutate(inserts=dyn.sample_insertable(d["size"], rng))
+    spans = {kind: [sp.dur * 1e3 for sp in rec.spans() if sp.kind == kind]
+             for kind in ("snapshot", "wal_append")}
+    snaps = persist.find_snapshots(str(pdir))
+    snap_bytes = [os.path.getsize(path) for _, path in snaps]
+    check(server.epoch == d["batches"]
+          and [e for e, _ in snaps] == [4, 2]
+          and not any(m["rebuild"] for m in server.mutation_log),
+          f"mutate durable: epoch {server.epoch}, snapshots "
+          f"{[e for e, _ in snaps]}, log {server.mutation_log}")
+    want = {}
+    for name in ("bfs/fast", "pagerank/fast"):
+        (r,), _ = counted(lambda: server.serve(
+            [serve.Query(serve.make_key(name),
+                         ROOT if name == "bfs/fast" else None)]))
+        want[name] = r
+    digest = persist.edge_digest(dyn.current_edges())
+    recover_s = []
+    for drop in (None, snaps[0][1]):
+        # then without the newest snapshot: snapshot 2 and two WAL
+        # records replayed into the same slots
+        if drop is not None:
+            os.unlink(drop)
+        t0 = time.perf_counter()
+        recovered = serve.GraphServer.recover(str(pdir), device=eng.device,
+                                              buckets=SERVE_BUCKETS)
+        recover_s.append(time.perf_counter() - t0)
+        rep = recovered.recovery_report
+        check(recovered.epoch == server.epoch and persist.edge_digest(
+                  recovered.dynamic.current_edges()) == digest
+              and rep.replayed == (0 if drop is None else 2),
+              f"mutate durable: recovered epoch {recovered.epoch}, "
+              f"{rep.replayed} records replayed, or the edge digest differs "
+              f"from the uninterrupted server's")
+        for name, r in want.items():
+            (r2,), _ = counted(lambda: recovered.serve(
+                [serve.Query(serve.make_key(name),
+                             ROOT if name == "bfs/fast" else None)]))
+            check(r2.ok and r2.rounds == r.rounds
+                  and same_fields(r2.fields, r.fields),
+                  f"mutate durable: recovered {name} differs from the "
+                  f"uninterrupted server's")
+        del recovered
+    log(f"[mutate] durable parts={SERVE_PARTS}: server with snapshot 0 in "
+        f"{create_s:.2f} s; {d['batches']} batches of {d['size']} edges, "
+        f"fsync; snapshots {[e for e, _ in snaps]} of "
+        f"{[round(b / 2 ** 30, 3) for b in snap_bytes]} GiB, written in "
+        f"{[round(x, 1) for x in spans['snapshot']]} ms (epochs 2, 4); "
+        f"WAL appends {[round(x, 3) for x in spans['wal_append']]} ms; "
+        f"recovered in {recover_s[0]:.2f} s (snapshot 4), and in "
+        f"{recover_s[1]:.2f} s without it (snapshot 2 + 2 WAL records): "
+        f"epoch {server.epoch}, edge digest, bfs/fast and pagerank/fast "
+        f"bit-identical both times ({card})")
+    cells["durable"] = {"create_s": create_s,
+                        "snapshot_ms": spans["snapshot"],
+                        "snapshot_bytes": snap_bytes,
+                        "wal_append_ms": spans["wal_append"],
+                        "recover_s": recover_s, "card": card}
+    del server, dyn
+
+    # -- 9. the launcher's replay under churn -----------------------------
+    wal_dir = MUTATE_DIR / "replay"
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    rp = MUTATE_REPLAY
+    n_trace = len(serve.synthetic_trace(
+        eng.g.n_orig, rp["mix"], rate=rp["rate"], duration=rp["duration"],
+        zipf_s=rp["zipf_s"], seed=rp["seed"]))
+    server, run_ms = counted(lambda: port.graph_serve.run(
+        graph, SERVE_PARTS, engine=eng, wal_dir=str(wal_dir), obs=True,
+        **rp))
+    m = server.metrics
+    rows = m.rows()
+    n_mut = int(rp["duration"] / rp["mutate_every"] - 1e-9)
+    muts = [(sp.args["rebuild"], sp.dur) for sp in server.obs.spans()
+            if sp.kind == "mutation"]
+    check(sum(r["count"] for r in rows) == n_trace
+          and not any(m.counts.values()) and server.epoch == n_mut == 7
+          and len(muts) == n_mut,
+          f"mutate replay: {sum(r['count'] for r in rows)} of {n_trace} "
+          f"queries ok, counts {m.counts}, epoch {server.epoch}")
+    qps = n_trace / m.window_s
+    for r in rows:
+        log(f"[mutate] replay parts={SERVE_PARTS} {r['algo']:9s} bucket="
+            f"{r['bucket']:3d} count {r['count']:3d}  p50 {r['p50_ms']} ms"
+            f"  p95 {r['p95_ms']} ms  p99 {r['p99_ms']} ms  ({card})")
+    log(f"[mutate] replay parts={SERVE_PARTS} {rp['mix']} at {rp['rate']} "
+        f"q/s for {rp['duration']} s with a batch of {rp['mutate_size']} "
+        f"edges every {rp['mutate_every']} s: {n_trace} queries all ok, "
+        f"{qps:.3f} q/s over {m.window_s:.3f} s, final epoch "
+        f"{server.epoch}; mutations (rebuild, s) "
+        f"{[(rb, round(s, 2)) for rb, s in muts]}; run() {run_ms:.1f} ms "
+        f"({card})")
+    digest = persist.edge_digest(server.dynamic.current_edges())
+    del server
+    t0 = time.perf_counter()
+    recovered = serve.GraphServer.recover(str(wal_dir), device=eng.device,
+                                          buckets=SERVE_BUCKETS)
+    recover_s = time.perf_counter() - t0
+    rep = recovered.recovery_report
+    check(recovered.epoch == n_mut and persist.edge_digest(
+              recovered.dynamic.current_edges()) == digest,
+          f"mutate replay: recovered epoch {recovered.epoch} or its edge "
+          f"digest differs")
+    log(f"[mutate] replay recovered in {recover_s:.2f} s: snapshot "
+        f"{rep.snapshot_epoch} + {rep.replayed} WAL records ({rep.rebuilds} "
+        f"rebuilds), epoch {recovered.epoch}, edge digest equal")
+    cells["replay"] = {"queries": n_trace, "qps": qps, "window_s": m.window_s,
+                       "rows": rows, "mutations": muts,
+                       "recover_s": recover_s, "card": card}
+    del recovered
+    for name in total:
+        check(total[name] > 0, f"mutate path: {name} never launched")
+    secs = time.perf_counter() - t_phase
+    log("[times] " + json.dumps({"mutate": cells, "launches": total,
+                                 "seconds": secs}, default=str))
+    log(f"[mutate done] {secs:.1f} s")
     return total
 
 
@@ -2875,8 +3367,8 @@ def kernels_record(result: dict, llm: dict) -> dict:
     count; flash_attention_fwd at one TinyLlama prefill layer.  A graph
     kernel's launches are those of every path it runs on (the main path,
     the rest of the BSP suite, multi-source, the async programs, the
-    incremental ones, chaos, the telemetry runs, the query server), each
-    counted from zero around its run."""
+    incremental ones, chaos, the telemetry runs, the query server, the
+    dynamic graph), each counted from zero around its run."""
     p = result["parts"]
     paths = {"graph-main": result["launches"], "bsp-suite":
              result["bsp_launches"], "multi-source": result["multi_launches"],
@@ -2884,7 +3376,8 @@ def kernels_record(result: dict, llm: dict) -> dict:
              "incremental": result["inc_launches"],
              "chaos": result["chaos_launches"],
              "obs": result["obs_launches"],
-             "serve": result["serve_launches"]}
+             "serve": result["serve_launches"],
+             "mutate": result["mutate_launches"]}
     rows = []
     for name, src, replaces, cell_key, design in (
             ("spmv_ell", "src/repro_torch/kernels/spmv/csrc/spmv_ell.cu",

@@ -46,6 +46,7 @@ to the JAX package's ``repro.core.graph`` (the tests hold them equal).
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -151,6 +152,32 @@ def ell_occupancy(meta: EllMeta, idx: np.ndarray) -> np.ndarray:
         filled = idx[p, :meta.slots] != meta.sentinel
         occ[p] = np.bincount(s2r[filled], minlength=meta.n_rows)
     return occ
+
+
+def make_scatter_patch():
+    """The slot patcher of the dynamic-mutation path for ``(P, S)``
+    graph tensors.
+
+    ``patch(arr, slots, vals)`` returns a copy of ``arr`` with
+    ``vals[i]`` written at flat position ``slots[i]`` (``p * S + s``),
+    on ``arr``'s device; ``slots`` and ``vals`` are host arrays and only
+    they cross to the device.  The update is functional on purpose:
+    launches already in flight keep reading the pre-mutation tensor
+    (the snapshot-epoch isolation of the server) and a rolled-back batch
+    restores the old tensor by reference.  Only real slots are written:
+    an out-of-range index raises here, on the host, where JAX's
+    ``mode="drop"`` would have dropped it."""
+
+    def patch(arr, slots, vals):
+        slots = np.asarray(slots, np.int64)
+        if slots.size and (slots.min() < 0 or slots.max() >= arr.numel()):
+            raise IndexError(f"patch slot out of range for {tuple(arr.shape)}")
+        flat = arr.reshape(-1).clone()
+        flat[torch.from_numpy(slots).to(arr.device)] = torch.as_tensor(
+            np.asarray(vals), dtype=arr.dtype).to(arr.device)
+        return flat.view(arr.shape)
+
+    return patch
 
 
 def build_ell(name: str, row_ids: np.ndarray, values: np.ndarray,
@@ -362,9 +389,12 @@ def _build_graph_ells(g: GraphShards) -> None:
          np.where(in_valid, g.in_src_global, -1), pos,
          n, e_max, ("idx", "inv")),
     ]
-    for name, rows, vals, n_rows, sentinel, sufs in specs:
-        meta, arrays = build_ell(name, rows, vals, n_rows, sentinel,
-                                 device_suffixes=sufs)
+    # the four builds are independent numpy work that mostly runs with
+    # the interpreter lock released: one thread each
+    with ThreadPoolExecutor(len(specs)) as pool:
+        built = list(pool.map(
+            lambda s: build_ell(*s[:5], device_suffixes=s[5]), specs))
+    for (name, *_), (meta, arrays) in zip(specs, built):
         g.ell_meta[name] = meta
         g.ell_arrays.update(arrays)
 

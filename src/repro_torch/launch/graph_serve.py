@@ -12,10 +12,22 @@ p50/p95/p99 latency per (program, bucket) cell.
   PYTHONPATH=src python -m repro_torch.launch.graph_serve \\
       --graph urand12 --device cpu --duration 2 --rate 16 --json -
 
-The graph is static: mutation streams and durable serving state
-(``--mutate-every``, ``--mutate-size``, ``--wal-dir``,
-``--snapshot-every``, ``--recover`` in the JAX package's launcher) are
-ROADMAP item 12b.
+``--mutate-every S --mutate-size K`` merges a timed mutation stream
+(``repro_torch.serve.dynamic.mutation_stream``) into the trace: every S
+seconds a K-edge delete/insert batch applies in place and opens a new
+snapshot epoch, so the replay exercises serving under churn.
+
+``--wal-dir DIR`` makes the server durable (write-ahead mutation log +
+crash-consistent snapshots every ``--snapshot-every`` epochs, see
+``repro_torch.serve.persist``); ``--recover --wal-dir DIR`` resumes a
+killed server from that directory instead of regenerating the graph.
+
+  PYTHONPATH=src python -m repro_torch.launch.graph_serve \\
+      --graph urand12 --device cpu --duration 2 --rate 16 \\
+      --mutate-every 0.5 --mutate-size 16 --wal-dir build/wal --json -
+  PYTHONPATH=src python -m repro_torch.launch.graph_serve \\
+      --graph urand12 --device cpu --duration 2 --rate 16 --recover \\
+      --wal-dir build/wal --json -
 
 ``--obs`` traces the serving path (every pipeline stage as spans in a
 bounded ring, see ``repro_torch.obs``) and prints a trace summary;
@@ -40,7 +52,8 @@ from repro_torch.core.compat import runtime_fingerprint
 from repro_torch.graphs import generate_edges
 from repro_torch.obs import SpanRecorder, chrome_trace, trace_summary, \
     write_trace
-from repro_torch.serve import GraphServer, parse_mix, synthetic_trace
+from repro_torch.serve import GraphServer, Persistence, mutation_stream, \
+    parse_mix, synthetic_trace
 
 
 def run(graph_name: str, parts: int = 1, *, device: str | None = None,
@@ -48,34 +61,62 @@ def run(graph_name: str, parts: int = 1, *, device: str | None = None,
         mix: str = "bfs:8,sssp:4,cc:1", duration: float = 10.0,
         rate: float = 64.0, buckets=(1, 8, 32, 128), depth: int = 2,
         zipf_s: float = 1.05, seed: int = 42, layout: str = "ell",
-        json_path: str | None = None, obs: bool = False,
+        json_path: str | None = None, mutate_every: float = 0.0,
+        mutate_size: int = 64, wal_dir: str | None = None,
+        snapshot_every: int = 8, recover: bool = False, obs: bool = False,
         trace_out: str | None = None) -> GraphServer:
     """Serve the trace; returns the server (its metrics, its recorder).
     ``engine`` serves a graph already partitioned (``graph_name``'s, at
-    ``parts``) in place of generating it."""
+    ``parts``) in place of generating it; ``recover`` resumes the
+    server ``wal_dir`` holds instead."""
     gcfg = graph_workloads.ALL[graph_name]
     # --trace-out implies tracing; a SpanRecorder on the server records
-    # every pipeline stage (admission -> ... -> demux) plus resilience
-    # events
+    # every pipeline stage (admission -> ... -> demux) plus durability
+    # spans and resilience events
     rec = SpanRecorder() if (obs or trace_out) else None
-    if engine is None:
-        print(f"[serve] generating {graph_name}: 2^{gcfg.scale} vertices, "
-              f"{gcfg.num_edges:,} edges ({gcfg.generator})")
-        edges = generate_edges(gcfg, seed)
+    edges = None
+    if recover:
+        if not wal_dir:
+            raise SystemExit("[serve] --recover requires --wal-dir")
+        if engine is not None:
+            raise ValueError("recover resumes the graph wal_dir holds; "
+                             "it takes no engine")
         t0 = time.time()
-        g = partition_graph(edges, gcfg.num_vertices, parts)
-        print(f"[serve] partitioned over {parts} parts in "
-              f"{time.time()-t0:.1f}s (layout={layout} "
-              f"localops={localops.get_mode()})")
-        engine = GraphEngine(g, device=device, layout=layout)
-    elif (engine.g.parts, engine.g.n_orig, engine.layout) != \
-            (parts, gcfg.num_vertices, layout):
-        raise ValueError(
-            f"engine holds {engine.g.n_orig} vertices in "
-            f"{engine.g.parts} parts ({engine.layout}), not {graph_name} "
-            f"in {parts} ({layout})")
-    eng = engine
-    server = GraphServer(eng, buckets=buckets, depth=depth, obs=rec)
+        server = GraphServer.recover(wal_dir, device=device, buckets=buckets,
+                                     depth=depth,
+                                     snapshot_every=snapshot_every, obs=rec)
+        eng = server.engine
+        rep = server.recovery_report
+        print(f"[serve] recovered {wal_dir} in {time.time()-t0:.1f}s: "
+              f"epoch {server.epoch} (snapshot {rep.snapshot_epoch} "
+              f"+ {rep.replayed} WAL records replayed, "
+              f"{rep.skipped} skipped, {rep.rebuilds} rebuilds)")
+    else:
+        if engine is None:
+            print(f"[serve] generating {graph_name}: 2^{gcfg.scale} "
+                  f"vertices, {gcfg.num_edges:,} edges ({gcfg.generator})")
+            edges = generate_edges(gcfg, seed)
+            t0 = time.time()
+            g = partition_graph(edges, gcfg.num_vertices, parts)
+            print(f"[serve] partitioned over {parts} parts in "
+                  f"{time.time()-t0:.1f}s (layout={layout} "
+                  f"localops={localops.get_mode()})")
+            engine = GraphEngine(g, device=device, layout=layout)
+        elif (engine.g.parts, engine.g.n_orig, engine.layout) != \
+                (parts, gcfg.num_vertices, layout):
+            raise ValueError(
+                f"engine holds {engine.g.n_orig} vertices in "
+                f"{engine.g.parts} parts ({engine.layout}), not "
+                f"{graph_name} in {parts} ({layout})")
+        eng = engine
+        persistence = Persistence(dir=wal_dir,
+                                  snapshot_every=snapshot_every) \
+            if wal_dir else None
+        server = GraphServer(eng, buckets=buckets, depth=depth,
+                             persistence=persistence, obs=rec)
+        if persistence:
+            print(f"[serve] durable: wal-dir={wal_dir} "
+                  f"snapshot_every={snapshot_every}")
 
     keys = parse_mix(mix)
     t0 = time.time()
@@ -86,13 +127,28 @@ def run(graph_name: str, parts: int = 1, *, device: str | None = None,
 
     trace = synthetic_trace(eng.g.n_orig, keys, rate=rate,
                             duration=duration, zipf_s=zipf_s, seed=seed)
-    print(f"[serve] replaying {len(trace)} queries over "
+    n_mut = 0
+    if mutate_every > 0:
+        src_edges = edges if edges is not None \
+            else server.dynamic_graph().current_edges()
+        events = mutation_stream(src_edges, every=mutate_every,
+                                 size=mutate_size, duration=duration,
+                                 seed=seed)
+        trace = trace + events          # serve_trace sorts by time
+        n_mut = len(events)
+        print(f"[serve] merged {n_mut} mutation batches "
+              f"(every {mutate_every:.1f}s, {mutate_size} edges each)")
+    print(f"[serve] replaying {len(trace)-n_mut} queries over "
           f"{duration:.0f}s (rate={rate:.0f}/s, mix={mix}, "
           f"zipf_s={zipf_s})")
     results = server.serve_trace(trace)
     print(f"[serve] served {len(results)} queries "
           f"({len(results)/server.metrics.window_s:.1f} q/s overall)")
     print(server.metrics.table())
+    if server.mutation_log:
+        rebuilds = sum(m["rebuild"] for m in server.mutation_log)
+        print(f"[serve] applied {len(server.mutation_log)} mutation "
+              f"batches ({rebuilds} rebuilds); final epoch {server.epoch}")
 
     summ = None
     if rec is not None:
@@ -116,15 +172,16 @@ def run(graph_name: str, parts: int = 1, *, device: str | None = None,
                      "buckets": list(server.ladder.sizes), "depth": depth,
                      "zipf_s": zipf_s, "layout": layout,
                      "localops": localops.get_mode(),
-                     # the static graph's values of the item-12b fields
-                     "mutate_every": 0.0, "mutate_size": 0,
+                     "mutate_every": mutate_every,
+                     "mutate_size": mutate_size,
                      "mutations": len(server.mutation_log),
                      "final_epoch": server.epoch,
-                     "wal_dir": None, "recovered": False,
+                     "wal_dir": wal_dir, "recovered": bool(recover),
                      **runtime_fingerprint(eng.device)},
             "rows": snap["rows"],
             "counts": snap["counts"],
             "epoch": snap["epoch"],
+            # resilience + durability counters
             "recoveries": snap["recoveries"],
             "wal_records": snap["wal_records"],
         }
@@ -166,6 +223,20 @@ def main():
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--json", default=None,
                     help="write metrics rows to this path ('-' = stdout)")
+    ap.add_argument("--mutate-every", type=float, default=0.0,
+                    help="apply a mutation batch every this many seconds "
+                         "(0 = static graph); epochs advance mid-trace")
+    ap.add_argument("--mutate-size", type=int, default=64,
+                    help="edges per mutation batch (alternating "
+                         "delete/insert; see serve.dynamic.mutation_stream)")
+    ap.add_argument("--wal-dir", default=None,
+                    help="durability directory (WAL + snapshots); makes "
+                         "the server crash-recoverable")
+    ap.add_argument("--snapshot-every", type=int, default=8,
+                    help="epochs between crash-consistent snapshots")
+    ap.add_argument("--recover", action="store_true",
+                    help="resume from --wal-dir instead of generating "
+                         "and partitioning a fresh graph")
     ap.add_argument("--obs", action="store_true",
                     help="record serving-path spans (admission/dispatch/"
                          "device/demux/...) and report a trace summary")
@@ -177,8 +248,10 @@ def main():
         duration=args.duration, rate=args.rate,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         depth=args.depth, zipf_s=args.zipf, seed=args.seed,
-        layout=args.layout, json_path=args.json, obs=args.obs,
-        trace_out=args.trace_out)
+        layout=args.layout, json_path=args.json,
+        mutate_every=args.mutate_every, mutate_size=args.mutate_size,
+        wal_dir=args.wal_dir, snapshot_every=args.snapshot_every,
+        recover=args.recover, obs=args.obs, trace_out=args.trace_out)
 
 
 if __name__ == "__main__":

@@ -26,15 +26,21 @@ and the caller owns the loop (``serve`` for a closed-loop query list,
 ``serve_trace`` to replay a timed arrival trace in real time).  No
 threads.
 
-**The graph is static here.**  Mutations and durability (``mutate``,
-``dynamic_graph``, ``GraphServer.recover``, ``persistence=``) are
-ROADMAP item 12b and raise ``NotImplementedError``; the mutation log
-stays empty and the snapshot epoch stays 0.  Seeded queries
-(``pagerank/warm``, ``cc/incremental``, ``kcore/incremental``) resolve
-their vertex-field seed from the server's seed store — previously
-served outputs, adopted warm only when the mutation history since
-their epoch keeps them exact (``registry.IncrementalSpec.mutations``),
-cold otherwise.
+**Dynamic graphs.**  ``mutate()`` applies a batched edge insert/delete
+against the resident graph through ``repro_torch.serve.dynamic`` and
+opens a new SNAPSHOT EPOCH: pending queries are flushed against the old
+tensors first, the device patch is functional (in-flight launches keep
+their snapshot), and queries admitted afterwards read the new one.
+Seeded queries (``pagerank/warm``, ``cc/incremental``,
+``kcore/incremental``) resolve their vertex-field seed from the
+server's seed store — previously served outputs, adopted warm only
+when the mutation history since their epoch keeps them exact
+(``registry.IncrementalSpec.mutations``), cold otherwise.
+
+**Durability.**  ``persistence=`` write-ahead-logs every mutation batch
+and snapshots the serving state (``repro_torch.serve.persist``);
+``GraphServer.recover(dir)`` resumes a killed server at the exact epoch
+with bit-identical answers.
 
 **Overload & failure resilience.**  Every terminal disposition is a
 typed :class:`QueryResult` (``status`` in ``ok`` / ``timed_out`` /
@@ -80,16 +86,14 @@ from repro_torch.core.api import GraphEngine
 from repro_torch.core.incremental import KIND_DTYPES, cold_seed
 from repro_torch.obs import NULL_RECORDER
 from repro_torch.serve.coalescer import Batch, BucketLadder, Coalescer
+from repro_torch.serve.dynamic import DynamicGraph, MutationBatch, \
+    MutationStats
 from repro_torch.serve.executor import DoubleBufferedExecutor, Launch
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.persist import DurabilityState, Persistence, \
+    maybe_crash
 from repro_torch.serve.query import Query, QueryKey, QueryResult, \
     make_key, validate_query
-
-
-def _item_12b(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: dynamic graphs and durability are "
-        "ROADMAP.md item 12b")
 
 
 def _host_scalar(value):
@@ -104,15 +108,15 @@ class GraphServer:
                  max_queued: int | None = None,
                  default_deadline_s: float | None = None,
                  max_retries: int = 2, retry_backoff_s: float = 0.02,
-                 validate: bool = True, persistence=None, obs=None):
-        if persistence is not None:
-            raise _item_12b("GraphServer(persistence=...)")
+                 validate: bool = True,
+                 persistence: Persistence | str | None = None, obs=None):
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
         self.engine = engine
         # serving-path observability: an obs.SpanRecorder records every
         # pipeline stage (admission -> validate -> coalesce_wait ->
-        # dispatch -> device -> demux -> query) plus resilience events.
+        # dispatch -> device -> demux -> query) plus durability and
+        # resilience events.
         # The default NULL_RECORDER is disabled — each site pays one
         # attribute read and allocates nothing.
         self.obs = obs if obs is not None else NULL_RECORDER
@@ -137,13 +141,25 @@ class GraphServer:
         # (n_orig,) arrays and an unbounded dict grows without end)
         self.results: dict[int, QueryResult] = {}
         self._next_qid = 0
-        # the snapshot epoch, the mutation history (what _seeds entries
-        # are judged against; empty until item 12b) and the seed store
-        # itself — (algo, field) -> (epoch, (n_orig,) array) harvested
-        # from served refresh results
+        # dynamic-graph state: the snapshot epoch, the lazily built
+        # mutation subsystem, the mutation history (what _seeds entries
+        # are judged against), and the seed store itself —
+        # (algo, field) -> (epoch, (n_orig,) host array) harvested from
+        # served refresh results
         self.epoch = 0
+        self.dynamic: DynamicGraph | None = None
         self.mutation_log: list[dict] = []
         self._seeds: dict[tuple[str, str], tuple[int, np.ndarray]] = {}
+        # durability (WAL + snapshots): None = fail-stop volatile.
+        # ``persistence=`` starts durable FROM SCRATCH (refusing a dir
+        # that already holds state); ``GraphServer.recover(dir)`` is the
+        # resume constructor.
+        self.durability: DurabilityState | None = None
+        self.recovery_report = None
+        if persistence is not None:
+            self.durability = DurabilityState.create(self, persistence)
+            self.durability.obs = self.obs
+            self.metrics.wal_records = self.durability.wal_records
 
     # -- admission -----------------------------------------------------------
     def submit(self, algo: str, variant: str | None = None, *,
@@ -242,16 +258,105 @@ class GraphServer:
             self._demux(launch)
         return launches
 
-    # -- dynamic graphs (ROADMAP item 12b) -----------------------------------
-    def dynamic_graph(self):
-        raise _item_12b("GraphServer.dynamic_graph")
+    # -- dynamic graphs ------------------------------------------------------
+    def dynamic_graph(self) -> DynamicGraph:
+        """The mutation subsystem over the resident graph (built lazily:
+        reading the free-slot state off the mirrors costs O(E) once)."""
+        if self.dynamic is None:
+            self.dynamic = DynamicGraph(self.engine, self.garr)
+            self.dynamic.epoch = self.epoch
+        return self.dynamic
 
-    def mutate(self, inserts=None, deletes=None):
-        raise _item_12b("GraphServer.mutate")
+    def mutate(self, inserts=None, deletes=None) -> MutationStats:
+        """Apply one batched edge insert/delete and open a new snapshot
+        epoch.
+
+        Ordering vs. the pipeline: every PENDING query is flushed into
+        the executor first, so it dispatches against the pre-mutation
+        tensors it was admitted under; launches already in flight keep
+        reading their snapshot because the device patch is functional
+        (copy-on-write).  Queries admitted after this call read the new
+        epoch.  A batch that overflows the free-slot pools falls back to
+        a full re-partition + re-upload (``stats.rebuild=True``;
+        programs for the new layout are built on first use — the
+        program-cache key covers the layout signature).
+
+        Durability ordering (``persistence=`` servers): the batch is
+        planned, WAL-logged and fsynced BEFORE it applies — a crash at
+        any instruction leaves the log a superset of the applied
+        epochs, never the reverse — and every ``snapshot_every`` epochs
+        a crash-consistent snapshot pumps after the apply.
+        """
+        if self.durability is not None:
+            maybe_crash("between-batches")
+        with self.obs.span("mutation", "server") as msp:
+            while True:
+                batch = self.coalescer.next_batch()
+                if batch is None:
+                    break
+                self._launch(batch)       # results wait in the mailbox
+            dyn = self.dynamic_graph()
+            if self.durability is not None:
+                stats = self.durability.logged_apply(dyn, inserts, deletes)
+            else:
+                stats = dyn.apply(inserts, deletes)
+            self.garr = dyn.garr
+            self.epoch = dyn.epoch
+            self.metrics.epoch = self.epoch
+            self.mutation_log.append({
+                "epoch": stats.epoch, "n_insert": stats.n_insert,
+                "n_delete": stats.n_delete, "rebuild": stats.rebuild})
+            msp.args.update(epoch=stats.epoch, n_insert=stats.n_insert,
+                            n_delete=stats.n_delete,
+                            rebuild=bool(stats.rebuild))
+            if self.durability is not None:
+                self.metrics.wal_records = self.durability.wal_records
+                self.durability.maybe_snapshot(self)
+        return stats
 
     @classmethod
-    def recover(cls, dir, **kwargs) -> "GraphServer":
-        raise _item_12b("GraphServer.recover")
+    def recover(cls, dir, *, device=None, snapshot_every=None, retain=None,
+                fsync=None, **kwargs) -> "GraphServer":
+        """Resume serving from a durability directory: newest
+        digest-valid snapshot + WAL-suffix replay, bit-identical to the
+        uninterrupted server at the recovered epoch, on ``device``
+        (default: the card).  ``kwargs`` pass through to the constructor
+        (buckets, depth, deadlines, ...); the persistence knobs default
+        to what the snapshot recorded.  The recovered server keeps
+        appending to the same WAL; what it did is on
+        ``server.recovery_report``."""
+        from repro_torch.serve.persist.recover import recover_state
+        rec = kwargs.get("obs") or NULL_RECORDER
+        with rec.span("recovery", "server", dir=str(dir)) as rsp:
+            rs = recover_state(dir, device=device)
+            rsp.args.update(epoch=rs.epoch,
+                            wal_records=rs.report.wal_records,
+                            replayed=rs.report.replayed)
+        server = cls(rs.engine, **kwargs)
+        server.dynamic = rs.dynamic
+        server.garr = rs.dynamic.garr
+        server.epoch = rs.epoch
+        server.mutation_log = rs.mutation_log
+        server._seeds = dict(rs.seeds)
+        stored = rs.persist_cfg
+        cfg = Persistence(
+            dir=str(dir),
+            snapshot_every=(snapshot_every if snapshot_every is not None
+                            else stored.get("snapshot_every", 8)),
+            retain=(retain if retain is not None
+                    else stored.get("retain", 2)),
+            fsync=(fsync if fsync is not None
+                   else stored.get("fsync", True)))
+        rs.wal.fsync = cfg.fsync
+        server.durability = DurabilityState.resume(
+            cfg, rs.wal, rs.digest, rs.count, rs.batch_id,
+            last_snapshot_epoch=rs.report.snapshot_epoch)
+        server.durability.obs = server.obs
+        server.recovery_report = rs.report
+        server.metrics.epoch = rs.epoch
+        server.metrics.recoveries = 1
+        server.metrics.wal_records = rs.report.wal_records
+        return server
 
     def resolve_seed(self, key: QueryKey) -> tuple[tuple, bool]:
         """(seed arrays, warm?) for a seeded query without an explicit
@@ -413,21 +518,25 @@ class GraphServer:
         ``serve.workload.synthetic_trace``) in real time: a query is
         admitted when its arrival time passes; between arrivals the
         pipeline keeps pumping, so queued work and in-flight launches
-        overlap the wait.  Latency runs from the intended arrival.  An
-        event that is not a ``Query`` (a mutation batch) raises: the
-        graph is static until item 12b."""
+        overlap the wait.  Latency runs from the intended arrival.
+
+        Events may also be ``(t_s, MutationBatch)`` (e.g. merged from
+        ``serve.dynamic.mutation_stream``): the batch applies when its
+        time passes, flushing pending queries against their own epoch
+        first — so a trace interleaves queries and mutations exactly as
+        an online service would see them."""
         trace = sorted(trace, key=lambda e: e[0])
-        for _, item in trace:
-            if not isinstance(item, Query):
-                raise _item_12b(
-                    f"serve_trace event {type(item).__name__}")
         t0 = time.perf_counter()
         done, i = [], 0
         while i < len(trace) or self.coalescer.has_pending() \
                 or len(self.executor) or self._oob:
             now = time.perf_counter() - t0
             while i < len(trace) and trace[i][0] <= now:
-                self.submit_query(trace[i][1], t_submit=t0 + trace[i][0])
+                item = trace[i][1]
+                if isinstance(item, MutationBatch):
+                    self.mutate(inserts=item.inserts, deletes=item.deletes)
+                else:
+                    self.submit_query(item, t_submit=t0 + trace[i][0])
                 i += 1
             if self.coalescer.has_pending() or len(self.executor) \
                     or self._oob:

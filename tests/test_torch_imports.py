@@ -40,8 +40,15 @@ def test_sources_import_no_jax_or_reference():
              "report.py", "trace_export.py")} <= set(files)
     assert {os.path.join(PORT, *m) for m in
             (("serve", "server.py"), ("serve", "executor.py"),
-             ("core", "compat.py"), ("launch", "graph_serve.py"))} \
-        <= set(files)
+             ("core", "compat.py"), ("launch", "graph_serve.py"),
+             ("serve", "dynamic", "__init__.py"),
+             ("serve", "dynamic", "mutation.py"),
+             ("serve", "dynamic", "stream.py"),
+             ("serve", "persist", "__init__.py"),
+             ("serve", "persist", "crashpoints.py"),
+             ("serve", "persist", "wal.py"),
+             ("serve", "persist", "snapshot.py"),
+             ("serve", "persist", "recover.py"))} <= set(files)
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, f"forbidden imports: {bad}"
@@ -104,3 +111,37 @@ def test_telemetry_run_loads_no_jax():
                        capture_output=True, text=True, timeout=300, cwd=REPO)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "TELEMETRY-RUN" in r.stdout, r.stdout
+
+
+_DURABLE_RUN = r"""
+import sys, tempfile
+import numpy as np
+from repro_torch.core import GraphEngine, partition_graph
+from repro_torch.graphs import urand_edges
+from repro_torch.serve import GraphServer, Persistence, query
+eng = GraphEngine(partition_graph(urand_edges(256, 2048, seed=3), 256, 2),
+                  device="cpu")
+d = tempfile.mkdtemp()
+server = GraphServer(eng, buckets=(4,), persistence=Persistence(
+    d, snapshot_every=1, fsync=False))
+dyn = server.dynamic_graph()
+rng = np.random.default_rng(0)
+server.mutate(deletes=dyn.sample_deletable(8, rng))
+server.mutate(inserts=dyn.sample_insertable(8, rng))
+rec = GraphServer.recover(d, device="cpu", buckets=(4,))
+res = rec.serve([query("bfs", root=3)])[0]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("DURABLE-RUN", rec.epoch, res.status)
+"""
+
+
+def test_dynamic_and_durable_run_loads_no_jax():
+    """Mutating a durable server, recovering it and serving from the
+    recovered one leave jax and the JAX package unloaded."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", _DURABLE_RUN], env=env,
+                       capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "DURABLE-RUN 2 ok" in r.stdout, r.stdout

@@ -1,7 +1,7 @@
 """The port's query server (``repro_torch.serve``) and its launcher.
 
-  * Ports of tests/test_serve.py (but the mutation test, which needs
-    ``mutate``): coalescer and executor units, the cache identity the
+  * Ports of tests/test_serve.py (its mutation test is in
+    test_torch_dynamic.py): coalescer and executor units, the cache identity the
     bucket ladder relies on, served-equals-direct bit for bit for every
     registered pair, resilience (validation, deadlines, shedding,
     retry/quarantine); the executor's failure tests patch the port's
@@ -16,7 +16,9 @@
     workload generator's traces equal the reference's; GraphEngine's
     thin wrappers give the reference's outputs.
   * The batched runner's duplicate lanes (one run per distinct root),
-    the item-12b entry points, and the launcher's CLI.
+    and the launcher's CLI: its --json payload, and a replay under a
+    mutation stream with a WAL directory then a --recover run, against
+    the JAX package's launcher on the same arguments.
 """
 
 import json
@@ -788,26 +790,6 @@ def test_batched_duplicate_lanes_run_once(served, monkeypatch, algo,
             assert isv and torch.equal(o[:, lane], w), (algo, lane)
 
 
-# -- item 12b --------------------------------------------------------------
-
-
-def test_dynamic_and_durable_entry_points_name_item_12b(served, tmp_path):
-    """Mutations and durability are not ported: each entry point raises
-    NotImplementedError naming ROADMAP item 12b, and a mutation event in
-    a trace is refused, not skipped."""
-    _, eng, _, _ = served
-    server = GraphServer(eng, buckets=(4,))
-    for call in (lambda: server.mutate(deletes=np.zeros((1, 2), np.int64)),
-                 server.dynamic_graph,
-                 lambda: GraphServer.recover(str(tmp_path)),
-                 lambda: GraphServer(eng, persistence=str(tmp_path)),
-                 lambda: server.serve_trace([(0.0, query("cc")),
-                                             (0.1, object())])):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            call()
-    assert not server.coalescer.has_pending() and not server.results
-
-
 # -- against the JAX package's server --------------------------------------
 
 _REFERENCE = """
@@ -985,3 +967,58 @@ def test_graph_serve_cli_writes_reference_payload(tmp_path):
                                  "quarantined": 0, "rejected": 0}
     assert payload["rows"] and sum(r["count"] for r in payload["rows"]) > 0
     assert {r["algo"] for r in payload["rows"]} <= {"bfs_fast", "sssp", "cc"}
+
+
+_CLI = ("--graph", "urand12", "--parts", "1", "--duration", "2", "--rate",
+        "16", "--json", "-")
+
+
+def _serve_json(module, *args, device=()):
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", module, *_CLI, *device, *args], env=env,
+        capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    line = next(x for x in r.stdout.splitlines()
+                if x.startswith("SERVE_JSON "))
+    return json.loads(line[len("SERVE_JSON "):]), r.stdout
+
+
+def test_graph_serve_cli_mutate_and_recover_match_reference(tmp_path):
+    """``--mutate-every 0.5 --mutate-size 16 --wal-dir`` then
+    ``--recover``: the payloads' keys, the mutation and durability
+    fields and the final epoch equal the JAX package's launcher's on the
+    same arguments, and the two WAL files are byte-identical."""
+    runs = {}
+    for name, module, device in (
+            ("port", "repro_torch.launch.graph_serve", ("--device", "cpu")),
+            ("ref", "repro.launch.graph_serve", ())):
+        wal = str(tmp_path / name)
+        first, _ = _serve_json(module, "--mutate-every", "0.5",
+                               "--mutate-size", "16", "--wal-dir", wal,
+                               device=device)
+        second, log = _serve_json(module, "--recover", "--wal-dir", wal,
+                                  device=device)
+        runs[name] = (first, second, open(os.path.join(wal, "wal.log"),
+                                          "rb").read())
+        assert "recovered" in log
+    fields = ("mutate_every", "mutate_size", "mutations", "final_epoch",
+              "recovered")
+    for i, want_recovered in ((0, False), (1, True)):
+        got, want = runs["port"][i], runs["ref"][i]
+        assert set(got) == set(want) == REF_PAYLOAD_KEYS
+        assert REF_META_KEYS <= set(got["meta"])
+        assert {k: got["meta"][k] for k in fields} == \
+            {k: want["meta"][k] for k in fields}
+        assert got["meta"]["recovered"] is want_recovered
+        assert got["meta"]["wal_dir"] == str(tmp_path / "port")
+        assert [got[k] for k in ("epoch", "recoveries", "wal_records",
+                                 "counts")] == \
+            [want[k] for k in ("epoch", "recoveries", "wal_records",
+                               "counts")]
+    first, second, _ = runs["port"]
+    assert first["meta"]["final_epoch"] == first["epoch"] == 3 \
+        == second["meta"]["final_epoch"]
+    assert (first["recoveries"], second["recoveries"]) == (0, 1)
+    assert first["wal_records"] == second["wal_records"] == 3
+    assert runs["port"][2] == runs["ref"][2], "wal.log bytes differ"

@@ -2,8 +2,9 @@
 semantics of ``serve/metrics.py``, a traced serve session whose spans
 reconcile exactly with ``ServeMetrics`` (parts 1 and, as the
 reference's multi-device acceptance drill, parts 2 with the answers held
-to the NumPy oracle), and the untraced server recording nothing.  The
-reference drill's mutation lines are ROADMAP item 12b."""
+to the NumPy oracle), each with a mutation recording its span, the
+durability spans (``wal_append``, ``snapshot``) and the recovery span,
+and the untraced server recording nothing."""
 
 import numpy as np
 import pytest
@@ -92,8 +93,18 @@ def _traced_session(eng, roots, bucket):
     return rec, server, results
 
 
-def test_traced_serve_spans_reconcile_with_metrics(eng):
+def test_traced_serve_spans_reconcile_with_metrics():
+    # its own engine: the mutation below writes the graph's mirrors
+    eng = GraphEngine(partition_graph(urand_edges(N, E, seed=11), N,
+                                      parts=1), device="cpu")
     rec, server, results = _traced_session(eng, range(5), 4)
+    # a mutation records its span with the new epoch
+    dels = server.dynamic_graph().sample_deletable(
+        8, np.random.default_rng(0))
+    stats = server.mutate(deletes=dels)
+    (msp,) = [s for s in rec.spans() if s.kind == "mutation"]
+    assert msp.args["epoch"] == server.epoch == 1
+    assert msp.args["n_delete"] == stats.n_delete >= 1
     # a rejected admission leaves an event, not a span
     with pytest.raises(ValueError):
         server.submit("bfs", root=10 ** 9)
@@ -119,17 +130,22 @@ def test_untraced_server_records_nothing(eng):
 
 def test_traced_serve_acceptance_parts2():
     """The reference's parts=2 traced serve drill: answers stay
-    oracle-correct under tracing, every pipeline stage leaves spans,
-    the latency cells reconcile exactly, and the Chrome export passes
-    the schema validator."""
+    oracle-correct under tracing, every pipeline stage and a mutation
+    leave spans, the latency cells reconcile exactly, and the Chrome
+    export passes the schema validator."""
     n, parts = 384, 2
     edges = urand_edges(n, 8 * n, seed=5)       # oracle's urand family
     eng2 = GraphEngine(partition_graph(edges, n, parts), device="cpu")
-    rec, _, results = _traced_session(eng2, range(12), 8)
+    rec, server, results = _traced_session(eng2, range(12), 8)
     oracle.check_conformance("bfs", "fast", dict(results[0].fields),
                              edges, n, 0)
     oracle.check_conformance("pagerank", "fast", dict(results[-1].fields),
                              edges, n, 0)
+    # mutation under tracing
+    server.mutate(deletes=server.dynamic_graph().sample_deletable(
+        8, np.random.default_rng(1)))
+    assert "mutation" in {s.kind for s in rec.spans()}
+    assert derive_latency_cells(rec) == server.metrics.latencies()
     counts = validate_chrome_trace(chrome_trace(rec.spans(), rec.events()))
     assert counts["b"] == counts["e"] >= len(results)
     summ = trace_summary(rec)
@@ -137,3 +153,30 @@ def test_traced_serve_acceptance_parts2():
     assert summ["dropped_spans"] == 0
     np.testing.assert_array_equal(
         [r.bucket for r in results], [8] * 12 + [0])
+
+
+def test_durability_and_recovery_spans(tmp_path):
+    eng2 = GraphEngine(partition_graph(urand_edges(128, 512, seed=3), 128,
+                                       parts=1), device="cpu")
+    rec = SpanRecorder()
+    server = GraphServer(eng2, buckets=(4,), persistence=str(tmp_path),
+                         obs=rec)
+    dels = server.dynamic_graph().sample_deletable(
+        4, np.random.default_rng(2))
+    server.mutate(deletes=dels)
+    server.durability.snapshot_now(server)
+    kinds = {s.kind for s in rec.spans()}
+    assert {"mutation", "wal_append", "snapshot"} <= kinds
+    (wsp,) = [s for s in rec.spans() if s.kind == "wal_append"]
+    assert wsp.component == "durability" and wsp.args["epoch"] == 1
+
+    rec2 = SpanRecorder()
+    srv2 = GraphServer.recover(tmp_path, device="cpu", buckets=(4,),
+                               obs=rec2)
+    (rsp,) = [s for s in rec2.spans() if s.kind == "recovery"]
+    assert rsp.args["epoch"] == srv2.epoch == 1
+    # the recovered server's durability path stays instrumented
+    dels2 = srv2.dynamic_graph().sample_deletable(
+        4, np.random.default_rng(3))
+    srv2.mutate(deletes=dels2)
+    assert any(s.kind == "wal_append" for s in rec2.spans())
