@@ -36,9 +36,18 @@ against its plain-PyTorch version:
   recovered with ``GraphServer.recover``, and the launcher's replay under
   a mutation stream (kernels ``spmv_ell`` and ``bfs_pull`` over the
   patched and rebuilt ELL views);
+- the graph dry-run: ``core/dryrun.py`` plans all sixteen programs of
+  urand28 at 256 and 512 parts on meta tensors, then plans bfs/fast,
+  pagerank/bsp and pagerank/fast on meta copies of the resident urand22
+  arrays and runs the same static-trip builds on the card (kernels
+  ``spmv_ell`` and ``bfs_pull``);
 - LM token serving: ``launch/serve.py::serve`` on TinyLlama-1.1B at full
   width, weights drawn from a seeded ``torch.Generator`` on the card
-  (kernel ``flash_attention_fwd``, one launch per prefill layer).
+  (kernel ``flash_attention_fwd``, one launch per prefill layer);
+- LM training: ``launch/train.py::train`` on TinyLlama-1.1B at full
+  width and depth (kernel ``flash_attention_fwd`` with its ``lse``, in
+  each layer's forward and its remat recompute; the backward is plain
+  torch, as the reference's is plain JAX).
 
 Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
@@ -249,6 +258,31 @@ prints no result):
            with 8 decode steps under torch.profiler: device busy share and
            the kernels that take most.
 
+  dryrun   (between serve and mutate) urand28 planned at 256 and 512
+           parts, sixteen programs each, on meta tensors: each program's
+           HBM a part and bottleneck (v5e and H100 terms); then at parts 1
+           and 4 of urand22 bfs/fast, pagerank/bsp and pagerank/fast
+           planned on meta copies of the resident arrays and run with the
+           same static_iters on the card, through the kernels and on the
+           ell route: planned argument bytes equal to the resident bytes,
+           pagerank's planned exchanges equal to the run's, planned temp
+           bytes beside the measured peaks; launches counted from zero.
+  train    (after llm-times) TinyLlama-1.1B, default_train_config, batch
+           8 x 1024: the kernel's lse at the training shape (o
+           bit-identical with and without it; lse within LSE_TOL of
+           ref.py; both timed), the plain flash backward at one layer's
+           shape, step 0's loss and gradient leaves through the kernel
+           against the plain chunked forward (TRAIN_LOSS_TOL; each leaf
+           within TRAIN_GRAD_FACTOR x naive attention's gap to the plain
+           forward), then train() for 6 steps from seeded weights
+           with the launch counters zeroed (44 flash launches a step:
+           each layer's forward and remat recompute), finite losses and
+           grad norms, step-0 loss within 0.5 of ln 32000, ms a step,
+           tokens/s and peak memory; a run to step 3 that writes a
+           checkpoint (params, m and v in f32) and a run resumed from it
+           to step 6 within rtol 1e-4 / atol 1e-5 of the uninterrupted
+           one, with the write and read seconds.
+
 The last three lines are the kernels' JSON record, the card line, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -367,6 +401,13 @@ SPMV_REPLACES = "src/repro/kernels/spmv/kernel.py:36"
 BFS_REPLACES = "src/repro/kernels/frontier/kernel.py:41"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:80"
 
+# the graph dry-run: every program planned on meta tensors at the
+# paper's largest graph and production part counts; then bfs/fast and
+# pagerank's two programs planned on meta copies of the resident urand22
+# arrays and run with the same static trip counts on the card
+DRYRUN_GRAPH = "urand28"
+DRYRUN_MEASURED = (("bfs", "fast"), ("pagerank", "bsp"), ("pagerank", "fast"))
+
 # LM serving at TinyLlama-1.1B's full width (all 22 layers)
 LLM_ARCH = "tinyllama-1.1b"
 LLM_BATCH, LLM_PROMPT, LLM_GEN = 8, 1024, 64
@@ -385,6 +426,29 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels_flash
 # the reference scores it within one bf16 ulp of its largest (logit_diff).
 LOGIT_MAX_TOL = 0.25
 LOGIT_MEAN_TOL = 0.03
+# the kernel's f32 log-sum-exp against ref.py's: f32 scores of the same
+# products in another order, base-2 exponentials and log of 2 ulp
+LSE_TOL = 1e-3
+# LM training at full width and depth: default_train_config (grad_accum
+# 1), batch 8 x 1024 tokens from TokenStream, 6 steps; a checkpoint of
+# step 3 resumed to step 6 within the reference test's tolerance
+# (tests/test_system.py: rtol 1e-4, atol 1e-5); the card's embedding and
+# gather backwards may sum in another order from run to run
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_AT = 8, 1024, 6, 3
+TRAIN_DIR = HERE / "build" / "ckpt_smoke"
+RESUME_RTOL, RESUME_ATOL = 1e-4, 1e-5
+# the kernel forward's step-0 loss and gradients against the plain
+# chunked forward's, on the card.  The two forwards round differently
+# (the kernel keeps its accumulator in f32, the plain one in bf16), so an
+# attention output may differ by a bf16 ulp (0.39%) a layer, and the
+# difference flows through 22 bf16 layers and their backward.  Gradient
+# leaves are compared in relative norm against the noise floor of that
+# computation, measured in the same run: the gap between two plain
+# attentions that differ only in rounding points (the chunked forward
+# and naive attention's materialized softmax).  The kernel's gap may be
+# at most TRAIN_GRAD_FACTOR times the floor's, leaf by leaf.
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_FACTOR = 2.0
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 dense tensor-core peak
 # (bh, s, d) sweep of tests/test_kernels_flash.py
 FLASH_SWEEP = ((2, 256, 128), (4, 512, 128), (1, 128, 256))
@@ -449,6 +513,18 @@ class Port:
         from repro_torch.serve import persist
         from repro_torch.launch import graph_serve
         from repro_torch.launch.serve import serve
+        from repro_torch.core import dryrun
+        from repro_torch.launch import steps as train_steps
+        from repro_torch.launch import train as trainer
+        from repro_torch.data import TokenStream
+        from repro_torch import tree
+        from repro_torch.models import layers as model_layers
+        self.dryrun = dryrun
+        self.train_steps = train_steps
+        self.trainer = trainer
+        self.TokenStream = TokenStream
+        self.tree = tree
+        self.model_layers = model_layers
         self.graph_server = graph_server
         self.persist = persist
         self.graph_serve = graph_serve
@@ -886,11 +962,13 @@ class Parent:
 
 
 def same_bits(torch, a, b) -> bool:
-    """Equal shapes and bit patterns (float32 compared as int32)."""
+    """Equal shapes and bit patterns (float32 compared as int32, bf16 as
+    int16)."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    if a.dtype == torch.float32:
-        a, b = (t.contiguous().view(torch.int32) for t in (a, b))
+    if a.dtype in (torch.float32, torch.bfloat16):
+        view = torch.int32 if a.dtype == torch.float32 else torch.int16
+        a, b = (t.contiguous().view(view) for t in (a, b))
     return torch.equal(a, b)
 
 
@@ -1494,6 +1572,8 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
     obs = run_obs(port, engines, main, chaos["cells"])
     # -- the graph query server and its launcher --------------------------
     served = run_serve(port, graph, engines)
+    # -- the graph dry-run: plans, and plans against card runs ------------
+    dry = run_dryrun(port, engines)
     # -- dynamic graphs and durability (writes the engines' mirrors) ------
     mutated = run_mutate(port, graph, engines, parity)
     return {"launches": main_launches, "parity_err": parity_err,
@@ -1503,7 +1583,8 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
             "async_launches": asy["launches"],
             "inc_launches": asy["inc_launches"],
             "chaos_launches": chaos["launches"], "obs_launches": obs,
-            "serve_launches": served, "mutate_launches": mutated}
+            "serve_launches": served, "dryrun_launches": dry,
+            "mutate_launches": mutated}
 
 def suite_fields(eng, prog, outs) -> dict:
     """Output name -> host value (vertex fields gathered to numpy)."""
@@ -3066,6 +3147,96 @@ def run_mutate(port: Port, graph: str, engines: dict, parity) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the graph dry-run: plans on meta tensors, and plans against card runs
+# ---------------------------------------------------------------------------
+
+def nbytes(b) -> str:
+    return "not measured" if b is None else f"{b:,} B"
+
+
+def run_dryrun(port: Port, engines: dict) -> dict:
+    """Plan all sixteen programs of DRYRUN_GRAPH at 256 and 512 parts on
+    meta tensors (each program's HBM a part and bottleneck printed by
+    the planner, under the v5e and the H100 constants).  Then at the
+    resident graph's parts counts, plan DRYRUN_MEASURED on meta copies
+    of its arrays and run the same static_iters builds on the card:
+    through the kernels (mode auto, launches counted) and on the ell
+    route the plan counts (the like-for-like temp comparison).  Planned
+    argument bytes must equal the resident arrays' exactly, and
+    pagerank's planned exchanges the ones its runs ship."""
+    torch, dr = port.torch, port.dryrun
+    t_phase = time.perf_counter()
+    for mesh in ("pod", "multipod"):
+        t0 = time.perf_counter()
+        recs = dr.lower_graph_programs(DRYRUN_GRAPH, mesh)
+        labels = [port.registry.program_label(a, v)
+                  for a, v in port.registry.available()]
+        check([r["program"] for r in recs] == labels and len(labels) == 16
+              and all(r["status"] == "ok" for r in recs),
+              f"dry-run {DRYRUN_GRAPH} x {mesh}: planned "
+              f"{[r['program'] for r in recs]}")
+        worst = max(recs, key=lambda r: r["arg_bytes_per_device"]
+                    + r["temp_bytes_per_device"])
+        log(f"[dryrun] {DRYRUN_GRAPH} x {mesh} ({recs[0]['devices']} "
+            f"parts): {len(recs)} programs planned in "
+            f"{time.perf_counter() - t0:.1f} s; bottlenecks v5e "
+            f"{sorted({r['bottleneck'] for r in recs})}, H100 "
+            f"{sorted({r['h100']['bottleneck'] for r in recs})}; most HBM "
+            f"a part {worst['program']}")
+    port.reset_launches()
+    kernel_of = {"bfs": "bfs_pull", "pagerank": "spmv_ell"}
+    cells = {}
+    for parts, (_, eng, garr) in engines.items():
+        for algo, variant in DRYRUN_MEASURED:
+            it = dr.STATIC_ITERS[algo]
+            params = dr.DRYRUN_PARAMS.get((algo, variant), {})
+            before = port.launches()
+            k = dr.measure_vs_plan(eng, garr, algo, variant, it, **params)
+            after = port.launches()
+            with port.localops.using("ell"):
+                e = dr.measure_vs_plan(eng, garr, algo, variant, it,
+                                       **params)
+            check(port.launches() == after, "the ell route launched")
+            name = kernel_of[algo]
+            launched = after[name] - before[name]
+            key = f"{algo}/{variant}/parts={parts}"
+            for r in (k, e):
+                check(r["planned_arg_bytes"] == r["resident_bytes"],
+                      f"dry-run {key}: planned argument bytes "
+                      f"{r['planned_arg_bytes']} != resident "
+                      f"{r['resident_bytes']}")
+                if algo == "pagerank":
+                    check(r["planned_wire"] == r["run_wire"],
+                          f"dry-run {key}: planned exchanges "
+                          f"{r['planned_wire']} != the run's "
+                          f"{r['run_wire']}")
+            check(launched > 0, f"dry-run {key}: {name} never launched")
+            cells[key] = c = {
+                "static_iters": it, "resident_bytes": k["resident_bytes"],
+                "planned_temp_bytes": k["planned_temp_bytes"],
+                "measured_peak_kernels": k["measured_peak_bytes"],
+                "measured_peak_ell": e["measured_peak_bytes"],
+                "planned_wire": k["planned_wire"],
+                "run_wire": k["run_wire"], "plan_s": k["plan_s"],
+                "launches": launched}
+            log(f"[dryrun] parts={parts} {algo}/{variant} static_iters={it}"
+                f": args planned = resident = {k['resident_bytes']:,} B; "
+                f"temp planned {k['planned_temp_bytes']:,} B (ell route) "
+                f"vs measured peak {nbytes(e['measured_peak_bytes'])} (ell)"
+                f" / {nbytes(k['measured_peak_bytes'])} (kernels); wire "
+                f"planned "
+                f"{k['planned_wire']} run {k['run_wire']}; {name} "
+                f"{launched} launches; plan {k['plan_s']:.2f} s")
+    launches = port.launches()
+    secs = time.perf_counter() - t_phase
+    log("[dryrun] " + json.dumps({"cells": cells, "launches": launches},
+                                 default=str))
+    log(f"[dryrun done] {secs:.1f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # LM serving: flash_attention_fwd
 # ---------------------------------------------------------------------------
 
@@ -3115,6 +3286,7 @@ class FlashParity:
     def __init__(self, port: Port, device):
         self.port, self.device = port, device
         self.err = {"float32": 0.0, "bfloat16": 0.0}
+        self.lse_err = 0.0
         self.cases = 0
 
     def randn(self, shape, dtype, gen):
@@ -3133,6 +3305,21 @@ class FlashParity:
         self.err[dtype] = max(self.err[dtype],
                               float((got.float() - want.float()).abs().max()))
         self.cases += 1
+
+    def lse(self, q, k, v, what, **kw):
+        """``return_lse=True``: o with the bits of the call without it,
+        and the lse within LSE_TOL of ref.py's."""
+        torch, port = self.port.torch, self.port
+        o = port.flash(q, k, v, **kw)
+        o2, lse = port.flash(q, k, v, return_lse=True, **kw)
+        _, want = port.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        _sync(torch, self.device)
+        check(same_bits(torch, o, o2), f"flash {what}: o with lse differs "
+              f"from o without it")
+        torch.testing.assert_close(lse, want, atol=LSE_TOL, rtol=LSE_TOL,
+                                   msg=lambda m: f"flash lse {what}: {m}")
+        self.lse_err = max(self.lse_err,
+                           float((lse - want).abs().max()))
 
     def run(self, prefill_shape):
         port, torch = self.port, self.port.torch
@@ -3153,6 +3340,7 @@ class FlashParity:
                 self.one(port.flash(q, k, v, **kw),
                          port.flash_attention_ref(q, k, v, **kw), dtype,
                          f"{qs}x{ks} {kw}")
+                self.lse(q, k, v, f"{qs}x{ks} {kw} {dtype}", **kw)
             # danube3's head dim 120 through ops, (B, S, H, D)
             q, k, v = (self.randn((2, 128, 4, 120), dtype, gen)
                        for _ in range(3))
@@ -3166,6 +3354,7 @@ class FlashParity:
         self.one(port.flash(q, k, v, causal=True),
                  port.flash_attention_ref(q, k, v, causal=True), "bfloat16",
                  f"prefill shape {prefill_shape}")
+        self.lse(q, k, v, f"prefill shape {prefill_shape}", causal=True)
         return q, k, v
 
 
@@ -3243,7 +3432,8 @@ def run_llm(port: Port, device, arch: str = LLM_ARCH, batch: int = LLM_BATCH,
     parity = FlashParity(port, device)
     fq, fk, fv = parity.run(prefill_shape)
     log(f"[llm-parity] flash_attention_fwd: {parity.cases} cases ok, "
-        f"max_abs_err {parity.err}")
+        f"max_abs_err {parity.err}; with return_lse o bit-identical, lse "
+        f"max_abs_err {parity.lse_err:.3e}")
 
     # -- llm-main -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3361,7 +3551,179 @@ def run_llm(port: Port, device, arch: str = LLM_ARCH, batch: int = LLM_BATCH,
             "parity_err": max(parity.err.values()), "flash": flash}
 
 
-def kernels_record(result: dict, llm: dict) -> dict:
+# ---------------------------------------------------------------------------
+# LM training: flash_attention_fwd under autograd, AdamW, checkpoints
+# ---------------------------------------------------------------------------
+
+def grad_gaps(torch, tree, got, want) -> list:
+    """Relative norm difference of each gradient leaf, in leaf order."""
+    return [float((a.float() - b.float()).norm() / b.float().norm()
+                  .clamp(min=1e-30))
+            for a, b in zip(tree.leaves(got), tree.leaves(want))]
+
+
+def run_train(port: Port, device, arch: str = LLM_ARCH,
+              batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+              steps: int = TRAIN_STEPS, ckpt_at: int = TRAIN_CKPT_AT,
+              ckpt_dir=TRAIN_DIR) -> dict:
+    """The training phase (see the module docstring): the lse at the
+    training shape, the kernel forward's step 0 against the plain
+    forward's, then ``launch/train.py::train`` for ``steps`` steps from
+    seeded weights (the main path, flash launches counted), a run to
+    ``ckpt_at`` that writes a checkpoint, and a resumed run to ``steps``
+    held against the uninterrupted one."""
+    import shutil
+    torch, st, tr, tree = port.torch, port.train_steps, port.trainer, \
+        port.tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    cfg = port.arch_registry.get_arch(arch)
+    tc0 = st.default_train_config(cfg)
+    check(tc0.grad_accum == 1, f"default_train_config: {tc0}")
+
+    # -- the lse at the training shape, timed with and without it ------------
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    shape = (batch * cfg.num_heads, seq, cfg.head_dim)
+    q, k, v = (torch.randn(shape, generator=gen, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    parity = FlashParity(port, device)
+    parity.lse(q, k, v, f"training shape {shape}", causal=True)
+    lse_ms = kernel_ms(torch, device, lambda: port.flash(
+        q, k, v, causal=True, return_lse=True))
+    o_ms = kernel_ms(torch, device, lambda: port.flash(q, k, v, causal=True))
+    log(f"[train] flash {shape} bf16 causal: lse max_abs_err "
+        f"{parity.lse_err:.3e}, o bit-identical with and without lse; "
+        f"{lse_ms:.4f} ms with lse, {o_ms:.4f} ms without")
+
+    # -- the plain backward at one layer's shape ------------------------------
+    L = port.model_layers
+    q4, k4, v4 = (t.reshape(batch, cfg.num_heads, seq, cfg.head_dim)
+                  .transpose(1, 2) for t in (q, k, v))
+    o4, lse4 = L._flash_fwd_impl(q4, k4, v4, causal=True, window=0,
+                                 softcap=0.0)
+    do4 = torch.randn(o4.shape, generator=gen, device=device) \
+        .to(torch.bfloat16)
+    bwd_ms = median_ms(torch, device, lambda: L._flash_bwd_impl(
+        q4, k4, v4, o4, lse4, do4, causal=True, window=0, softcap=0.0))
+    fwd_plain_ms = median_ms(torch, device, lambda: L._flash_fwd_impl(
+        q4, k4, v4, causal=True, window=0, softcap=0.0))
+    log(f"[train] plain flash backward {tuple(q4.shape)}: {bwd_ms:.2f} ms "
+        f"a layer (plain forward {fwd_plain_ms:.2f} ms, kernel "
+        f"{lse_ms:.4f} ms)")
+    del q, k, v, q4, k4, v4, o4, lse4, do4
+
+    # -- step 0: the kernel forward against the plain forward ----------------
+    params, _ = tr.build_state(cfg, tc0, device)
+    b0 = port.TokenStream(global_batch=batch, seq_len=seq,
+                          vocab_size=cfg.vocab_size, seed=tc0.seed).next()
+    lk, _, gk = st.value_and_grad(cfg, params, b0)
+    lp, _, gp = st.value_and_grad(cfg, params, b0, impl="plain")
+    gaps = grad_gaps(torch, tree, gk, gp)
+    del gk
+    ln, _, gn = st.value_and_grad(cfg, params, b0, impl="naive")
+    floor = grad_gaps(torch, tree, gn, gp)
+    del gn, gp
+    loss_gap = abs(float(lk) - float(lp))
+    log(f"[train] step 0, kernel vs plain forward: loss {float(lk):.6f} vs "
+        f"{float(lp):.6f} (gap {loss_gap:.3e}; naive {float(ln):.6f}); "
+        f"gradient leaves' relative norm gaps {[round(x, 5) for x in gaps]}"
+        f", naive vs plain (the floor) {[round(x, 5) for x in floor]}")
+    check(loss_gap <= TRAIN_LOSS_TOL, f"step-0 loss gap {loss_gap}")
+    check(all(a <= TRAIN_GRAD_FACTOR * b for a, b in zip(gaps, floor)),
+          f"gradient gaps {gaps} beyond {TRAIN_GRAD_FACTOR} x the floor "
+          f"{floor}")
+    del params
+
+    # -- the main path: train() from seeded weights ---------------------------
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run_kw = dict(batch=batch, seq=seq, device=device, log_every=1)
+    port.reset_launches()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    hist = []
+    t0 = time.perf_counter()
+    p_full, _, _ = tr.train(cfg, dataclasses.replace(
+        tc0, checkpoint_dir=str(ckpt_dir / "full"), checkpoint_every=0),
+        steps=steps, resume=False, history=hist, **run_kw)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    main_launches = port.launches()
+    recs = [h for h in hist if "step" in h]
+    losses = [h["loss"] for h in recs]
+    norms = [h["grad_norm"] for h in recs]
+    step_ms = [h["s"] * 1e3 for h in recs]
+    check(len(recs) == steps and all(np.isfinite(losses + norms)),
+          f"train: losses {losses}, grad norms {norms}")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) < 0.5,
+          f"step-0 loss {losses[0]} vs ln {cfg.vocab_size}")
+    per_step = 2 * cfg.num_layers     # the forward and its remat recompute
+    check(main_launches["flash_attention_fwd"] == steps * per_step
+          and main_launches["flash_attention_fwd_tc"] == steps * per_step,
+          f"train launched flash {main_launches}, want {steps * per_step} "
+          f"(a forward and a recompute a layer a step)")
+    tokens_s = batch * seq / (statistics.median(step_ms) / 1e3)
+    log(f"[train] {arch} batch={batch} seq={seq}: {steps} steps in "
+        f"{wall:.1f} s; losses {[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 3) for x in norms]}; ms a step {[round(x, 1) for x in step_ms]}"
+        f" (median {statistics.median(step_ms):.1f}), {tokens_s:.0f} tokens/s;"
+        f" peak {nbytes(peak)}; flash launches {main_launches}")
+
+    # -- checkpoint at ckpt_at, resume to steps -----------------------------
+    tc_b = dataclasses.replace(tc0, checkpoint_dir=str(ckpt_dir / "resume"),
+                               checkpoint_every=ckpt_at)
+    hist_b, hist_c = [], []
+    tr.train(cfg, tc_b, steps=ckpt_at, resume=False, history=hist_b,
+             **run_kw)
+    p_res, _, _ = tr.train(cfg, dataclasses.replace(tc_b,
+                                                    checkpoint_every=0),
+                           steps=steps, resume=True, history=hist_c,
+                           **run_kw)
+    _sync(torch, device)
+    launches = port.launches()
+    writes = [h["write_s"] for h in hist_b if "write_s" in h]
+    reads = [h["read_s"] for h in hist_c if "read_s" in h]
+    check(len(writes) == 1 and len(reads) == 1
+          and hist_c[0]["restored"] == ckpt_at,
+          f"checkpoint writes {hist_b}, reads {hist_c}")
+    ckpt_bytes = sum(f.stat().st_size for f in (
+        ckpt_dir / "resume").rglob("*.npy"))
+    check(launches["flash_attention_fwd"] == 2 * steps * per_step,
+          f"train runs launched flash {launches}")
+    bits = sum(int(torch.equal(a, b)) for a, b in
+               zip(tree.leaves(p_res), tree.leaves(p_full)))
+    for i, (a, b) in enumerate(zip(tree.leaves(p_res),
+                                   tree.leaves(p_full))):
+        torch.testing.assert_close(
+            a, b, rtol=RESUME_RTOL, atol=RESUME_ATOL,
+            msg=lambda m, i=i: f"resumed leaf {i} vs uninterrupted: {m}")
+    log(f"[train] checkpoint of step {ckpt_at}: {ckpt_bytes / 1e9:.2f} GB "
+        f"written in {writes[0]:.1f} s, read in {reads[0]:.1f} s; resumed "
+        f"to step {steps}: within rtol {RESUME_RTOL} / atol {RESUME_ATOL} "
+        f"of the uninterrupted run, {bits} of {len(tree.leaves(p_full))} "
+        f"leaves bit-identical")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del p_full, p_res
+    secs = time.perf_counter() - t_phase
+    out = {"arch": arch, "batch": batch, "seq": seq, "steps": steps,
+           "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "tokens_per_s": tokens_s, "peak_bytes": peak,
+           "ckpt_bytes": ckpt_bytes, "ckpt_write_s": writes[0],
+           "ckpt_read_s": reads[0], "resume_bit_leaves": bits,
+           "loss_gap_plain": loss_gap, "grad_gaps_plain": gaps,
+           "grad_gaps_floor": floor,
+           "lse_ms": lse_ms, "flash_ms": o_ms, "lse_err": parity.lse_err,
+           "plain_bwd_ms": bwd_ms, "plain_fwd_ms": fwd_plain_ms,
+           "launches": launches["flash_attention_fwd"], "secs": secs}
+    log("[train] " + json.dumps(out))
+    log(f"[train done] {secs:.1f} s")
+    return out
+
+
+def kernels_record(result: dict, llm: dict, trained: dict) -> dict:
     """The contract record of each kernel: spmv_ell at pagerank/bsp's
     ell_in buckets and bfs_pull at bfs/fast's, at the largest parts
     count; flash_attention_fwd at one TinyLlama prefill layer.  A graph
@@ -3377,6 +3739,7 @@ def kernels_record(result: dict, llm: dict) -> dict:
              "chaos": result["chaos_launches"],
              "obs": result["obs_launches"],
              "serve": result["serve_launches"],
+             "dryrun": result["dryrun_launches"],
              "mutate": result["mutate_launches"]}
     rows = []
     for name, src, replaces, cell_key, design in (
@@ -3397,15 +3760,20 @@ def kernels_record(result: dict, llm: dict) -> dict:
                      "library_ms": cell["library_ms"],
                      "gathers_per_s": cell["gathers"] / cell["ms"] * 1e3})
     cell = llm["flash"]
+    flash_paths = {"llm-main": llm["launches"], "train": trained["launches"]}
     rows.append({"name": "flash_attention_fwd", "route": "cuda",
                  "design": "wgmma (bf16 tensor cores, TMA k/v ring)",
                  "source": "src/repro_torch/kernels/flash_attention/csrc/"
                            "flash_attention_fwd.cu",
-                 "replaces": FLASH_REPLACES, "launches": llm["launches"],
+                 "replaces": FLASH_REPLACES,
+                 "launches": sum(flash_paths.values()),
+                 "launches_by_path": flash_paths,
                  "max_abs_err": llm["parity_err"], "ms": cell["ms"],
                  "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"],
                  "bound_by": cell["bound_by"],
-                 "library_ms": cell["library_ms"]})
+                 "library_ms": cell["library_ms"],
+                 "lse_ms": trained["lse_ms"],
+                 "lse_max_abs_err": trained["lse_err"]})
     return {"kernels": rows}
 
 
@@ -3428,8 +3796,10 @@ def main() -> int:
     log(f"[graph done] {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     llm = run_llm(Port(), "cuda")
+    torch.cuda.empty_cache()
+    trained = run_train(Port(), "cuda")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(kernels_record(result, llm)))
+    print(json.dumps(kernels_record(result, llm, trained)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,7 @@ from repro_torch.configs.base import (
     LM_SHAPES,
     ModelConfig,
     ShapeConfig,
+    TrainConfig,
     shapes_for,
 )
 
@@ -11,5 +12,6 @@ __all__ = [
     "LM_SHAPES",
     "ModelConfig",
     "ShapeConfig",
+    "TrainConfig",
     "shapes_for",
 ]

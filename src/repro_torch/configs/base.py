@@ -2,8 +2,7 @@
 
 Every architecture is a ``ModelConfig``, complete enough to derive
 parameter counts without instantiating weights.  A copy of the JAX
-package's ``configs/base.py`` (the training dataclass waits for the
-training slice).
+package's ``configs/base.py``.
 """
 
 from __future__ import annotations
@@ -213,3 +212,26 @@ class GraphConfig:
     @property
     def num_edges(self) -> int:
         return self.num_vertices * self.avg_degree
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop hyperparameters (optimizer, schedule, fault
+    tolerance).  Checkpoints default to ``build/ckpt`` under the working
+    directory."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    seed: int = 0
+    remat: bool = True
+    grad_accum: int = 1              # microbatches per step (activation memory / N)
+    grad_compression: str = "none"   # none | int8_ef
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "build/ckpt"
+    keep_checkpoints: int = 3

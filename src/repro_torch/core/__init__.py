@@ -12,7 +12,8 @@ recovery."""
 from repro_torch.core import incremental, localops, registry
 from repro_torch.core.api import CompiledProgram, GraphEngine
 from repro_torch.core.faults import FaultEvent, FaultSchedule
-from repro_torch.core.graph import EllMeta, GraphShards, partition_graph
+from repro_torch.core.graph import EllMeta, GraphShards, abstract_graph, \
+    partition_graph
 from repro_torch.core.partitioned import StackedComm
 from repro_torch.core.recovery import Checkpoint, CheckpointRunner, \
     RecoveryError, RunReport

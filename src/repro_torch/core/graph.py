@@ -329,6 +329,26 @@ class GraphShards:
             (m.name, m.n_rows, m.buckets, m.slots, m.sentinel)
             for m in self.ell_meta.values()))
 
+    def abstract_arrays(self, layout: str = "ell") -> dict:
+        """The tensors :meth:`device_arrays` would ship, as
+        ``device="meta"`` tensors of the same shapes and dtypes (the
+        dry-run plans on them; nothing is allocated)."""
+        if layout not in ("ell", "coo"):
+            raise ValueError(f"layout {layout!r} not in ('ell', 'coo')")
+        P, E, NL = self.parts, self.e_max, self.n_local
+
+        def meta(*shape):
+            return torch.empty(shape, dtype=torch.int32, device="meta")
+
+        arrs = {"out_src_local": meta(P, E), "out_dst_global": meta(P, E),
+                "in_src_global": meta(P, E), "in_dst_local": meta(P, E),
+                "out_degree": meta(P, NL), "in_degree": meta(P, NL)}
+        if layout == "ell":
+            for key, m, suf in self._ell_device_keys():
+                arrs[key] = meta(P, max(m.slots, 1)) if suf == "idx" \
+                    else meta(P, m.n_rows)
+        return arrs
+
     def device_arrays(self, layout: str = "ell", device="cuda") -> dict:
         """``(P, ...)`` int32 tensors on ``device``.  ``layout="coo"``
         omits the ELL arrays: local ops then take the COO scatter
@@ -439,4 +459,55 @@ def partition_graph(edges: np.ndarray, n_orig: int, parts: int,
     )
     if build_ell_layout:
         _build_graph_ells(g)
+    return g
+
+
+def _abstract_ell(name: str, n_rows: int, k: int, nz_rows: int,
+                  sentinel: int, suffixes=("idx", "inv")) -> EllMeta:
+    """Shape-only EllMeta modelling a degree-bucketed layout: ``nz_rows``
+    rows of width ``k`` plus an edgeless tail (the dominant shape of a
+    near-uniform degree distribution after bucketing)."""
+    nz = min(n_rows, ((nz_rows + ELL_BLOCK - 1) // ELL_BLOCK) * ELL_BLOCK)
+    k = int(_round_lane(np.asarray(max(k, 1))))
+    buckets = [(nz, k)]
+    if n_rows > nz:
+        buckets.append((n_rows - nz, 0))
+    return EllMeta(name=name, n_rows=n_rows, buckets=tuple(buckets),
+                   slots=nz * k, sentinel=sentinel,
+                   device_suffixes=tuple(suffixes))
+
+
+def abstract_graph(n_orig: int, avg_degree: int, parts: int) -> GraphShards:
+    """Shape-only GraphShards for the dry-run (no edges materialized).
+
+    e_max models the expected max partition load of an ER graph (about
+    uniform, +12% headroom), rounded to 128.  The ELL metas model the
+    bucketed layout of the same graph: local rows carry about 1.5x the
+    mean degree after block-max padding; the global-row structures
+    (ell_dst/ell_src) have about min(E/P, n) populated rows of
+    near-minimal width.  The fields and metas are the JAX package's;
+    :meth:`GraphShards.abstract_arrays` gives the tensors.
+    """
+    block = parts * 128
+    n = ((n_orig + block - 1) // block) * block
+    n_local = n // parts
+    e_total = n_orig * avg_degree
+    e_max = int(e_total / parts * 1.12)
+    e_max = ((e_max + 127) // 128) * 128
+    z = np.zeros((1,), np.int32)  # placeholders; only shapes are used
+    g = GraphShards(
+        n=n, n_orig=n_orig, parts=parts, n_local=n_local, e_max=e_max,
+        out_src_local=z, out_dst_global=z, in_src_global=z, in_dst_local=z,
+        out_degree=z, in_degree=z)
+    k_local = int(avg_degree * 1.5)
+    k_global = max(ELL_LANE, int(avg_degree / parts * 2))
+    nz_global = min(n, e_max)
+    for meta in (
+        _abstract_ell("ell_in", n_local, k_local, n_local, n,
+                      suffixes=("idx", "inv", "perm")),
+        _abstract_ell("ell_out", n_local, k_local, n_local, e_max),
+        _abstract_ell("ell_dst", n, k_global, nz_global, e_max),
+        _abstract_ell("ell_src", n, k_global, nz_global, e_max),
+    ):
+        g.ell_meta[meta.name] = meta
     return g

@@ -26,7 +26,6 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
-import numpy as np
 
 from repro_torch.core import betweenness as _bc
 from repro_torch.core import bfs as _bfs
@@ -36,7 +35,7 @@ from repro_torch.core import kcore as _kcore
 from repro_torch.core import pagerank as _pr
 from repro_torch.core import sssp as _sssp
 from repro_torch.core import triangles as _tri
-from repro_torch.core.graph import GraphShards, partition_graph
+from repro_torch.core.graph import GraphShards, abstract_graph
 from repro_torch.core.partitioned import StackedComm
 from repro_torch.core.superstep import AsyncSuperstepProgram, \
     PhasedProgram, SuperstepProgram
@@ -425,12 +424,10 @@ register(ProgramSpec(
 # ---------------------------------------------------------------------------
 
 def _table_graph() -> GraphShards:
-    """A 256-vertex ring on one part: the programs a table reads are
-    built against its shapes (the JAX package builds them on an abstract
-    graph of the same size)."""
-    ring = np.arange(256, dtype=np.int32)
-    return partition_graph(np.stack([ring, (ring + 1) % 256], axis=1), 256,
-                           1)
+    """The shape-only graph the table's programs are built against: the
+    JAX package's ``abstract_graph(256, 8, 1)`` (a build reads shapes and
+    metas, never edges)."""
+    return abstract_graph(256, 8, 1)
 
 
 def guards_markdown_table() -> str:

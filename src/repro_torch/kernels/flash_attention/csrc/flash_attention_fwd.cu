@@ -70,6 +70,14 @@
 // register of an in-flight wgmma written meanwhile (so the softmax writes
 // p, not the score accumulator, and rounds p to bf16 only after P V of
 // the tile before has completed).
+// Optionally (lse != nullptr) both designs also write each row's f32
+// log-sum-exp m + log(max(l, 1e-30)) in natural-log units, (BH, Sq): the
+// residual the reference's custom VJP keeps for its backward.  It is
+// written after o is, from the values o was divided by, so o has the same
+// bits with or without it.  The bf16 design keeps m in log2 units and
+// each row's l split over the four threads of a quad; after the quad's
+// sum, the thread of lane % 4 == 0 writes lse = (m + lg2 l) ln 2 once a
+// row.
 // Left for later: ping-pong between the two consumers, a persistent grid
 // that overlaps one tile's epilogue with the next tile's loads, and
 // reading grouped kv heads in place.
@@ -96,6 +104,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
@@ -122,8 +131,8 @@ template <int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int sq, int sk, int d, float scale, int causal,
-                     int window, float softcap) {
+                     float* __restrict__ lse, int sq, int sk, int d,
+                     float scale, int causal, int window, float softcap) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* qs = smem;                        // kTile x ld
@@ -258,12 +267,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (e < d) orow[e] = acc[i][j] / den;
     }
   }
+  if (lse != nullptr && spart == 0 && q0 + srow < sq)
+    lse[(long long)bh * sq + q0 + srow] = m_run + logf(fmaxf(l_run, 1e-30f));
 }
 
 template <int NJ>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int bh, int sq, int sk, int d, float scale, int causal,
-                       int window, float softcap, cudaStream_t stream) {
+                       float* lse, int bh, int sq, int sk, int d, float scale,
+                       int causal, int window, float softcap,
+                       cudaStream_t stream) {
   const int ld = d + 1;
   const int smem = static_cast<int>(
       sizeof(float) * (3 * kTile * ld + kTile * (kTile + 1) + 2 * kTile));
@@ -274,23 +286,23 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   dim3 grid(bh, (sq + kTile - 1) / kTile);
   flash_fwd_f32_kernel<NJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, d, scale,
-      causal, window, softcap);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk, d,
+      scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
-                         void* o, int bh, int sq, int sk, int d, float scale,
-                         int causal, int window, float softcap,
+                         void* o, float* lse, int bh, int sq, int sk, int d,
+                         float scale, int causal, int window, float softcap,
                          cudaStream_t stream) {
   if (d <= 64)
-    return launch_f32<4>(q, k, v, o, bh, sq, sk, d, scale, causal, window,
-                         softcap, stream);
+    return launch_f32<4>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                         window, softcap, stream);
   if (d <= 128)
-    return launch_f32<8>(q, k, v, o, bh, sq, sk, d, scale, causal, window,
-                         softcap, stream);
-  return launch_f32<16>(q, k, v, o, bh, sq, sk, d, scale, causal, window,
-                        softcap, stream);
+    return launch_f32<8>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                         window, softcap, stream);
+  return launch_f32<16>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                        window, softcap, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -399,6 +411,12 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -659,9 +677,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
-                    const __grid_constant__ CUtensorMap to, int sq, int sk,
-                    int d, float scale, int causal, int window,
-                    float softcap, float inv_softcap) {
+                    const __grid_constant__ CUtensorMap to,
+                    float* __restrict__ lse, int sq, int sk, int d,
+                    float scale, int causal, int window, float softcap,
+                    float inv_softcap) {
   using L = TcLayout<Dp, Bk>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -899,6 +918,19 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
     }
+    // each row's lse from the quad's first thread, after o
+    if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qr = r_lo + row + 8 * h;
+        // a row that saw no key in its window kept m = -1e30 (a mask
+        // value of log2 units here, of natural-log units in the
+        // reference): its lse is -1e30 + log l, that is -1e30, as there
+        if (qr < sq)
+          lse[(long long)bh * sq + qr] =
+              m[h] <= kNegInf ? kNegInf : (m[h] + lg2(l[h])) * kLn2;
+      }
+    }
   }
 }
 
@@ -941,8 +973,9 @@ bool encode_bhsd(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 
 template <int Dp, int Bk>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int bh, int sq, int sk, int d, float scale, int causal,
-                      int window, float softcap, cudaStream_t stream) {
+                      float* lse, int bh, int sq, int sk, int d, float scale,
+                      int causal, int window, float softcap,
+                      cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
   const uintptr_t addr_bits = reinterpret_cast<uintptr_t>(q) |
@@ -963,34 +996,36 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (sq + kQRows - 1) / kQRows);
   flash_fwd_tc_kernel<Dp, Bk><<<grid, kTcThreads, smem, stream>>>(
-      tq, tk, tv, to, sq, sk, d, scale, causal, window, softcap,
+      tq, tk, tv, to, lse, sq, sk, d, scale, causal, window, softcap,
       softcap > 0.f ? 1.f / softcap : 0.f);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
-                          void* o, int bh, int sq, int sk, int d, float scale,
-                          int causal, int window, float softcap,
+                          void* o, float* lse, int bh, int sq, int sk, int d,
+                          float scale, int causal, int window, float softcap,
                           cudaStream_t stream) {
   if (d <= 64)
-    return launch_tc<64, 128>(q, k, v, o, bh, sq, sk, d, scale, causal,
+    return launch_tc<64, 128>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
                               window, softcap, stream);
   if (d <= 128)
-    return launch_tc<128, 64>(q, k, v, o, bh, sq, sk, d, scale, causal,
+    return launch_tc<128, 64>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
                               window, softcap, stream);
-  return launch_tc<256, 32>(q, k, v, o, bh, sq, sk, d, scale, causal, window,
-                            softcap, stream);
+  return launch_tc<256, 32>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                            window, softcap, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
-// d: a multiple of 8 up to 256.
+// d: a multiple of 8 up to 256.  lse: null, or (bh, sq) f32 to write each
+// row's log-sum-exp into.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
-                                          const void* v, void* o, int bh,
-                                          int sq, int sk, int d, int dtype,
-                                          float scale, int causal, int window,
-                                          float softcap, void* stream) {
+                                          const void* v, void* o, void* lse,
+                                          int bh, int sq, int sk, int d,
+                                          int dtype, float scale, int causal,
+                                          int window, float softcap,
+                                          void* stream) {
   if (d <= 0 || d > 256 || d % 8 != 0 || bh <= 0 || sq <= 0 || sk <= 0 ||
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -998,10 +1033,10 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dtype == 0
-          ? dispatch_f32(q, k, v, o, bh, sq, sk, d, scale, causal, window,
-                         softcap, s)
-          : dispatch_bf16(q, k, v, o, bh, sq, sk, d, scale, causal, window,
-                          softcap, s);
+          ? dispatch_f32(q, k, v, o, static_cast<float*>(lse), bh, sq, sk, d,
+                         scale, causal, window, softcap, s)
+          : dispatch_bf16(q, k, v, o, static_cast<float*>(lse), bh, sq, sk, d,
+                          scale, causal, window, softcap, s);
   return static_cast<int>(err);
 }
 

@@ -17,7 +17,9 @@ cores (wgmma, TMA, warp-specialised), f32 on the CUDA cores.
 It takes f32 or bf16, any head dim D that is a multiple of 8 up to 256
 (the scale is the true ``1/sqrt(D)``), and any Sq, Sk.  For CPU tensors
 the wrapper runs the plain version (``ref.py``); for CUDA tensors it
-launches the kernel or raises.  ``flash_attention_fwd.launches`` counts
+launches the kernel or raises.  ``return_lse=True`` also returns each
+row's f32 log-sum-exp ``(BH, Sq)``, the residual of the training
+backward (``models/layers.py``); ``o`` has the same bits either way.  ``flash_attention_fwd.launches`` counts
 kernel launches, ``flash_attention_fwd.launches_tc`` those of them that
 ran the bf16 tensor-core design.
 """
@@ -43,6 +45,7 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_fwd_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,       # q, k
             ctypes.c_void_p, ctypes.c_void_p,       # v, o
+            ctypes.c_void_p,                        # lse (or null)
             ctypes.c_int, ctypes.c_int,             # bh, sq
             ctypes.c_int, ctypes.c_int,             # sk, d
             ctypes.c_int, ctypes.c_float,           # dtype, scale
@@ -80,13 +83,14 @@ def _check(q, k, v):
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0) -> torch.Tensor:
+                        softcap: float = 0.0, return_lse: bool = False):
     """q (BH, Sq, D), k/v (BH, Sk, D), contiguous, f32 or bf16.
-    Returns (BH, Sq, D) in q's dtype."""
+    Returns (BH, Sq, D) in q's dtype, and with ``return_lse`` the
+    (BH, Sq) f32 log-sum-exp beside it."""
     _check(q, k, v)
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+                                   softcap=softcap, return_lse=return_lse)
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                          for t in (q, k, v)):
         raise ValueError("bf16 q, k, v must start on 16-byte boundaries "
@@ -94,16 +98,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _library()
     bh, sq, d = q.shape
     o = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     code = lib.flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        bh, sq, k.shape[1], d, _DTYPES[q.dtype], d ** -0.5,
-        int(bool(causal)), int(window), float(softcap or 0.0),
+        None if lse is None else lse.data_ptr(), bh, sq, k.shape[1], d,
+        _DTYPES[q.dtype], d ** -0.5, int(bool(causal)), int(window),
+        float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attention_fwd", code)
     flash_attention_fwd.launches += 1
     if q.dtype == torch.bfloat16:
         flash_attention_fwd.launches_tc += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention_fwd.launches = 0

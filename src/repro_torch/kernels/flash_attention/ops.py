@@ -20,12 +20,18 @@ def _to_bh(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
 
-def flash_attention_kernel(q, k, v, *, causal=True, window=0, softcap=0.0):
+def flash_attention_kernel(q, k, v, *, causal=True, window=0, softcap=0.0,
+                           return_lse=False):
     """q/k/v (B, S, H, D), kv heads pre-repeated -> (B, Sq, H, D) through
-    the kernel wrapper (its plain version for CPU tensors)."""
+    the kernel wrapper (its plain version for CPU tensors); with
+    ``return_lse`` also the f32 log-sum-exp as (B, H, Sq)."""
     b, sq, h, d = q.shape
     o = flash_attention_fwd(_to_bh(q), _to_bh(k), _to_bh(v), causal=causal,
-                            window=window, softcap=softcap)
+                            window=window, softcap=softcap,
+                            return_lse=return_lse)
+    if return_lse:
+        o, lse = o
+        return o.reshape(b, h, sq, d).transpose(1, 2), lse.reshape(b, h, sq)
     return o.reshape(b, h, sq, d).transpose(1, 2)
 
 

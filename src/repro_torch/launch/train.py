@@ -1,0 +1,170 @@
+"""Training driver: the end-to-end loop with checkpoint/restart, the
+straggler watchdog and a simulated failure with its remesh plan.
+
+Runs real steps on one device: the card unless ``--device cpu``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
+      --smoke --steps 200 --batch 8 --seq 128 --device cpu
+
+  # fault-tolerance demo: drop the state at step 60, restore the last
+  # checkpoint and replay to it
+  ... --simulate-failure 60
+
+On one card there is no mesh, so no activation-sharding policy: the
+reference takes none either when its model axis is 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import checkpoint as ckpt
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import get_arch, smoke_config
+from repro_torch.data import TokenStream
+from repro_torch.distributed.fault_tolerance import StepWatchdog, plan_remesh
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import init_params, param_spec
+from repro_torch.optim import init_opt_state
+from repro_torch.tree import tree_map
+
+
+def _device(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "train runs on CUDA and no CUDA device is available; pass "
+            "device='cpu' (--device cpu) to run on the CPU")
+    return torch.device("cuda")
+
+
+def build_state(cfg, tc: TrainConfig, device):
+    """Parameters drawn from a ``torch.Generator`` seeded ``tc.seed`` on
+    ``device``, and a fresh optimizer state."""
+    gen = torch.Generator(device=device).manual_seed(tc.seed)
+    params = init_params(param_spec(cfg), gen, device)
+    return params, init_opt_state(params)
+
+
+def _restore(tc: TrainConfig, step: int, params, opt):
+    params = ckpt.restore(tc.checkpoint_dir, step, params)
+    opt = ckpt.restore(f"{tc.checkpoint_dir}/opt", step, opt)
+    return params, opt
+
+
+def train(cfg, tc: TrainConfig, *, batch: int, seq: int, steps: int,
+          device=None, simulate_failure: int = -1, log_every: int = 10,
+          resume: bool = True, impl: str = "chunked",
+          history: list | None = None):
+    """Train ``steps`` steps (from the last checkpoint when ``resume``).
+    Returns ``(params, opt_state, losses)``, ``losses`` the logged
+    ``(step, loss)`` pairs.  A ``history`` list receives a record of
+    every step (``step``, ``loss``, ``grad_norm``, ``lr`` and its wall
+    ``s`` up to those host reads), of every checkpoint written
+    (``write_s``) and of a restore (``read_s``)."""
+    device = _device(device)
+    params, opt = build_state(cfg, tc, device)
+    stream = TokenStream(global_batch=batch, seq_len=seq,
+                         vocab_size=cfg.vocab_size, seed=tc.seed)
+
+    start = 0
+    if resume:
+        last = ckpt.latest_step(tc.checkpoint_dir)
+        if last is not None:
+            t0 = time.perf_counter()
+            params, opt = _restore(tc, last, params, opt)
+            if history is not None:
+                history.append({"restored": last,
+                                "read_s": time.perf_counter() - t0})
+            stream.restore(last)
+            start = last
+            print(f"[train] resumed from step {last}")
+
+    step_fn = make_train_step(cfg, tc, impl=impl)
+    watchdog = StepWatchdog()
+    losses = []
+    for step in range(start, steps):
+        if step == simulate_failure:
+            print(f"[train] SIMULATED FAILURE at step {step}: "
+                  "dropping state, planning remesh, restoring checkpoint")
+            plan = plan_remesh(256, 256)
+            print(f"[train] remesh plan: {plan.mesh_shape} ({plan.note})")
+            last = ckpt.latest_step(tc.checkpoint_dir)
+            if last is None:
+                raise RuntimeError("no checkpoint to recover from")
+            params = tree_map(torch.zeros_like, params)   # state lost
+            params, opt = _restore(tc, last, params, opt)
+            stream.restore(last)
+            simulate_failure = -1
+            # re-run from the checkpoint step
+            for _ in range(last, step):
+                params, opt, _ = step_fn(params, opt, stream.next())
+            print(f"[train] recovered; replayed {step - last} steps")
+
+        b = stream.next()
+        t_step = time.perf_counter()
+        watchdog.start()
+        params, opt, metrics = step_fn(params, opt, b)
+        if history is not None:
+            history.append({"step": step, "loss": float(metrics["loss"]),
+                            "grad_norm": float(metrics["grad_norm"]),
+                            "lr": float(metrics["lr"]),
+                            "s": time.perf_counter() - t_step})
+        if step % log_every == 0 or step == steps - 1:
+            loss = float(metrics["loss"])       # the step's one host read
+            losses.append((step, loss))
+            print(f"[train] step {step:5d} loss {loss:.4f} "
+                  f"lr {float(metrics['lr']):.2e} "
+                  f"gnorm {float(metrics['grad_norm']):.3f}")
+        if watchdog.stop(step):
+            print(f"[train] straggler flagged at step {step}")
+        if tc.checkpoint_every and (step + 1) % tc.checkpoint_every == 0:
+            t0 = time.perf_counter()
+            ckpt.save(tc.checkpoint_dir, step + 1, params,
+                      keep=tc.keep_checkpoints)
+            ckpt.save(f"{tc.checkpoint_dir}/opt", step + 1, opt,
+                      keep=tc.keep_checkpoints)
+            if history is not None:
+                history.append({"saved": step + 1,
+                                "write_s": time.perf_counter() - t0})
+    return params, opt, losses
+
+
+def main():
+    ap = argparse.ArgumentParser(description="LM training loop.")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config for this arch")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default="build/ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--simulate-failure", type=int, default=-1)
+    ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args()
+
+    cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
+    tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                     warmup_steps=max(10, args.steps // 20),
+                     checkpoint_dir=args.ckpt_dir,
+                     checkpoint_every=args.ckpt_every)
+    t0 = time.time()
+    _, _, losses = train(cfg, tc, batch=args.batch, seq=args.seq,
+                         steps=args.steps, device=args.device,
+                         simulate_failure=args.simulate_failure,
+                         resume=not args.no_resume)
+    dt = time.time() - t0
+    print(f"[train] done in {dt:.1f}s; loss {losses[0][1]:.3f} -> "
+          f"{losses[-1][1]:.3f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -3,6 +3,7 @@ from repro_torch.models.model import (
     build_plan,
     forward_decode,
     forward_prefill,
+    forward_train,
     init_cache,
     param_spec,
 )
@@ -10,6 +11,7 @@ from repro_torch.models.params import (
     init_params,
     param_count,
     params_from_arrays,
+    params_to_arrays,
 )
 
 __all__ = [
@@ -17,9 +19,11 @@ __all__ = [
     "build_plan",
     "forward_decode",
     "forward_prefill",
+    "forward_train",
     "init_cache",
     "param_spec",
     "init_params",
     "param_count",
     "params_from_arrays",
+    "params_to_arrays",
 ]

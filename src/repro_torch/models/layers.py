@@ -1,11 +1,17 @@
 """Core neural layers: norms, RoPE, GQA attention (full / sliding-window /
 local-global), and MLPs.
 
-Attention has two interchangeable implementations:
+Attention has three implementations:
   * ``naive``   -- materializes (Sq, Sk) scores; oracle for tests.
   * ``chunked`` -- ``kernels.flash_attention.ops.flash_attention``: the
                    Hopper kernel on CUDA tensors, the plain chunked
-                   online-softmax forward below on CPU tensors.
+                   online-softmax forward below on CPU tensors.  When
+                   q, k or v needs a gradient it goes through
+                   :class:`FlashAttention` (the same forward, plus the
+                   reference's blockwise backward).
+  * ``plain``   -- the chunked forward in plain torch on any device,
+                   with the same backward: what training through the
+                   kernel is held against on the card.
 
 Parameters are dicts of tensors (an ``nn.ParameterDict`` in the model).
 Every function keeps the reference's layouts and its cast points.
@@ -16,7 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, \
+    flash_attention_kernel
 from repro_torch.models.params import spec
 
 NEG_INF = -1e30
@@ -120,21 +127,21 @@ def _pick_chunk(s: int, target: int) -> int:
     return s
 
 
-def flash_attention_chunked(q, k, v, *, causal, window, softcap,
-                            q_chunk=1024, kv_chunk=1024):
-    """Plain chunked online-softmax forward: the reference's
-    ``_flash_fwd_impl`` behind ``flash_attention_xla``, without the
-    log-sum-exp that its backward keeps.  As there, the accumulator is
-    kept in v's dtype (bf16 when serving).  The CUDA kernel keeps it in
-    f32 and adds each tile's p @ v to it unrounded; the Pallas kernel
-    keeps an f32 accumulator too, but rounds each tile's bf16 p @ v to
-    bf16 before adding it.  q/k/v (B, S, H, D) -> (B, Sq, H, D)."""
+def _flash_fwd_impl(q, k, v, *, causal, window, softcap, q_chunk=1024,
+                    kv_chunk=1024):
+    """Plain chunked online-softmax forward, the reference's
+    ``_flash_fwd_impl``: q/k/v (B, S, H, D) -> out (B, Sq, H, D) and the
+    f32 log-sum-exp (B, H, Sq) that the backward keeps.  As there, the
+    accumulator is kept in v's dtype (bf16 in the model).  The CUDA
+    kernel keeps it in f32 and adds each tile's p @ v to it unrounded;
+    the Pallas kernel keeps an f32 accumulator too, but rounds each
+    tile's bf16 p @ v to bf16 before adding it."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     qc = _pick_chunk(Sq, q_chunk)
     kc = _pick_chunk(Sk, kv_chunk)
     scale = D ** -0.5
-    outs = []
+    outs, lses = [], []
     for qi in range(Sq // qc):
         qcb = q[:, qi * qc:(qi + 1) * qc]
         qp = qi * qc + torch.arange(qc, device=q.device)
@@ -160,7 +167,134 @@ def flash_attention_chunked(q, k, v, *, causal, window, softcap,
             m = m_new
         lmax = torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
         outs.append((acc / lmax).transpose(1, 2))
-    return torch.cat(outs, dim=1)
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
+def flash_attention_chunked(q, k, v, *, causal, window, softcap,
+                            q_chunk=1024, kv_chunk=1024):
+    """The plain chunked forward's output alone (the serving path's CPU
+    route).  q/k/v (B, S, H, D) -> (B, Sq, H, D)."""
+    return _flash_fwd_impl(q, k, v, causal=causal, window=window,
+                           softcap=softcap, q_chunk=q_chunk,
+                           kv_chunk=kv_chunk)[0]
+
+
+def _flash_bwd_impl(q, k, v, out, lse, do, *, causal, window, softcap,
+                    q_chunk=1024, kv_chunk=1024):
+    """The reference's ``_flash_bwd_impl`` in plain torch: probabilities
+    recomputed block by block from ``lse``, dq by q block (kv blocks
+    inside), then dk and dv by kv block (q blocks inside), in f32.
+    Returns dq, dk, dv in the dtypes of q, k, v."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    qc = _pick_chunk(Sq, q_chunk)
+    kc = _pick_chunk(Sk, kv_chunk)
+    nq, nk = Sq // qc, Sk // kc
+    scale = D ** -0.5
+    f32 = torch.float32
+    dev = q.device
+
+    delta = torch.einsum("bshd,bshd->bhs", do.to(f32), out.to(f32))
+
+    def q_blk(i):
+        sl = slice(i * qc, (i + 1) * qc)
+        return q[:, sl], do[:, sl], lse[:, :, sl], delta[:, :, sl]
+
+    def kv_blk(j):
+        sl = slice(j * kc, (j + 1) * kc)
+        return k[:, sl], v[:, sl]
+
+    def p_ds(qcb, kcb, vcb, docb, lseb, delb, qidx, kidx):
+        """Recompute p and ds for one (q block, kv block) pair."""
+        s_raw = torch.einsum("bqhd,bkhd->bhqk", qcb.to(f32),
+                             kcb.to(f32)) * scale
+        if softcap and softcap > 0:
+            t = torch.tanh(s_raw / softcap)
+            s = t * softcap
+            dcap = 1.0 - t * t
+        else:
+            s, dcap = s_raw, 1.0
+        qp = qidx * qc + torch.arange(qc, device=dev)
+        kp = kidx * kc + torch.arange(kc, device=dev)
+        mask = attn_mask(qp, kp, causal=causal, window=window)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - lseb[..., None])                  # (B, H, q, k)
+        dp = torch.einsum("bqhd,bkhd->bhqk", docb.to(f32), vcb.to(f32))
+        ds = p * (dp - delb[..., None]) * scale * dcap
+        ds = torch.where(mask, ds, 0.0)
+        return p, ds
+
+    # pass 1: dq by q block
+    dqs = []
+    for i in range(nq):
+        qcb, docb, lseb, delb = q_blk(i)
+        dq = torch.zeros((B, qc, H, D), dtype=f32, device=dev)
+        for j in range(nk):
+            kcb, vcb = kv_blk(j)
+            _, ds = p_ds(qcb, kcb, vcb, docb, lseb, delb, i, j)
+            dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, kcb.to(f32))
+        dqs.append(dq)
+    # pass 2: dk and dv by kv block
+    dks, dvs = [], []
+    for j in range(nk):
+        kcb, vcb = kv_blk(j)
+        dk = torch.zeros((B, kc, H, D), dtype=f32, device=dev)
+        dv = torch.zeros((B, kc, H, D), dtype=f32, device=dev)
+        for i in range(nq):
+            qcb, docb, lseb, delb = q_blk(i)
+            p, ds = p_ds(qcb, kcb, vcb, docb, lseb, delb, i, j)
+            dv = dv + torch.einsum("bhqk,bqhd->bkhd", p, docb.to(f32))
+            dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds, qcb.to(f32))
+        dks.append(dk)
+        dvs.append(dv)
+    return (torch.cat(dqs, dim=1).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's hand-written VJP
+    (``flash_attention_xla``): the forward keeps only ``(q, k, v, out,
+    lse)``, the backward recomputes probabilities block by block
+    (:func:`_flash_bwd_impl`).
+
+    The forward launches the Hopper kernel on CUDA tensors (its ``lse``
+    output is the residual) and runs :func:`_flash_fwd_impl` on CPU
+    tensors, or on any device with ``plain=True`` (what the kernel is
+    held against).  A failed kernel build or launch raises; nothing
+    falls back.  The backward is plain torch: the reference has no
+    backward kernel either."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_chunk, kv_chunk,
+                plain):
+        if q.is_cuda and not plain:
+            out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                              window=window, softcap=softcap,
+                                              return_lse=True)
+        else:
+            out, lse = _flash_fwd_impl(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, q_chunk=q_chunk,
+                                       kv_chunk=kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_train(q, k, v, *, causal, window, softcap,
+                          q_chunk=1024, kv_chunk=1024, plain=False):
+    """q/k/v (B, S, H, D), kv heads pre-repeated -> (B, Sq, H, D), with
+    :class:`FlashAttention`'s backward."""
+    return FlashAttention.apply(q, k, v, causal, window, softcap, q_chunk,
+                                kv_chunk, plain)
 
 
 # ---------------------------------------------------------------------------
@@ -217,8 +351,16 @@ def attention_block(p, x, cfg, *, positions, causal=True, window=0,
     """
     g = cfg.num_heads // cfg.num_kv_heads
     q, k, v = attn_qkv(p, x, cfg, positions)
-    if impl == "chunked":
-        # positions are arange in every full-sequence path
+    train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    # positions are arange in every full-sequence path
+    if impl == "plain" or (impl == "chunked" and train):
+        # the chunk sizes attention_block gives the reference's VJP
+        o = flash_attention_train(q, repeat_kv(k, g), repeat_kv(v, g),
+                                  causal=causal, window=window,
+                                  softcap=cfg.attn_logit_softcap,
+                                  plain=impl == "plain")
+    elif impl == "chunked":
         o = flash_attention(q, repeat_kv(k, g), repeat_kv(v, g),
                             causal=causal, window=window,
                             softcap=cfg.attn_logit_softcap)

@@ -12,7 +12,10 @@ kind:
 The other families (moe, ssm, hybrid, audio, vlm) raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
-Two entry points (used by the serving driver):
+Three entry points:
+  forward_train   causal-LM loss over a parameter TREE (the stacked
+                  leaves ``init_params`` returns, which autograd and the
+                  optimizer see), blocks rematerialised
   forward_prefill full-sequence forward that also builds the KV cache
   forward_decode  single-token step against the cache
 """
@@ -21,10 +24,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -195,6 +200,83 @@ def _logits(params: Transformer, cfg, x):
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params.embed.to(x.dtype))
     return torch.einsum("bsd,dv->bsv", x, params.lm_head.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Training forward (loss)
+# ---------------------------------------------------------------------------
+def _layer_view(seg_tree: dict, i: int) -> SimpleNamespace:
+    """Layer ``i`` of a segment's stacked parameters, as views (autograd
+    carries their gradients into the stacked leaves)."""
+    return SimpleNamespace(**{name: {k: t[i] for k, t in sub.items()}
+                              for name, sub in seg_tree.items()})
+
+
+def _train_block(x, lp, cfg, seg: Segment, positions, impl):
+    return _attn_body(lp, x, cfg, seg, positions, impl)[0]
+
+
+def _ce_chunk(xx, tt, ww, w, tied: bool):
+    """One chunk's summed next-token CE: bf16 logits, f32 log-softmax."""
+    if tied:
+        lg = torch.einsum("bsd,vd->bsv", xx, w.to(xx.dtype)).float()
+    else:
+        lg = torch.einsum("bsd,dv->bsv", xx, w.to(xx.dtype)).float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, tt[..., None].long())[..., 0]
+    return ((logz - gold) * ww).sum()
+
+
+def _chunked_ce(params: dict, cfg, x, tokens, vis: int, chunk: int = 512):
+    """Next-token CE with the vocab projection run over seq chunks.
+
+    As the reference's ``_chunked_ce``: targets rolled by one, the last
+    position masked, and each chunk's body recomputed in the backward
+    (``torch.utils.checkpoint``, the role of ``jax.checkpoint``) so the
+    (B, S, V) f32 logits are never held whole."""
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    xt = x[:, vis:, :]
+    tgt = torch.roll(tokens, -1, dims=1)          # last is garbage
+    B, S, _ = xt.shape
+    c = L._pick_chunk(S, chunk)
+    wc = (torch.arange(S, device=x.device) < S - 1).float()
+    tied = cfg.tie_embeddings
+    w = params["embed"] if tied else params["lm_head"]
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        tot = tot + checkpoint(_ce_chunk, xt[:, sl], tgt[:, sl], wc[sl], w,
+                               tied, use_reentrant=False)
+    return tot / (B * (S - 1))
+
+
+def forward_train(params: dict, cfg: ModelConfig, batch, *, impl="chunked",
+                  remat=True):
+    """Causal-LM loss of the parameter tree ``params`` on ``batch``
+    (``{"tokens": (B, S) int}``).  Returns ``(loss, {"ce": loss})``.
+
+    ``impl="chunked"`` runs attention through the flash kernel on CUDA
+    tensors (:class:`~repro_torch.models.layers.FlashAttention`),
+    ``"plain"`` through its plain-torch forward, ``"naive"`` through
+    materialized scores.  ``remat`` recomputes each block in the
+    backward.  The embedding is cast to bf16 before the lookup, as the
+    reference's is."""
+    _dense_only(cfg)
+    tokens = batch["tokens"]
+    x = params["embed"].to(torch.bfloat16)[tokens.long()]
+    if cfg.global_every > 0:  # gemma-style embed scaling
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for seg, seg_tree in zip(build_plan(cfg), params["segments"]):
+        for i in range(seg.count):
+            lp = _layer_view(seg_tree, i)
+            if remat:
+                x = checkpoint(_train_block, x, lp, cfg, seg, positions,
+                               impl, use_reentrant=False)
+            else:
+                x = _train_block(x, lp, cfg, seg, positions, impl)
+    ce = _chunked_ce(params, cfg, x, tokens, 0)
+    return ce, {"ce": ce}
 
 
 def forward_prefill(params: Transformer, cfg: ModelConfig, batch, *,

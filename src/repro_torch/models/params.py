@@ -4,8 +4,9 @@ materialized parameters from the same tree.
 A model definition builds a nested dict (lists for the segments) of
 ``ParamSpec`` leaves.  ``init_params`` materializes it from a
 ``torch.Generator``; ``params_from_arrays`` builds the model from the
-JAX package's parameter tree, so tests can hold the two against each
-other on the same weights.  The logical axes are kept for the sharding
+JAX package's parameter tree, and ``params_to_arrays`` gives a model's
+or a parameter tree's values back as that tree, so tests can hold the
+two against each other on the same weights both ways.  The logical axes are kept for the sharding
 half of the reference's ``params.py``, which waits for a multi-card
 slice.
 """
@@ -89,3 +90,25 @@ def params_from_arrays(cfg, tree):
         return torch.from_numpy(np.array(t, dtype=np.float32))
 
     return Transformer(cfg, convert(tree))
+
+
+def params_to_arrays(cfg, model):
+    """The JAX package's parameter tree (float32 numpy arrays, the layers
+    of a segment stacked on axis 0) holding the values of the
+    ``Transformer`` ``model``: the inverse of :func:`params_from_arrays`."""
+
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    tree = {"embed": arr(model.embed),
+            "final_norm": {k: arr(t) for k, t in model.final_norm.items()}}
+    if hasattr(model, "lm_head"):
+        tree["lm_head"] = arr(model.lm_head)
+    segs = []
+    for blocks in model.segments:
+        segs.append({name: {k: np.stack([arr(getattr(b, name)[k])
+                                         for b in blocks])
+                            for k in getattr(blocks[0], name)}
+                     for name in ("ln1", "attn", "ln2", "mlp")})
+    tree["segments"] = segs
+    return tree

@@ -48,7 +48,12 @@ def test_sources_import_no_jax_or_reference():
              ("serve", "persist", "crashpoints.py"),
              ("serve", "persist", "wal.py"),
              ("serve", "persist", "snapshot.py"),
-             ("serve", "persist", "recover.py"))} <= set(files)
+             ("serve", "persist", "recover.py"),
+             ("core", "dryrun.py"), ("launch", "dryrun.py"),
+             ("roofline", "analysis.py"), ("roofline", "jaxpr_cost.py"),
+             ("launch", "steps.py"), ("launch", "train.py"),
+             ("optim", "adamw.py"), ("checkpoint", "checkpoint.py"),
+             ("distributed", "fault_tolerance.py"))} <= set(files)
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, f"forbidden imports: {bad}"
@@ -145,3 +150,34 @@ def test_dynamic_and_durable_run_loads_no_jax():
                        capture_output=True, text=True, timeout=300, cwd=REPO)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "DURABLE-RUN 2 ok" in r.stdout, r.stdout
+
+
+_PLAN_AND_TRAIN = r"""
+import sys, tempfile
+import torch
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import smoke_config
+from repro_torch.core.dryrun import lower_graph_programs
+from repro_torch.launch.train import train
+recs = lower_graph_programs("urand12", "pod", algos=("bfs_fast",
+                                                     "pagerank_fast"))
+d = tempfile.mkdtemp()
+tc = TrainConfig(total_steps=4, warmup_steps=1, checkpoint_dir=d,
+                 checkpoint_every=2)
+train(smoke_config("tinyllama-1.1b"), tc, batch=2, seq=32, steps=4,
+      device="cpu", simulate_failure=3, log_every=1)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("PLAN-AND-TRAIN", len(recs))
+"""
+
+
+def test_dryrun_and_training_load_no_jax():
+    """Planning programs on meta tensors, and training with checkpoints
+    and a simulated failure, leave jax and the JAX package unloaded."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", _PLAN_AND_TRAIN], env=env,
+                       capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "PLAN-AND-TRAIN 2" in r.stdout, r.stdout

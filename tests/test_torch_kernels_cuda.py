@@ -234,3 +234,56 @@ def test_cuda_flash_ops_head_dim_120():
     torch.testing.assert_close(
         got, want.reshape(2, 4, 128, 120).transpose(1, 2),
         atol=2e-5, rtol=2e-5)
+
+
+# lse: the f32 log-sum-exp beside o.  Scores are f32 in both versions
+# (products of the inputs exact in f32, summed in another order), the
+# kernel's bf16 design takes exponentials and the log in base 2 with the
+# approximate units (2 ulp), so the two agree far inside 1e-3.
+LSE_TOL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_lse_matches_plain(case, dtype):
+    """On a card: ``return_lse=True`` gives o with the same bits as the
+    call without it, and an lse within LSE_TOL of ref.py's."""
+    _needs_card()
+    bh, sq, sk, d, causal, window, softcap = case
+    g = torch.Generator(device="cuda").manual_seed(sq * 1000 + d + 7)
+    q, k, v = [torch.randn((bh, n, d), generator=g, device="cuda")
+               .to(dtype) for n in (sq, sk, sk)]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o = flash_attention_fwd(q, k, v, **kw)
+    o2, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o.view(torch.int16 if dtype == torch.bfloat16
+                              else torch.int32),
+                       o2.view(torch.int16 if dtype == torch.bfloat16
+                               else torch.int32))
+    _, want = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (bh, sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, atol=LSE_TOL, rtol=LSE_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_train_grads_match_plain():
+    """On a card: the autograd Function through the kernel forward gives
+    the gradients of its plain forward (same backward, residuals from the
+    kernel), within the bf16 tolerance."""
+    _needs_card()
+    from repro_torch.models.layers import flash_attention_train
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = [torch.randn((2, 256, 4, 64), generator=g, device="cuda")
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3)]
+    do = torch.randn((2, 256, 4, 64), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        o = flash_attention_train(q, k, v, causal=True, window=0,
+                                  softcap=0.0, plain=plain)
+        grads.append(torch.autograd.grad(o, (q, k, v), do))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2,
+                                   rtol=2e-2)
