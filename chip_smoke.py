@@ -47,7 +47,12 @@ against its plain-PyTorch version:
 - LM training: ``launch/train.py::train`` on TinyLlama-1.1B at full
   width and depth (kernel ``flash_attention_fwd`` with its ``lse``, in
   each layer's forward and its remat recompute; the backward is plain
-  torch, as the reference's is plain JAX).
+  torch, as the reference's is plain JAX);
+- LM serving of the other families: ``launch/serve.py::serve`` on
+  phi3.5-moe (depth cut to 8 layers), mamba2-1.3b, zamba2-7b,
+  whisper-small and internvl2-1b at full width (kernel
+  ``flash_attention_fwd`` at each of their attention shapes; none in
+  mamba2).
 
 Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
@@ -283,6 +288,31 @@ prints no result):
            to step 6 within rtol 1e-4 / atol 1e-5 of the uninterrupted
            one, with the write and read seconds.
 
+  families (after train) each of FAMILIES in turn, seeded weights drawn
+           on the card and freed after: serve() once with the launch
+           counters zeroed around it (flash launches one an attention
+           call of the prefill: 8 phi3.5-moe, 0 mamba2, 14 zamba2, 36
+           whisper, 24 internvl2; all bf16), peak memory, served tokens
+           in range; prefill ms and decode tok/s (median of 3 more serve
+           calls); prefill logits through the kernel against
+           impl="plain" on the card, and decode over FAMILY_STEPS tokens
+           after a FAMILY_PREFIX-token prefill against a prefill over
+           all of them, at every decoded position: max and mean within
+           LOGIT_MAX_TOL / LOGIT_MEAN_TOL scaled to the logits' binade
+           (logit_tols) or FAMILY_FLOOR_FACTOR x the same run's
+           naive-vs-plain prefill difference, whichever is larger, and
+           a changed argmax only where the reference scores the token
+           within 2 x the max bound of its largest (family_diff).  For the
+           MoE the share of (layer, token, k) choices that differ
+           between the two runs is within FAMILY_FLOOR_FACTOR x the share
+           between naive attention and the plain forward (the rounding
+           floor, same run); its logits are held with the first run's
+           routing replayed in the second, and its decode check runs at
+           a capacity that drops nothing.  The kernel at every (q, k,
+           options) its prefill met, on that call's real q, k, v, against
+           ref.py (2e-2) and timed beside ref.py, SDPA and its bound; a
+           torch.profiler serve call of 4 decode steps.
+
 The last three lines are the kernels' JSON record, the card line, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -291,6 +321,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -468,6 +499,43 @@ FLASH_EDGES = ((2, 1000, 1000, 64, True, 0, 0.0),
 # timed beside the prefill shape: (BH, S, D) bf16 causal at the head dims
 # of qwen2.5 / gemma3 (128) and danube3 (120), 64 heads of S = 1024
 FLASH_WIDTHS = ((64, 1024, 128), (64, 1024, 120))
+# LM serving of the other families at full width, seeded weights, through
+# launch/serve.py: (arch, batch, prompt, gen, layers kept or None for the
+# full depth).  phi3.5-moe is cut to 8 of its 32 layers: at f32 a layer
+# holds 16 x 3 x 4096 x 6400 expert weights (5.0 GB), 32 layers would be
+# 166 GB, 8 are 43 GB.  internvl2's prompt is 768 text tokens after its
+# 256 vision tokens.
+FAMILIES = (("phi3.5-moe-42b-a6.6b", 8, 1024, 16, 8),
+            ("mamba2-1.3b", 8, 1024, 16, None),
+            ("zamba2-7b", 4, 1024, 16, None),
+            ("whisper-small", 8, 256, 16, None),
+            ("internvl2-1b", 8, 768, 16, None))
+# decode against prefill: prefill FAMILY_PREFIX tokens, decode
+# FAMILY_STEPS more teacher-forced, and hold the last step's logits
+# against a prefill over all of them (240 and 256 are whole SSD chunks
+# of 256: min(256, S) divides S)
+FAMILY_PREFIX, FAMILY_STEPS = 240, 16
+# The families' logit checks hold the kernel path against impl="plain"
+# and decode against prefill.  At these depths (8 MoE layers with
+# logits up to 7; 48 and 81 mamba layers) two paths that differ only in
+# bf16 rounding points differ by several ulps of the logits, so each
+# bound is the larger of TinyLlama's (LOGIT_MAX_TOL / LOGIT_MEAN_TOL,
+# scaled to the logits' binade: logit_tols) and FAMILY_FLOOR_FACTOR
+# times the noise floor measured in the same run: naive attention's
+# materialized softmax against the plain chunked forward, on the same
+# prompt.  A wrong kernel moves the logits by far more than that.
+#
+# MoE routing: a near-tie between an expert and the next flips between
+# two such paths, and a flipped token's residual moves by a whole
+# expert's output, which flips more of its choices in the layers after.
+# The share of (layer, token, k) choices that differ may be at most
+# FAMILY_FLOOR_FACTOR times the share between naive attention and the
+# plain forward.  The logits of the tokens whose routing agrees are
+# reported but not held: attention couples them to the tokens that
+# flipped (on the H100 they differed by up to 3.5, at logits up to 7.3).
+# The logits are held with the first run's routing replayed in the
+# second (``moe.route(choices=)``), so the two differ in rounding only.
+FAMILY_FLOOR_FACTOR = 2.0
 
 
 def check(ok, msg: str) -> None:
@@ -519,6 +587,10 @@ class Port:
         from repro_torch.data import TokenStream
         from repro_torch import tree
         from repro_torch.models import layers as model_layers
+        from repro_torch.models import moe as model_moe
+        from repro_torch.launch import serve as lm_serve
+        self.model_moe = model_moe
+        self.lm_serve = lm_serve
         self.dryrun = dryrun
         self.train_steps = train_steps
         self.trainer = trainer
@@ -3252,30 +3324,33 @@ def flash_bound(bh: int, sq: int, sk: int, d: int, itemsize: int,
                  BF16_TC_OPS_PER_S)
 
 
-def flash_times(port: Port, device, q, k, v, batch: int) -> dict:
-    """The flash kernel on (BH, S, D) bf16 q, k, v, causal, beside ref.py,
-    scaled_dot_product_attention on the same inputs as (batch, BH / batch,
-    S, D) (checked to agree with the kernel), and the bound."""
+def flash_times(port: Port, device, q, k, v, batch: int,
+                causal: bool = True) -> dict:
+    """The flash kernel on (BH, Sq, D) bf16 q and (BH, Sk, D) k, v beside
+    ref.py, scaled_dot_product_attention on the same inputs as (batch,
+    BH / batch, S, D) (checked to agree with the kernel), and the
+    bound."""
     torch = port.torch
-    bh, s, d = q.shape
-    b_ms, b_by = flash_bound(bh, s, s, d, q.element_size(), True)
-    sdpa_in = [t.reshape(batch, bh // batch, s, d) for t in (q, k, v)]
+    bh, sq, d = q.shape
+    b_ms, b_by = flash_bound(bh, sq, k.shape[1], d, q.element_size(), causal)
+    sdpa_in = [t.reshape(batch, bh // batch, t.shape[1], d)
+               for t in (q, k, v)]
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
-            *sdpa_in, is_causal=True)
+            *sdpa_in, is_causal=causal)
 
     check(torch.allclose(library().reshape(q.shape).float(),
-                         port.flash(q, k, v, causal=True).float(),
+                         port.flash(q, k, v, causal=causal).float(),
                          atol=FLASH_TOL["bfloat16"],
                          rtol=FLASH_TOL["bfloat16"]),
           f"scaled_dot_product_attention disagrees with the kernel at "
-          f"{tuple(q.shape)}")
+          f"{tuple(q.shape)} x {tuple(k.shape)}")
     return {"ms": kernel_ms(torch, device,
-                            lambda: port.flash(q, k, v, causal=True)),
+                            lambda: port.flash(q, k, v, causal=causal)),
             "plain_ms": kernel_ms(
                 torch, device, lambda: port.flash_attention_ref(
-                    q, k, v, causal=True), reps=5),
+                    q, k, v, causal=causal), reps=5),
             "library_ms": kernel_ms(torch, device, library),
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -3393,19 +3468,21 @@ def device_profile(port: Port, cfg, model, batch: int, prompt_len: int,
     return out
 
 
-def logit_diff(torch, a, b) -> dict:
+def logit_diff(torch, a, b, tie: float | None = None) -> dict:
     """Logits ``a`` against the reference ``b`` (rows of vocab logits):
     largest and mean difference, and the argmax row by row.  A row of
     ``a`` may take another token than ``b`` only where that token's logit
     in ``b`` is within one bf16 ulp of ``b``'s largest (a tie at the
-    logits' own precision); such rows are counted in ``argmax_ties``, any
-    other in ``argmax_other``.  ``top2_gap`` is each row's gap between
-    ``b``'s two largest logits."""
+    logits' own precision), or within ``tie`` when given; such rows are
+    counted in ``argmax_ties``, any other in ``argmax_other``.
+    ``top2_gap`` is each row's gap between ``b``'s two largest logits."""
     a = a.float().reshape(-1, a.shape[-1])
     b = b.float().reshape(-1, b.shape[-1])
     top = b.topk(2, dim=-1).values
     ulp = torch.ldexp(torch.ones_like(top[:, 0]),
                       torch.frexp(top[:, 0].abs()).exponent - 8)
+    if tie is not None:
+        ulp = torch.full_like(ulp, tie)
     pick = a.argmax(-1)
     differ = pick != b.argmax(-1)
     tie = b.gather(-1, pick[:, None])[:, 0] >= top[:, 0] - ulp
@@ -3723,7 +3800,405 @@ def run_train(port: Port, device, arch: str = LLM_ARCH,
     return out
 
 
-def kernels_record(result: dict, llm: dict, trained: dict) -> dict:
+# ---------------------------------------------------------------------------
+# LM serving of the other families: flash_attention_fwd at their shapes
+# ---------------------------------------------------------------------------
+
+def flash_calls(port: Port, cfg) -> int:
+    """flash_attention_fwd launches of one prefill: one an attention call
+    (self and cross), the encoder's included."""
+    per = {"attn": 1, "moe": 1, "shared_attn": 1, "xattn": 2, "mamba": 0}
+    n = sum(per[s.kind] * s.count for s in port.models.build_plan(cfg))
+    return n + (cfg.encoder_layers if cfg.family == "audio" else 0)
+
+
+class FlashCapture:
+    """Within the context, the flash wrapper as ``ops`` calls it keeps a
+    copy of the first q, k, v of each distinct (shapes, options) it meets;
+    every call goes on to the wrapper and its counters."""
+
+    def __init__(self, port: Port):
+        self.port, self.seen = port, {}
+
+    def __enter__(self):
+        ops = self.port.flash_ops
+        self.orig = orig = ops.flash_attention_fwd
+
+        def capture(q, k, v, **kw):
+            key = (tuple(q.shape), tuple(k.shape), tuple(sorted(kw.items())))
+            if key not in self.seen:
+                self.seen[key] = (q.clone(), k.clone(), v.clone())
+            return orig(q, k, v, **kw)
+
+        ops.flash_attention_fwd = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.port.flash_ops.flash_attention_fwd = self.orig
+
+
+class RouteRecorder:
+    """Within the context (and when ``on``), each ``apply_moe`` call, as
+    ``models/model.py`` makes it, records its routing, recomputed with
+    ``moe.route`` on the same input: the top-k experts of each token in
+    their order and which of those choices fit under capacity, one
+    (B, S, K) pair a call (a prefill layer, or a decode step's layer)."""
+
+    def __init__(self, port: Port, on: bool):
+        self.port, self.on, self.calls = port, on, []
+
+    def __enter__(self):
+        moe = self.port.model_moe
+        self.orig = orig = moe.apply_moe
+        if not self.on:
+            return self
+
+        def record(p, x, cfg, *, capacity_factor=None, group_size=256):
+            g = moe.group_tokens(x, group_size)
+            E, K = cfg.num_experts, cfg.num_experts_per_tok
+            C = moe._capacity(g.shape[1], E, K,
+                              capacity_factor or cfg.capacity_factor)
+            r = moe.route(p["router"], g, E, K, C)
+            self.calls.append(tuple(t.reshape(x.shape[0], x.shape[1], K)
+                                    for t in (r["gate_idx"], r["kept"])))
+            return orig(p, x, cfg, capacity_factor=capacity_factor,
+                        group_size=group_size)
+
+        moe.apply_moe = record
+        return self
+
+    def __exit__(self, *exc):
+        self.port.model_moe.apply_moe = self.orig
+
+    def _kept_sets(self, calls):
+        torch = self.port.torch
+        return torch.stack([torch.where(kept > 0, idx, -1).sort(dim=-1)
+                            .values for idx, kept in calls])
+
+    def compare(self, other, last: int = 0):
+        """(agree (B, S) bool: tokens whose kept choices are equal in
+        every layer, the share of (layer, token, k) kept choices of this
+        run that the other did not make, and that share layer by layer).
+        With ``last`` this run's last calls are ``last`` decode steps
+        (one call a layer a step), held against the other's last
+        ``last`` positions."""
+        b = self._kept_sets(other.calls)                      # (L, B, S, K)
+        if last:
+            a = self._kept_sets(self.calls[-last * b.shape[0]:])
+            a = a.reshape(last, b.shape[0], *a.shape[1:])
+            a = a[..., 0, :].permute(1, 2, 0, 3)              # (L, B, T, K)
+            b = b[:, :, -last:]
+        else:
+            a = self._kept_sets(self.calls)
+        differ = ~(a[..., :, None] == b[..., None, :]).any(dim=-1)
+        per_layer = differ.float().mean(dim=(1, 2, 3)).tolist()
+        return (~differ.any(dim=3).any(dim=0), float(differ.float().mean()),
+                per_layer)
+
+    def choices(self, layers: int):
+        """Each layer's top-k experts over the whole sequence: a prefill's
+        calls as they are, a prefill followed by decode steps joined
+        along the sequence."""
+        torch = self.port.torch
+        idx = [c[0] for c in self.calls]
+        return [torch.cat(idx[l::layers], dim=1) for l in range(layers)]
+
+
+class RouteReplay:
+    """Within the context, the i-th ``moe.route`` call takes the i-th
+    entry of ``choices`` (B, S, K) for its top-k experts, with its own
+    router probabilities as gates, so a run computes another run's
+    routing and differs from it only in rounding."""
+
+    def __init__(self, port: Port, choices: list):
+        self.port, self.choices, self.i = port, choices, 0
+
+    def __enter__(self):
+        moe = self.port.model_moe
+        self.orig = orig = moe.route
+
+        def replay(router, x, E, K, C, choices=None):
+            forced = self.choices[self.i].reshape(x.shape[0], x.shape[1], K)
+            self.i += 1
+            return orig(router, x, E, K, C, choices=forced)
+
+        moe.route = replay
+        return self
+
+    def __exit__(self, *exc):
+        self.port.model_moe.route = self.orig
+        if exc[0] is None:
+            check(self.i == len(self.choices),
+                  f"route replayed {self.i} of {len(self.choices)} calls")
+
+
+def family_logits(port: Port, model, cfg, batch: dict, impl: str,
+                  last: int = 1):
+    """The logits at the last ``last`` positions of a prefill forward
+    (``forward_prefill``'s own steps: the encoder for the audio family,
+    the vision tokens prepended for the vlm)."""
+    torch, M = port.torch, port.models.model
+    memory = (M._encode_audio(model, cfg, batch["enc_embeds"], impl)
+              if cfg.family == "audio" else None)
+    x = M._embed(model, cfg, batch["tokens"], batch)
+    pos = torch.arange(x.shape[1], device=x.device)
+    x, _ = M._run_segments(model, cfg, x, pos, impl=impl, memory=memory)
+    return M._logits(model, cfg, x[:, -last:])
+
+
+def family_diff(torch, a, b, floor: dict | None = None) -> dict:
+    """logit_diff with the bounds of the families' checks kept in the
+    record: logit_tols at ``b``'s largest magnitude, or
+    FAMILY_FLOOR_FACTOR times ``floor``'s max and mean where larger.  A
+    position may take another token where the two could trade places
+    within the max bound (each moved at most that much): seeded weights
+    give top-two gaps down to 0, and the paths differ by several ulps,
+    so a one-ulp tie does not cover it."""
+    t_max, t_mean = logit_tols(float(b.float().abs().max()))
+    if floor is not None:
+        t_max = max(t_max, FAMILY_FLOOR_FACTOR * floor["max"])
+        t_mean = max(t_mean, FAMILY_FLOOR_FACTOR * floor["mean"])
+    e = logit_diff(torch, a, b, tie=2 * t_max)
+    e["bounds"] = (t_max, t_mean)
+    return e
+
+
+def logit_tols(max_logit: float) -> tuple[float, float]:
+    """LOGIT_MAX_TOL and LOGIT_MEAN_TOL at the reference logits' largest
+    magnitude: the two bounds are 16 bf16 ulps and about 2 of logits in
+    [2, 4), and a bf16 ulp doubles with each binade above (phi3.5-moe's
+    logits reach [4, 8))."""
+    e = math.frexp(max(max_logit, 2.0))[1] - 1       # max_logit in [2^e, ..)
+    scale = 2.0 ** (e - 1)
+    return LOGIT_MAX_TOL * scale, LOGIT_MEAN_TOL * scale
+
+
+def run_families(port: Port, device, families=FAMILIES,
+                 prefix: int = FAMILY_PREFIX, steps: int = FAMILY_STEPS,
+                 profile_gen: int = 4) -> dict:
+    """The families phase (see the module docstring): each family served
+    once through ``launch/serve.py`` with the counters zeroed around it,
+    its checks, its times, and the flash kernel at every shape the
+    family's prefill gave it."""
+    torch, models = port.torch, port.models
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    parity = FlashParity(port, device)
+    cells, shapes, total = {}, [], 0
+    for arch, batch, prompt_len, gen, keep in families:
+        cfg = port.arch_registry.get_arch(arch)
+        cut = keep is not None and keep < cfg.num_layers
+        if cut:
+            cfg = dataclasses.replace(cfg, num_layers=keep)
+        depth = (f"{keep} of {port.arch_registry.get_arch(arch).num_layers}"
+                 f" layers" if cut else "full depth")
+        t0 = time.perf_counter()
+        model = models.Transformer(cfg, models.init_params(
+            models.param_spec(cfg),
+            torch.Generator(device=device).manual_seed(0), device))
+        _sync(torch, device)
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"[families] {arch} ({cfg.family}, {depth}): {n_params:,} f32 "
+            f"parameters ({n_params * 4 / 1e9:.2f} GB) drawn on the device "
+            f"in {init_s:.1f} s")
+
+        # -- the main path: serve() with the counters zeroed --------------
+        port.reset_launches()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        toks, stats = port.serve(cfg, batch=batch, prompt_len=prompt_len,
+                                 gen=gen, device=device, params=model)
+        _sync(torch, device)
+        launches = port.launches()
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        want = flash_calls(port, cfg)
+        log(f"[families] {arch} serve batch={batch} prompt={prompt_len} "
+            f"gen={gen}: launches {launches}, want {want} flash; prefill "
+            f"{stats['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{stats['tok_per_s']:.1f} tok/s; peak {nbytes(peak)}; sample "
+            f"{toks[0, :8].tolist()}")
+        check(launches["flash_attention_fwd"] == want
+              and launches["flash_attention_fwd_tc"] == want,
+              f"{arch}: flash launched {launches} in serve, want {want} "
+              f"(one an attention call of the prefill), all bf16")
+        check(tuple(toks.shape) == (batch, gen) and toks.dtype == torch.int32
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"{arch}: served tokens {tuple(toks.shape)} {toks.dtype} or "
+              f"out of range")
+        total += launches["flash_attention_fwd"]
+
+        # -- times: median of 3 serve calls -------------------------------
+        runs = [port.serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
+                           device=device, params=model)[1] for _ in range(3)]
+        prefill_ms = statistics.median(r["prefill_s"] for r in runs) * 1e3
+        tok_s = statistics.median(r["tok_per_s"] for r in runs)
+
+        # -- checks -------------------------------------------------------
+        moe = cfg.family == "moe"
+        vis = cfg.vision_tokens if cfg.family == "vlm" else 0
+        extras = port.lm_serve.frontend_embeds(cfg, batch, device)
+        flips = {}
+        with torch.inference_mode():
+            prompt = port.batch_at(0, global_batch=batch, seq_len=prompt_len,
+                                   vocab_size=cfg.vocab_size).to(device)
+            b = {"tokens": prompt, **extras}
+            with FlashCapture(port) as cap, RouteRecorder(port, moe) as rk:
+                lg_k = family_logits(port, model, cfg, b, "chunked",
+                                     prompt_len if moe else 1)
+            if moe:
+                # the routing of the kernel run, the plain run and naive
+                # attention's; the logits of the tokens whose routing
+                # agrees are reported (attention couples them to the
+                # tokens that flipped), and the plain run is held against
+                # the kernel run with the kernel run's routing replayed
+                with RouteRecorder(port, True) as rp:
+                    lg_free = family_logits(port, model, cfg, b, "plain",
+                                            prompt_len)
+                with RouteRecorder(port, True) as rn:
+                    family_logits(port, model, cfg, b, "naive")
+                _, flips["floor_naive_vs_plain"], _ = rn.compare(rp)
+                agree, flips["kernel_vs_plain"], \
+                    flips["kernel_vs_plain_by_layer"] = rk.compare(rp)
+                flips["tokens_agreeing"] = int(agree.sum())
+                e_held = logit_diff(torch, lg_k[agree], lg_free[agree])
+                flips["agreeing_tokens_logits"] = {
+                    k: e_held[k] for k in ("max", "mean", "argmax_ties",
+                                           "argmax_other")}
+                del lg_free, e_held, rp, rn
+                with RouteReplay(port, rk.choices(cfg.num_layers)):
+                    lg_p = family_logits(port, model, cfg, b, "plain")
+                with RouteReplay(port, rk.choices(cfg.num_layers)):
+                    lg_n = family_logits(port, model, cfg, b, "naive")
+                lg_k = lg_k[:, -1:]
+            else:
+                lg_p = family_logits(port, model, cfg, b, "plain")
+                lg_n = family_logits(port, model, cfg, b, "naive")
+            e_floor = family_diff(torch, lg_n, lg_p)
+            e_plain = family_diff(torch, lg_k, lg_p, e_floor)
+            del lg_k, lg_p, lg_n
+
+            # decode against prefill at every decoded position; the MoE
+            # at a capacity that drops nothing (a decode step is its own
+            # group), its prefill replaying the decode run's routing
+            dcfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.num_experts
+                / cfg.num_experts_per_tok) if moe else cfg
+            full = port.batch_at(1, global_batch=batch,
+                                 seq_len=prefix + steps,
+                                 vocab_size=cfg.vocab_size).to(device)
+            fb = {"tokens": full, **extras}
+            lg_d = []
+            with RouteRecorder(port, moe) as rd:
+                _, cache = models.forward_prefill(
+                    model, dcfg, {"tokens": full[:, :prefix], **extras})
+                cache = port.lm_serve.pad_cache_for_decode(
+                    dcfg, cache, prefix + steps + vis, batch)
+                for t in range(prefix, prefix + steps):
+                    lg, cache = models.forward_decode(
+                        model, dcfg, full[:, t:t + 1], cache)
+                    lg_d.append(lg)
+            del cache
+            lg_d = torch.cat(lg_d, dim=1)                  # (B, steps, V)
+            if moe:
+                with RouteRecorder(port, True) as rf:
+                    family_logits(port, model, dcfg, fb, "chunked")
+                _, flips["decode_vs_prefill"], \
+                    flips["decode_vs_prefill_by_layer"] = rd.compare(
+                        rf, last=steps)
+                with RouteReplay(port, rd.choices(cfg.num_layers)):
+                    lg_f = family_logits(port, model, dcfg, fb, "chunked",
+                                         steps)
+                bound_f = FAMILY_FLOOR_FACTOR * flips["floor_naive_vs_plain"]
+                log(f"[families] {arch} routing: {flips} (bound "
+                    f"{FAMILY_FLOOR_FACTOR} x the floor = {bound_f:.4f})")
+                for what in ("kernel_vs_plain", "decode_vs_prefill"):
+                    check(flips[what] <= bound_f,
+                          f"{arch}: routing flips {what} {flips[what]:.4f} "
+                          f"beyond {bound_f:.4f}")
+                del rk, rd, rf
+            else:
+                lg_f = family_logits(port, model, dcfg, fb, "chunked", steps)
+            e_dec = family_diff(torch, lg_d, lg_f, e_floor)
+            del lg_d, lg_f
+            _sync(torch, device)
+        replayed = " (kernel run's routing replayed)" if moe else ""
+        log(f"[families] {arch} logits, the floor: prefill naive vs "
+            f"plain{replayed}: "
+            f"{ {k: v for k, v in e_floor.items() if k != 'top2_gap'} }")
+        errs = {"prefill kernel vs plain" + replayed: e_plain,
+                f"decode vs prefill ({prefix} + {steps} tokens, every "
+                f"decoded position)": e_dec}
+        for what, e in errs.items():
+            log(f"[families] {arch} logits, {what}: "
+                f"{ {k: v for k, v in e.items() if k != 'top2_gap'} }")
+            tol_max, tol_mean = e["bounds"]
+            check(e["finite"], f"{arch} {what}: logits not finite")
+            check(e["max"] <= tol_max and e["mean"] <= tol_mean
+                  and e["argmax_other"] == 0,
+                  f"{arch} {what}: {e} beyond max {tol_max}, mean "
+                  f"{tol_mean} or argmax")
+
+        # -- the kernel at every shape the prefill gave it ----------------
+        for (qs, ks, kw), (q, k, v) in cap.seen.items():
+            kw = dict(kw)
+            got = port.flash(q, k, v, **kw)
+            want_o = port.flash_attention_ref(q, k, v, **kw)
+            parity.one(got, want_o, "bfloat16", f"{arch} {qs} x {ks} {kw}")
+            err = float((got.float() - want_o.float()).abs().max())
+            check(not kw.get("window") and not kw.get("softcap"),
+                  f"{arch}: flash options {kw}")
+            t = flash_times(port, device, q, k, v, batch,
+                            causal=kw.get("causal", True))
+            shapes.append({"arch": arch, "q": list(qs), "kv": list(ks),
+                           "causal": kw.get("causal", True),
+                           "max_abs_err": err, **t})
+            log(f"[times] flash_attention_fwd {arch} {qs} x {ks} bf16 "
+                f"causal={kw.get('causal', True)}: kernel {t['ms']:.4f} ms  "
+                f"plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']})  sdpa {t['library_ms']:.4f} ms; "
+                f"max_abs_err {err:.3e}")
+            del got, want_o
+        del cap
+        prof = device_profile(port, cfg, model, batch, prompt_len, device,
+                              gen=profile_gen)
+        cells[arch] = {
+            "family": cfg.family, "depth": depth, "params": n_params,
+            "batch": batch, "prompt": prompt_len, "gen": gen,
+            "vision_tokens": vis, "init_s": init_s,
+            "flash_launches": launches["flash_attention_fwd"],
+            "prefill_ms": prefill_ms, "decode_tok_per_s": tok_s,
+            "prefill_runs_ms": [r["prefill_s"] * 1e3 for r in runs],
+            "tok_per_s_runs": [r["tok_per_s"] for r in runs],
+            "peak_bytes": peak, "routing_flips": flips or None,
+            "logit_floor": {k: e_floor[k] for k in ("max", "mean",
+                                                    "max_logit")},
+            "logit_err": {k: {"max": e["max"], "mean": e["mean"],
+                              "argmax_ties": e["argmax_ties"],
+                              "max_logit": e["max_logit"],
+                              "bounds": e["bounds"]}
+                          for k, e in errs.items()},
+            "profile": {k: prof[k] for k in ("device_busy_share",
+                                             "top_kernels")}}
+        log(f"[times] llm {arch} batch={batch} prompt={prompt_len} gen={gen}:"
+            f" prefill {prefill_ms:.2f} ms, decode {tok_s:.1f} tok/s, peak "
+            f"{nbytes(peak)}")
+        del model, toks
+        if on_card:
+            torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    out = {"launches": total, "cells": cells, "shapes": shapes,
+           "parity_err": parity.err["bfloat16"], "secs": secs}
+    log("[families] " + json.dumps(out))
+    log(f"[families done] {secs:.1f} s")
+    return out
+
+
+def kernels_record(result: dict, llm: dict, trained: dict,
+                   families: dict) -> dict:
     """The contract record of each kernel: spmv_ell at pagerank/bsp's
     ell_in buckets and bfs_pull at bfs/fast's, at the largest parts
     count; flash_attention_fwd at one TinyLlama prefill layer.  A graph
@@ -3760,7 +4235,8 @@ def kernels_record(result: dict, llm: dict, trained: dict) -> dict:
                      "library_ms": cell["library_ms"],
                      "gathers_per_s": cell["gathers"] / cell["ms"] * 1e3})
     cell = llm["flash"]
-    flash_paths = {"llm-main": llm["launches"], "train": trained["launches"]}
+    flash_paths = {"llm-main": llm["launches"], "train": trained["launches"],
+                   "families": families["launches"]}
     rows.append({"name": "flash_attention_fwd", "route": "cuda",
                  "design": "wgmma (bf16 tensor cores, TMA k/v ring)",
                  "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3768,12 +4244,15 @@ def kernels_record(result: dict, llm: dict, trained: dict) -> dict:
                  "replaces": FLASH_REPLACES,
                  "launches": sum(flash_paths.values()),
                  "launches_by_path": flash_paths,
-                 "max_abs_err": llm["parity_err"], "ms": cell["ms"],
+                 "max_abs_err": max(llm["parity_err"],
+                                    families["parity_err"]),
+                 "ms": cell["ms"],
                  "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"],
                  "bound_by": cell["bound_by"],
                  "library_ms": cell["library_ms"],
                  "lse_ms": trained["lse_ms"],
-                 "lse_max_abs_err": trained["lse_err"]})
+                 "lse_max_abs_err": trained["lse_err"],
+                 "family_shapes": families["shapes"]})
     return {"kernels": rows}
 
 
@@ -3798,8 +4277,10 @@ def main() -> int:
     llm = run_llm(Port(), "cuda")
     torch.cuda.empty_cache()
     trained = run_train(Port(), "cuda")
+    torch.cuda.empty_cache()
+    fams = run_families(Port(), "cuda")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(kernels_record(result, llm, trained)))
+    print(json.dumps(kernels_record(result, llm, trained, fams)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

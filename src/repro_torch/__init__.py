@@ -3,10 +3,12 @@ PyTorch and CUDA.
 
 The paper's BFS and PageRank (a BGL-like BSP baseline and an
 HPX-adapted fast variant of each) run as superstep programs over P
-vertex blocks stacked on one device.  Beside them, the dense family of
-the LM stack serves tokens: batched prefill, then greedy decode against
-the KV cache.  The package mirrors the layout of the JAX package
-``repro`` module for module, and never imports it:
+vertex blocks stacked on one device.  Beside them, the LM stack serves
+tokens for every architecture family (dense, MoE, Mamba2, hybrid,
+audio encoder-decoder, VLM): batched prefill, then greedy decode
+against the KV and SSM caches; the dense family also trains.  The
+package mirrors the layout of the JAX package ``repro`` module for
+module, and never imports it:
 
   repro_torch.configs  -- GraphConfig and the graph workloads;
                           ModelConfig, the ten architectures, registry
@@ -14,8 +16,9 @@ the KV cache.  The package mirrors the layout of the JAX package
   repro_torch.core     -- partitioned graph, exchanges, local ops,
                           superstep loop, BFS, PageRank, registry,
                           GraphEngine
-  repro_torch.models   -- parameter specs, layers, the dense-family
-                          Transformer with prefill and decode
+  repro_torch.models   -- parameter specs, layers, MoE and Mamba2
+                          blocks, the Transformer of every family with
+                          prefill and decode
   repro_torch.data     -- the deterministic synthetic token stream
   repro_torch.kernels  -- CUDA C++ kernels for Hopper (sm_90a), each
                           beside its plain-PyTorch version

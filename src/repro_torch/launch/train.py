@@ -28,6 +28,7 @@ from repro_torch.data import TokenStream
 from repro_torch.distributed.fault_tolerance import StepWatchdog, plan_remesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import init_params, param_spec
+from repro_torch.models.model import check_trainable
 from repro_torch.optim import init_opt_state
 from repro_torch.tree import tree_map
 
@@ -65,7 +66,10 @@ def train(cfg, tc: TrainConfig, *, batch: int, seq: int, steps: int,
     ``(step, loss)`` pairs.  A ``history`` list receives a record of
     every step (``step``, ``loss``, ``grad_norm``, ``lr`` and its wall
     ``s`` up to those host reads), of every checkpoint written
-    (``write_s``) and of a restore (``read_s``)."""
+    (``write_s``) and of a restore (``read_s``).  The dense family only:
+    the others raise ``NotImplementedError`` before any weight is drawn
+    (``models.model.check_trainable``)."""
+    check_trainable(cfg)
     device = _device(device)
     params, opt = build_state(cfg, tc, device)
     stream = TokenStream(global_batch=batch, seq_len=seq,

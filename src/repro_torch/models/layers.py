@@ -343,14 +343,26 @@ def attn_out(p, o, x_dtype):
 
 
 def attention_block(p, x, cfg, *, positions, causal=True, window=0,
-                    impl="chunked"):
-    """Full self-attention sub-block (no norm/residual).
+                    impl="chunked", kv=None, kv_positions=None):
+    """Full attention sub-block (no norm/residual).  ``kv`` given: cross-
+    attention, keys and values projected from the memory ``kv`` (B, Sk,
+    d) without RoPE, unmasked (``causal=False, window=0``), so the
+    kernel runs with Sq != Sk.
 
     Returns (out, (k, v)) with k/v in UNREPEATED (B, S, KH, D) form for
     the decode cache.
     """
     g = cfg.num_heads // cfg.num_kv_heads
-    q, k, v = attn_qkv(p, x, cfg, positions)
+    if kv is None:
+        q, k, v = attn_qkv(p, x, cfg, positions)
+        k_pos = positions
+    else:
+        q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
+        k = torch.einsum("bsd,dhe->bshe", kv, p["wk"].to(kv.dtype))
+        v = torch.einsum("bsd,dhe->bshe", kv, p["wv"].to(kv.dtype))
+        k_pos = (kv_positions if kv_positions is not None
+                 else torch.arange(kv.shape[1], device=kv.device))
+        causal, window = False, 0
     train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                          or v.requires_grad)
     # positions are arange in every full-sequence path
@@ -366,7 +378,7 @@ def attention_block(p, x, cfg, *, positions, causal=True, window=0,
                             softcap=cfg.attn_logit_softcap)
     else:
         o = attention_naive(q, repeat_kv(k, g), repeat_kv(v, g),
-                            q_pos=positions, k_pos=positions, causal=causal,
+                            q_pos=positions, k_pos=k_pos, causal=causal,
                             window=window, softcap=cfg.attn_logit_softcap)
     return attn_out(p, o, x.dtype), (k, v)
 
@@ -374,6 +386,12 @@ def attention_block(p, x, cfg, *, positions, causal=True, window=0,
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
+def silu(g):
+    """``jax.nn.silu``: g * sigmoid(g), with the sigmoid as XLA expands
+    it, 1 / (1 + exp(-g)), each step rounded to g's dtype."""
+    return g * (1 / (1 + torch.exp(-g)))
+
+
 def mlp_spec(cfg):
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act == "swiglu":
@@ -394,9 +412,7 @@ def apply_mlp(p, x, cfg):
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
     if cfg.act == "swiglu":
         g = torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))
-        # jax.nn.silu(g) is g * sigmoid(g), and XLA expands the sigmoid
-        # to 1 / (1 + exp(-g)), rounding each step to g's dtype
-        h = g * (1 / (1 + torch.exp(-g))) * h
+        h = silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
     return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))

@@ -1,22 +1,27 @@
-"""Model assembly for the dense family.
+"""Model assembly for every architecture family.
 
 A config is compiled into a *layer plan*: an ordered list of homogeneous
 segments.  The model is a ``Transformer`` whose segments are
 ``nn.ModuleList``s of per-layer ``Block``s, run by a Python loop (the
-reference scans stacked parameters).  The dense family has one segment
-kind:
+reference scans stacked parameters).  Segment kinds:
 
-  attn        -- GQA attention + MLP block (window per segment; gemma3's
-                 local:global pattern becomes runs of equal window)
-
-The other families (moe, ssm, hybrid, audio, vlm) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+  attn        -- GQA attention + MLP block   (dense / vlm; window per
+                 segment; gemma3's local:global pattern becomes runs of
+                 equal window)
+  moe         -- GQA attention + MoE block
+  mamba       -- Mamba2 (SSD) block
+  shared_attn -- zamba2's parameter-shared attention+MLP block
+                 (``Transformer.shared``; the segment holds no block)
+  enc_attn    -- bidirectional encoder block (whisper,
+                 ``Transformer.encoder``)
+  xattn       -- decoder block with self + cross attention (whisper)
 
 Three entry points:
   forward_train   causal-LM loss over a parameter TREE (the stacked
                   leaves ``init_params`` returns, which autograd and the
-                  optimizer see), blocks rematerialised
-  forward_prefill full-sequence forward that also builds the KV cache
+                  optimizer see), blocks rematerialised; the dense
+                  family only so far (ROADMAP.md item 13c)
+  forward_prefill full-sequence forward that also builds the KV/SSM cache
   forward_decode  single-token step against the cache
 """
 
@@ -33,25 +38,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
 from repro_torch.models.params import spec, tree_map_specs
 
-# the families the port does not run yet, and where ROADMAP.md queues them
-_LATER = {
-    "moe": "MoE (ROADMAP.md, LM queue item L2)",
-    "ssm": "Mamba2 (ROADMAP.md, LM queue item L3)",
-    "hybrid": "Mamba2 and hybrid (ROADMAP.md, LM queue item L3)",
-    "audio": "the audio encoder-decoder (ROADMAP.md, LM queue item L4)",
-    "vlm": "the VLM (ROADMAP.md, LM queue item L5)",
-}
-
-
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; see "
-            f"{_LATER[cfg.family]}")
+def check_trainable(cfg: ModelConfig) -> None:
+    """Training runs the dense family; the others serve only so far."""
     if cfg.family != "dense":
-        raise ValueError(cfg.family)
+        raise NotImplementedError(
+            f"{cfg.name}: training family {cfg.family!r} is not ported yet "
+            "(it serves); see ROADMAP.md, LM item 13c (train the other "
+            "families on the card)")
 
 
 # ---------------------------------------------------------------------------
@@ -63,36 +60,73 @@ class Segment:
     count: int
     window: int = 0          # 0 = full attention
     causal: bool = True
+    shared_index: int = -1   # invocation index for shared_attn
 
 
 def build_plan(cfg: ModelConfig) -> list[Segment]:
-    _dense_only(cfg)
-    if cfg.global_every > 0:
-        # gemma3-style local:global pattern -> runs of equal window
-        segs: list[Segment] = []
-        run_w, run_n = None, 0
-        for i in range(cfg.num_layers):
-            w = 0 if (i + 1) % cfg.global_every == 0 else cfg.sliding_window
-            if w == run_w:
-                run_n += 1
-            else:
-                if run_n:
-                    segs.append(Segment("attn", run_n, window=run_w))
-                run_w, run_n = w, 1
-        if run_n:
-            segs.append(Segment("attn", run_n, window=run_w))
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        if cfg.global_every > 0:
+            # gemma3-style local:global pattern -> runs of equal window
+            segs: list[Segment] = []
+            run_w, run_n = None, 0
+            for i in range(cfg.num_layers):
+                w = 0 if (i + 1) % cfg.global_every == 0 \
+                    else cfg.sliding_window
+                if w == run_w:
+                    run_n += 1
+                else:
+                    if run_n:
+                        segs.append(Segment("attn", run_n, window=run_w))
+                    run_w, run_n = w, 1
+            if run_n:
+                segs.append(Segment("attn", run_n, window=run_w))
+            return segs
+        return [Segment("attn", cfg.num_layers, window=cfg.sliding_window)]
+    if fam == "moe":
+        return [Segment("moe", cfg.num_layers, window=cfg.sliding_window)]
+    if fam == "ssm":
+        return [Segment("mamba", cfg.num_layers)]
+    if fam == "hybrid":
+        segs = []
+        remaining, idx = cfg.num_layers, 0
+        while remaining > 0:
+            segs.append(Segment("shared_attn", 1, shared_index=idx))
+            idx += 1
+            n = min(cfg.hybrid_attn_every, remaining)
+            segs.append(Segment("mamba", n))
+            remaining -= n
         return segs
-    return [Segment("attn", cfg.num_layers, window=cfg.sliding_window)]
+    if fam == "audio":
+        return [Segment("xattn", cfg.num_layers)]
+    raise ValueError(fam)
 
 
 # ---------------------------------------------------------------------------
 # Param specs
 # ---------------------------------------------------------------------------
-def _block_spec(cfg: ModelConfig):
-    return {"ln1": L.norm_spec(cfg.norm, cfg.d_model),
-            "attn": L.attn_spec(cfg),
-            "ln2": L.norm_spec(cfg.norm, cfg.d_model),
-            "mlp": L.mlp_spec(cfg)}
+def _block_spec(cfg: ModelConfig, kind: str):
+    if kind in ("attn", "enc_attn"):
+        return {"ln1": L.norm_spec(cfg.norm, cfg.d_model),
+                "attn": L.attn_spec(cfg),
+                "ln2": L.norm_spec(cfg.norm, cfg.d_model),
+                "mlp": L.mlp_spec(cfg)}
+    if kind == "moe":
+        return {"ln1": L.norm_spec(cfg.norm, cfg.d_model),
+                "attn": L.attn_spec(cfg),
+                "ln2": L.norm_spec(cfg.norm, cfg.d_model),
+                "moe": MOE.moe_spec(cfg)}
+    if kind == "mamba":
+        return {"ln": L.norm_spec("rmsnorm", cfg.d_model),
+                "mixer": M2.mamba2_spec(cfg)}
+    if kind == "xattn":
+        return {"ln1": L.norm_spec(cfg.norm, cfg.d_model),
+                "attn": L.attn_spec(cfg),
+                "lnx": L.norm_spec(cfg.norm, cfg.d_model),
+                "xattn": L.attn_spec(cfg),
+                "ln2": L.norm_spec(cfg.norm, cfg.d_model),
+                "mlp": L.mlp_spec(cfg)}
+    raise ValueError(kind)
 
 
 def _stack_spec(tree, n: int):
@@ -102,7 +136,9 @@ def _stack_spec(tree, n: int):
 
 
 def param_spec(cfg: ModelConfig):
-    """Full parameter spec tree, segments stacked as in the reference."""
+    """Full parameter spec tree, segments stacked as in the reference: a
+    shared-attention segment is ``{}`` (its block is ``"shared"``), and
+    the audio family's encoder is ``"encoder"``."""
     d = cfg.d_model
     p: dict[str, Any] = {
         "embed": spec((cfg.vocab_size, d), ("vocab", "embed"), scale=0.02),
@@ -110,8 +146,17 @@ def param_spec(cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = spec((d, cfg.vocab_size), ("embed", "vocab"))
-    p["segments"] = [_stack_spec(_block_spec(cfg), s.count)
+    p["segments"] = [{} if s.kind == "shared_attn"
+                     else _stack_spec(_block_spec(cfg, s.kind), s.count)
                      for s in build_plan(cfg)]
+    if cfg.family == "hybrid":
+        p["shared"] = _block_spec(cfg, "attn")
+    if cfg.family == "audio":
+        p["encoder"] = {
+            "segments": [_stack_spec(_block_spec(cfg, "enc_attn"),
+                                     cfg.encoder_layers)],
+            "final_norm": L.norm_spec(cfg.norm, d),
+        }
     return p
 
 
@@ -122,77 +167,146 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _params(sub: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _param(t) for k, t in sub.items()})
+
+
 class Block(nn.Module):
-    """One layer: ``ln1``, ``attn`` (wq/wk/wv/wo [+ biases]), ``ln2`` and
-    ``mlp``, each an ``nn.ParameterDict``."""
+    """One layer: an ``nn.ParameterDict`` for each entry of its spec
+    (``ln1``, ``attn``, ``ln2``, ``mlp`` or ``moe``; ``lnx`` and
+    ``xattn`` for a decoder block; ``ln`` and ``mixer`` for mamba)."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for name, sub in tree.items():
-            setattr(self, name, nn.ParameterDict(
-                {k: _param(t) for k, t in sub.items()}))
+            setattr(self, name, _params(sub))
+
+
+def _blocks(seg_tree: dict) -> nn.ModuleList:
+    """The per-layer Blocks of a stacked segment tree, each holding views
+    of its layer; empty for ``{}`` (a shared-attention segment)."""
+    if not seg_tree:
+        return nn.ModuleList()
+    count = next(iter(next(iter(seg_tree.values())).values())).shape[0]
+    return nn.ModuleList(
+        Block({name: {k: t[i] for k, t in sub.items()}
+               for name, sub in seg_tree.items()})
+        for i in range(count))
+
+
+class Encoder(nn.Module):
+    """The audio family's encoder: ``segments`` and ``final_norm``, as
+    the reference's ``params["encoder"]``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self.segments = nn.ModuleList(_blocks(t) for t in tree["segments"])
+        self.final_norm = _params(tree["final_norm"])
 
 
 class Transformer(nn.Module):
-    """The dense-family model.  ``tree`` is a parameter tree with the
-    layers of each segment stacked on axis 0 (``param_spec``'s layout);
-    each Block holds views of its layer."""
+    """The model.  ``tree`` is a parameter tree with the layers of each
+    segment stacked on axis 0 (``param_spec``'s layout); each Block
+    holds views of its layer.  ``shared`` (hybrid) and ``encoder``
+    (audio) hold the trees of the reference's keys of those names."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
         self.cfg = cfg
         self.plan = build_plan(cfg)
         self.embed = _param(tree["embed"])
-        self.final_norm = nn.ParameterDict(
-            {k: _param(t) for k, t in tree["final_norm"].items()})
+        self.final_norm = _params(tree["final_norm"])
         if "lm_head" in tree:
             self.lm_head = _param(tree["lm_head"])
-        self.segments = nn.ModuleList(
-            nn.ModuleList(
-                Block({name: {k: t[i] for k, t in sub.items()}
-                       for name, sub in seg_tree.items()})
-                for i in range(seg.count))
-            for seg, seg_tree in zip(self.plan, tree["segments"]))
+        self.segments = nn.ModuleList(_blocks(t) for t in tree["segments"])
+        if "shared" in tree:
+            self.shared = Block(tree["shared"])
+        if "encoder" in tree:
+            self.encoder = Encoder(tree["encoder"])
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (prefill)
+# Block bodies (full-sequence mode)
 # ---------------------------------------------------------------------------
-def _attn_body(bp, x, cfg, seg: Segment, positions, impl):
+def _attn_body(bp, x, cfg, seg: Segment, positions, impl, memory=None):
     h = L.apply_norm(bp.ln1, x, cfg.norm)
     a, kv = L.attention_block(bp.attn, h, cfg, positions=positions,
                               causal=seg.causal, window=seg.window, impl=impl)
     x = x + a
+    extras = {"k": kv[0], "v": kv[1]}
+    if seg.kind == "xattn":
+        h = L.apply_norm(bp.lnx, x, cfg.norm)
+        a, xkv = L.attention_block(bp.xattn, h, cfg, positions=positions,
+                                   impl=impl, kv=memory)
+        x = x + a
+        extras.update({"xk": xkv[0], "xv": xkv[1]})
     h = L.apply_norm(bp.ln2, x, cfg.norm)
-    return x + L.apply_mlp(bp.mlp, h, cfg), {"k": kv[0], "v": kv[1]}
+    if seg.kind == "moe":
+        m, _ = MOE.apply_moe(bp.moe, h, cfg)
+    else:
+        m = L.apply_mlp(bp.mlp, h, cfg)
+    return x + m, extras
+
+
+def _mamba_body(bp, x, cfg):
+    h = L.apply_norm(bp.ln, x, "rmsnorm")
+    out, (h_last, conv) = M2.mamba2_block(bp.mixer, h, cfg,
+                                          return_state=True)
+    return x + out, {"h": h_last, "conv": conv}
 
 
 def _clip_cache(extras, seg: Segment):
     """Keep only the window-relevant tail of k/v for SWA segments."""
-    if seg.window <= 0:
+    if seg.window <= 0 or seg.kind == "xattn":
         return extras
-    return {name: t[:, -seg.window:] for name, t in extras.items()}
+    return {name: t[:, -seg.window:] if name in ("k", "v") else t
+            for name, t in extras.items()}
 
 
-def _run_segments(params: Transformer, cfg, x, positions, *, impl):
+def _run_segments(params: Transformer, cfg, x, positions, *, impl,
+                  memory=None):
     """Run the layer plan over full-sequence x.  Returns x and, per
-    segment, the k/v of its layers stacked on axis 0."""
+    segment, its cache entries: those of its layers stacked on axis 0,
+    a shared-attention segment's without that axis."""
     caches = []
     for seg, blocks in zip(params.plan, params.segments):
+        if seg.kind == "shared_attn":
+            x, extras = _attn_body(params.shared, x, cfg, seg, positions,
+                                   impl)
+            caches.append(extras)
+            continue
         per_layer = []
         for bp in blocks:
-            x, extras = _attn_body(bp, x, cfg, seg, positions, impl)
+            if seg.kind == "mamba":
+                x, extras = _mamba_body(bp, x, cfg)
+            else:
+                x, extras = _attn_body(bp, x, cfg, seg, positions, impl,
+                                       memory=memory)
             per_layer.append(_clip_cache(extras, seg))
         caches.append({name: torch.stack([e[name] for e in per_layer])
-                       for name in ("k", "v")})
+                       for name in per_layer[0]})
     return x, caches
 
 
-def _embed(params: Transformer, cfg, tokens):
+def _embed(params: Transformer, cfg, tokens, extras=None):
     x = params.embed[tokens].to(torch.bfloat16)
-    if cfg.global_every > 0:  # gemma-style embed scaling
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.family == "dense" and cfg.global_every > 0:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)  # gemma
+    if cfg.family == "vlm" and extras is not None and "vis_embeds" in extras:
+        x = torch.cat([extras["vis_embeds"].to(x.dtype), x], dim=1)
     return x
+
+
+def _encode_audio(params: Transformer, cfg, enc_embeds, impl):
+    """The encoder over the frame embeddings: bidirectional blocks, then
+    its final norm.  Returns the decoder's cross-attention memory."""
+    x = enc_embeds.to(torch.bfloat16)
+    pos = torch.arange(x.shape[1], device=x.device)
+    seg = Segment("enc_attn", cfg.encoder_layers, causal=False)
+    for blocks in params.encoder.segments:
+        for bp in blocks:
+            x, _ = _attn_body(bp, x, cfg, seg, pos, impl)
+    return L.apply_norm(params.encoder.final_norm, x, cfg.norm)
 
 
 def _logits(params: Transformer, cfg, x):
@@ -260,8 +374,9 @@ def forward_train(params: dict, cfg: ModelConfig, batch, *, impl="chunked",
     ``"plain"`` through its plain-torch forward, ``"naive"`` through
     materialized scores.  ``remat`` recomputes each block in the
     backward.  The embedding is cast to bf16 before the lookup, as the
-    reference's is."""
-    _dense_only(cfg)
+    reference's is.  The dense family only: the others raise
+    ``NotImplementedError`` (:func:`check_trainable`)."""
+    check_trainable(cfg)
     tokens = batch["tokens"]
     x = params["embed"].to(torch.bfloat16)[tokens.long()]
     if cfg.global_every > 0:  # gemma-style embed scaling
@@ -281,17 +396,27 @@ def forward_train(params: dict, cfg: ModelConfig, batch, *, impl="chunked",
 
 def forward_prefill(params: Transformer, cfg: ModelConfig, batch, *,
                     impl="chunked"):
-    """Full-sequence forward building the decode cache.
+    """Full-sequence forward building the decode cache.  ``batch``:
+    ``tokens`` (B, S), plus ``enc_embeds`` (B, encoder_seq, d) for the
+    audio family and ``vis_embeds`` (B, vision_tokens, d), prepended to
+    the token embeddings, for the vlm.
 
     Returns (last-position logits, cache).  Cache layout mirrors the plan:
-    one entry per segment (see init_cache for shapes).
+    one entry per segment (see init_cache for shapes).  ``pos`` counts
+    every position the cache holds, the vision tokens included (the
+    reference's counts the text tokens alone, so its vlm decode writes
+    over the prompt's last keys and ropes at the wrong position).
     """
     tokens = batch["tokens"]
-    x = _embed(params, cfg, tokens)
+    memory = None
+    if cfg.family == "audio":
+        memory = _encode_audio(params, cfg, batch["enc_embeds"], impl)
+    x = _embed(params, cfg, tokens, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, caches = _run_segments(params, cfg, x, positions, impl=impl)
+    x, caches = _run_segments(params, cfg, x, positions, impl=impl,
+                              memory=memory)
     logits = _logits(params, cfg, x[:, -1:, :])
-    return logits, {"segments": caches, "pos": tokens.shape[1]}
+    return logits, {"segments": caches, "pos": x.shape[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -299,11 +424,15 @@ def forward_prefill(params: Transformer, cfg: ModelConfig, batch, *,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, ctx_len: int,
                device: torch.device | str | None = None):
-    """Zero-initialized bf16 decode cache, on the card unless ``device``
-    says otherwise (without a card it raises; pass ``device="cpu"``).
+    """Zero-initialized decode cache, on the card unless ``device`` says
+    otherwise (without a card it raises; pass ``device="cpu"``).
 
-    Full-attention segments get (L, B, ctx, KH, D) buffers written at
-    ``pos``; SWA segments get (L, B, window, KH, D) shift buffers.
+    Full-attention segments get bf16 (L, B, ctx, KH, D) buffers written at
+    ``pos``; SWA segments get (L, B, window, KH, D) shift buffers; the
+    shared-attention segments the same without the layer axis; decoder
+    blocks also the encoder's k/v, ``xk``/``xv`` (L, B, encoder_seq, KH,
+    D); mamba segments their O(1) state, ``h`` f32 (L, B, H, P, N) and
+    ``conv`` bf16 (L, B, ssm_conv - 1, conv_dim).
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -312,12 +441,28 @@ def init_cache(cfg: ModelConfig, batch: int, ctx_len: int,
                 "available; pass device='cpu' to keep it on the CPU")
         device = "cuda"
     kh, hd = cfg.num_kv_heads, cfg.head_dim
+    bf16 = torch.bfloat16
+
+    def zeros(shape, dtype=bf16):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     segs = []
     for seg in build_plan(cfg):
+        if seg.kind == "mamba":
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            segs.append({
+                "h": zeros((seg.count, batch, cfg.ssm_nheads,
+                            cfg.ssm_head_dim, cfg.ssm_state), torch.float32),
+                "conv": zeros((seg.count, batch, cfg.ssm_conv - 1,
+                               conv_dim))})
+            continue
         wlen = min(seg.window if seg.window > 0 else ctx_len, ctx_len)
-        shape = (seg.count, batch, wlen, kh, hd)
-        segs.append({name: torch.zeros(shape, dtype=torch.bfloat16,
-                                       device=device) for name in ("k", "v")})
+        lead = () if seg.kind == "shared_attn" else (seg.count,)
+        c = {name: zeros(lead + (batch, wlen, kh, hd)) for name in ("k", "v")}
+        if seg.kind == "xattn":
+            c.update({name: zeros(lead + (batch, cfg.encoder_seq, kh, hd))
+                      for name in ("xk", "xv")})
+        segs.append(c)
     return {"segments": segs, "pos": 0}
 
 
@@ -357,6 +502,30 @@ def _decode_attn(bp, x, cfg, seg: Segment, pos: int, ck, cv):
     return x + L.attn_out(bp.attn, o, x.dtype)
 
 
+def _decode_xattn(bp, x, cfg, xk, xv):
+    """One decode step of a decoder block's cross-attention against the
+    encoder's cached k/v (no mask, no RoPE)."""
+    kh = cfg.num_kv_heads
+    g = cfg.num_heads // kh
+    B = x.shape[0]
+    h = L.apply_norm(bp.lnx, x, cfg.norm)
+    q = torch.einsum("bsd,dhe->bshe", h, bp.xattn["wq"].to(h.dtype))
+    q = q.reshape(B, 1, kh, g, cfg.head_dim)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), xk.float()) \
+        * (cfg.head_dim ** -0.5)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(xv.dtype), xv)
+    o = o.reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    return x + L.attn_out(bp.xattn, o, x.dtype)
+
+
+def _decode_mlp(bp, x, cfg, seg: Segment):
+    h = L.apply_norm(bp.ln2, x, cfg.norm)
+    if seg.kind == "moe":
+        return x + MOE.apply_moe(bp.moe, h, cfg)[0]
+    return x + L.apply_mlp(bp.mlp, h, cfg)
+
+
 def forward_decode(params: Transformer, cfg: ModelConfig, tokens, cache):
     """One decode step at ``cache["pos"]``. tokens: (B, 1) -> logits
     (B, 1, V), and the cache with ``pos + 1``; its buffers are updated in
@@ -365,9 +534,23 @@ def forward_decode(params: Transformer, cfg: ModelConfig, tokens, cache):
     x = _embed(params, cfg, tokens)
     for seg, blocks, c in zip(params.plan, params.segments,
                               cache["segments"]):
+        if seg.kind == "shared_attn":
+            x = _decode_attn(params.shared, x, cfg, seg, pos, c["k"],
+                             c["v"])
+            x = _decode_mlp(params.shared, x, cfg, seg)
+            continue
         for li, bp in enumerate(blocks):
+            if seg.kind == "mamba":
+                h = L.apply_norm(bp.ln, x, "rmsnorm")
+                out, (h_new, conv_new) = M2.mamba2_decode(
+                    bp.mixer, h, cfg, (c["h"][li], c["conv"][li]))
+                c["h"][li] = h_new
+                c["conv"][li] = conv_new
+                x = x + out
+                continue
             x = _decode_attn(bp, x, cfg, seg, pos, c["k"][li], c["v"][li])
-            h = L.apply_norm(bp.ln2, x, cfg.norm)
-            x = x + L.apply_mlp(bp.mlp, h, cfg)
+            if seg.kind == "xattn":
+                x = _decode_xattn(bp, x, cfg, c["xk"][li], c["xv"][li])
+            x = _decode_mlp(bp, x, cfg, seg)
     logits = _logits(params, cfg, x)
     return logits, {"segments": cache["segments"], "pos": pos + 1}

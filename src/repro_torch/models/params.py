@@ -25,7 +25,7 @@ import torch
 class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]   # logical axis name per dim (or None)
-    init: str = "normal"              # normal | zeros | ones
+    init: str = "normal"              # normal | zeros | ones | arange_neg
     scale: float = 0.02
     dtype: torch.dtype = torch.float32
 
@@ -59,17 +59,21 @@ def param_count(spec_tree) -> int:
 def init_params(spec_tree, generator: torch.Generator,
                 device: torch.device | str):
     """Materialize a spec tree into real fp32 parameters on ``device``:
-    normal x ``scale``, zeros or ones.  ``generator`` lives on ``device``;
-    its draws follow the tree's order."""
+    normal x ``scale``, zeros, ones, or ``arange_neg`` (mamba's ``A_log``:
+    ``log(1 .. n)`` along the last axis).  ``generator`` lives on
+    ``device``; its draws follow the tree's order."""
 
     def make(s: ParamSpec):
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=s.dtype, device=device)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=s.dtype, device=device)
+        if s.init == "arange_neg":
+            base = torch.log(torch.arange(1, s.shape[-1] + 1,
+                                          dtype=torch.float32, device=device))
+            return base.expand(s.shape).to(s.dtype).clone()
         if s.init != "normal":
-            raise ValueError(f"init {s.init!r} belongs to a family the port "
-                             "does not run yet")
+            raise ValueError(f"unknown init {s.init!r}")
         return torch.randn(s.shape, generator=generator, dtype=torch.float32,
                            device=device).mul_(s.scale).to(s.dtype)
 
@@ -79,7 +83,8 @@ def init_params(spec_tree, generator: torch.Generator,
 def params_from_arrays(cfg, tree):
     """The port's ``Transformer`` on the CPU holding the values of the JAX
     package's parameter tree ``tree`` (numpy arrays, the layers of a
-    segment stacked on axis 0)."""
+    segment stacked on axis 0; ``{}`` for a shared-attention segment,
+    whose block is ``tree["shared"]``)."""
     from repro_torch.models.model import Transformer
 
     def convert(t):
@@ -95,20 +100,33 @@ def params_from_arrays(cfg, tree):
 def params_to_arrays(cfg, model):
     """The JAX package's parameter tree (float32 numpy arrays, the layers
     of a segment stacked on axis 0) holding the values of the
-    ``Transformer`` ``model``: the inverse of :func:`params_from_arrays`."""
+    ``Transformer`` ``model``, every family's blocks, its shared block
+    and its encoder included: the inverse of :func:`params_from_arrays`."""
 
     def arr(t):
         return t.detach().float().cpu().numpy()
+
+    def block(b):
+        return {name: {k: arr(t) for k, t in sub.items()}
+                for name, sub in b.named_children()}
+
+    def stacked(blocks):
+        if len(blocks) == 0:
+            return {}
+        return {name: {k: np.stack([arr(getattr(b, name)[k])
+                                    for b in blocks]) for k in sub}
+                for name, sub in blocks[0].named_children()}
 
     tree = {"embed": arr(model.embed),
             "final_norm": {k: arr(t) for k, t in model.final_norm.items()}}
     if hasattr(model, "lm_head"):
         tree["lm_head"] = arr(model.lm_head)
-    segs = []
-    for blocks in model.segments:
-        segs.append({name: {k: np.stack([arr(getattr(b, name)[k])
-                                         for b in blocks])
-                            for k in getattr(blocks[0], name)}
-                     for name in ("ln1", "attn", "ln2", "mlp")})
-    tree["segments"] = segs
+    tree["segments"] = [stacked(blocks) for blocks in model.segments]
+    if hasattr(model, "shared"):
+        tree["shared"] = block(model.shared)
+    if hasattr(model, "encoder"):
+        enc = model.encoder
+        tree["encoder"] = {
+            "segments": [stacked(blocks) for blocks in enc.segments],
+            "final_norm": {k: arr(t) for k, t in enc.final_norm.items()}}
     return tree
