@@ -52,7 +52,15 @@ against its plain-PyTorch version:
   phi3.5-moe (depth cut to 8 layers), mamba2-1.3b, zamba2-7b,
   whisper-small and internvl2-1b at full width (kernel
   ``flash_attention_fwd`` at each of their attention shapes; none in
-  mamba2).
+  mamba2);
+- LM training of the other families: ``launch/train.py::train`` on
+  phi3.5-moe (1 of 32 layers), mamba2-1.3b, zamba2-7b (18 of 81 mamba
+  layers), whisper-small and internvl2-1b at full width (kernel
+  ``flash_attention_fwd`` with its ``lse`` at their training shapes:
+  non-causal, Sq != Sk, head dims 64, 112 and 128; none in mamba2);
+- the LM dry-run: ``launch/steps.py::lower_cell`` plans, on meta
+  tensors, the cells the phases above ran on the card, then
+  ``launch/dryrun.py --arch`` plans registry cells on the host.
 
 Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
@@ -201,8 +209,9 @@ prints no result):
            calls (not the direct ones), each > 0.  ``[serve]`` lines:
            served and direct ms per call; ``[serve done]`` the phase's
            seconds.
-  mutate   writes the partitions' host mirrors, so it runs last.  At
-           parts 1 and 4: a ``GraphServer`` and its ``DynamicGraph`` (index
+  mutate   on MUTATE_GRAPH, generated and partitioned for the phase (its
+           servers write the host mirrors).  At parts 1 and 4: a
+           ``GraphServer`` and its ``DynamicGraph`` (index
            build s and bytes, peak host RSS); cc, kcore and pagerank/fast
            served at epoch 0 (the warm seeds); a delete-only batch of
            MUTATE_BATCH sampled live edges (kcore/incremental warm equals
@@ -229,11 +238,12 @@ prints no result):
            this process, then again with its newest snapshot removed
            (snapshot 2 + two WAL records replayed): epoch, edge digest,
            bfs/fast and pagerank/fast bit-identical both times.  Then ``launch/graph_serve.run`` replays
-           SERVE_REPLAY with a 64-edge batch every second and a WAL
-           (MUTATE_REPLAY): every query ok, final epoch 7 (its insert
-           batches rebuild at urand22), q/s and p50/p95/p99 a cell, each
-           mutation's s; recovered from its directory (a snapshot at
-           epoch 7) to epoch 7 and the same edge digest.  ``spmv_ell`` and ``bfs_pull`` launches counted around
+           SERVE_REPLAY with a 64-edge batch every 3 s and a WAL
+           (MUTATE_REPLAY): every query ok, final epoch 2 (a delete
+           batch, then an insert batch), q/s and
+           p50/p95/p99 a cell, each mutation's s; recovered from its
+           directory (a snapshot at epoch 2) to epoch 2 and the same edge
+           digest.  ``spmv_ell`` and ``bfs_pull`` launches counted around
            the served and replayed queries, each > 0.  ``[mutate]`` lines;
            ``[mutate done]`` the phase's seconds.
   llm-parity  flash_attention_fwd against its plain version (ref.py) on
@@ -313,6 +323,41 @@ prints no result):
            ref.py (2e-2) and timed beside ref.py, SDPA and its bound; a
            torch.profiler serve call of 4 decode steps.
 
+  train-families (after families) each of TRAIN_FAMILIES in turn at
+           its depth, seeded weights drawn on the card and freed after:
+           the resident bytes of its parameters, optimizer state and
+           step-0 batch; step 0 through the kernel against impl="plain"
+           and impl="naive" (the MoE's routing recorded in the kernel run
+           and replayed in the other two, ``moe.route(choices=)``): the
+           loss gap within TRAIN_LOSS_TOL or TRAIN_GRAD_FACTOR x naive's
+           gap to plain, whichever is larger, each gradient leaf within
+           TRAIN_GRAD_FACTOR x naive's gap (mamba2 has no attention and
+           skips this, saying so); the kernel with ``return_lse`` at every
+           (q, k, options) that step gave it (o bit-identical with and
+           without lse, o within 2e-2 and lse within LSE_TOL of ref.py),
+           timed beside ref.py, SDPA and its bound; then
+           ``train()`` for TRAIN_FAMILY_STEPS steps of
+           default_train_config with the launch counters zeroed (flash
+           launches a step: 2 a stacked layer's attention call, forward
+           and remat recompute, 4 a decoder block, 1 a shared-attention
+           call, none in mamba2; all bf16), finite losses and grad norms,
+           every parameter leaf changed, ms a step, tokens/s and peak
+           bytes beside the card line.
+  dryrun-lm (last) ``lower_cell`` plans on meta tensors each cell the
+           card ran: llm-main's prefill, train's 8 x 1024 step, the
+           train-families steps and the families' prefills, with the
+           parameters in the dtype the run held: planned argument bytes
+           equal to the bytes the run held resident (requested bytes of
+           the caching allocator, read around drawing them), and the
+           planned peak (arguments plus temps, the plain attention
+           route's) not under the run's requested peak, the ratio and
+           max_memory_allocated printed.  The passes of
+           ``launch/dryrun.py --arch ... --mesh single`` over
+           DRYRUN_LM_PASSES start on the host when this phase starts,
+           after the last timed phase (5 and 2 worker processes, beside
+           the plans above), and are waited for: records in
+           build/dryrun_lm, each cell's plan seconds and bottleneck.
+
 The last three lines are the kernels' JSON record, the card line, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -320,6 +365,7 @@ result line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -392,22 +438,26 @@ SERVE_REPLAY = {"mix": "bfs:8,sssp:4,cc:1", "duration": 8.0, "rate": 16.0,
 SERVE_TRACE = HERE / "build" / "obs" / "chip_smoke_serve.json"
 SERVE_STAGES = ("admission", "validate", "coalesce_wait", "dispatch",
                 "device", "demux", "query")
-# the mutate phase: patch batches of MUTATE_BATCH edges a half at each
-# parts count (delete-only, mixed, insert-only: urand22 has no COO slack
-# at parts 1, so deletes come first), the programs served after them, the
-# rebuild path on MUTATE_REBUILD_GRAPH (partitioned in seconds), a durable
-# server at SERVE_PARTS (MUTATE_DURABLE) and the launcher's replay under
-# churn (MUTATE_REPLAY: every insert batch of its stream overflows a row
-# at urand22 and re-partitions; a snapshot at its last epoch, so its
-# recovery replays no record: the durable server's test does)
+# the mutate phase, on MUTATE_GRAPH partitioned for it at each parts
+# count: patch batches of MUTATE_BATCH edges a half (delete-only, mixed,
+# insert-only: a urand graph has no COO slack at parts 1, so deletes come
+# first), the programs served after them, the rebuild path on
+# MUTATE_REBUILD_GRAPH (partitioned in seconds), a durable server at
+# SERVE_PARTS (MUTATE_DURABLE) and the launcher's replay under churn
+# (MUTATE_REPLAY: a delete batch at 3 s and an insert batch at 6 s of its
+# 8 s trace; a snapshot at its last epoch, 2, so its recovery replays no
+# record: the durable server's test does).  MUTATE_GRAPH is a quarter of
+# GRAPH: at urand22 the phase's host work (oracles on 67M edges, 3.1 GiB
+# snapshots, a 50 s rebuild in the replay) took 343-420 s of the run.
+MUTATE_GRAPH = "urand20"
 MUTATE_BATCH = 4096
 MUTATE_SERVED = ("bfs/fast", "pagerank/bsp", "pagerank/fast", "sssp", "cc",
                  "betweenness")
 MUTATE_REBUILD_GRAPH = "urand18"
 MUTATE_DIR = HERE / "build" / "persist"
 MUTATE_DURABLE = {"batches": 4, "size": 64, "snapshot_every": 2}
-MUTATE_REPLAY = {**SERVE_REPLAY, "mutate_every": 1.0, "mutate_size": 64,
-                 "snapshot_every": 7}
+MUTATE_REPLAY = {**SERVE_REPLAY, "mutate_every": 3.0, "mutate_size": 64,
+                 "snapshot_every": 2}
 ASYNC_SIBLING = {"bfs/async": "bfs/fast", "sssp/async": "sssp",
                  "cc/async": "cc", "pagerank/async": "pagerank/fast",
                  "cc/incremental": "cc", "kcore/incremental": "kcore",
@@ -536,6 +586,34 @@ FAMILY_PREFIX, FAMILY_STEPS = 240, 16
 # The logits are held with the first run's routing replayed in the
 # second (``moe.route(choices=)``), so the two differ in rounding only.
 FAMILY_FLOOR_FACTOR = 2.0
+# LM training of the other families at full width through
+# launch/train.py: (arch, batch, text tokens, layers kept or None for the
+# full depth), TRAIN_FAMILY_STEPS steps of default_train_config each.
+# Depths by memory: the functional AdamW holds p, g, m, v and the new p,
+# m, v, about 28 B a parameter (TinyLlama: 40.34 GB at 1.10 B).
+# phi3.5-moe keeps 1 of 32 layers (1.56 B parameters with its
+# embeddings), zamba2 18 of 81 mamba layers (hybrid_attn_every 6 kept:
+# three shared-block calls).  dbrx-132b does not fit: one layer and its
+# embeddings are 72 GB of state before the new trees.  internvl2's 768
+# text tokens follow its 256 vision tokens.
+TRAIN_FAMILIES = (("phi3.5-moe-42b-a6.6b", 8, 1024, 1),
+                  ("mamba2-1.3b", 8, 1024, None),
+                  ("zamba2-7b", 4, 1024, 18),
+                  ("whisper-small", 8, 256, None),
+                  ("internvl2-1b", 8, 768, None))
+TRAIN_FAMILY_STEPS = 3
+# the LM dry-run CLI on the card's host (8 cores): every arch's train_4k
+# cell and every cell of two archs (the whole registry takes longer than
+# the run has: PERF.md), the two passes at once with (arch list, shape
+# list, worker processes) each, the costliest cells first; they start
+# with the dryrun-lm phase, after every timed phase, and seven workers
+# leave a core to that phase's own plans
+DRYRUN_LM_PASSES = (
+    ("dbrx-132b,qwen2.5-32b,gemma3-27b,phi3.5-moe-42b-a6.6b,zamba2-7b,"
+     "internvl2-1b,h2o-danube-3-4b,tinyllama-1.1b", "train_4k", 5),
+    ("whisper-small,mamba2-1.3b", "all", 2))
+DRYRUN_LM_DIR = HERE / "build" / "dryrun_lm"
+DRYRUN_LM_WAIT_S = 300   # a CLI pass still running then fails the phase
 
 
 def check(ok, msg: str) -> None:
@@ -589,6 +667,10 @@ class Port:
         from repro_torch.models import layers as model_layers
         from repro_torch.models import moe as model_moe
         from repro_torch.launch import serve as lm_serve
+        from repro_torch.launch import mesh
+        from repro_torch.configs.base import ShapeConfig
+        self.mesh = mesh
+        self.ShapeConfig = ShapeConfig
         self.model_moe = model_moe
         self.lm_serve = lm_serve
         self.dryrun = dryrun
@@ -710,6 +792,51 @@ def bound(bytes_moved: int, ops: int,
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def requested_bytes(torch, device):
+    """Bytes the CUDA caching allocator has handed out and not taken
+    back, as requested (each tensor's storage bytes, not rounded to the
+    allocator's blocks): what the dry-run plans.  None off the card.
+    Unreachable cycles are collected first, so that tensors they hold do
+    not count, nor are freed inside a reading."""
+    if torch.device(device).type != "cuda":
+        return None
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+class PeakBytes:
+    """Within the context, the most bytes live on the card above what was
+    live at its start (unreachable cycles collected first):
+    ``peak`` as requested (the dry-run's measure) and ``peak_allocated``
+    in the allocator's blocks (max_memory_allocated).  Both None off the
+    card."""
+
+    def __init__(self, torch, device):
+        self.torch, self.on = torch, torch.device(device).type == "cuda"
+        self.peak = self.peak_allocated = None
+
+    def __enter__(self):
+        if self.on:
+            torch = self.torch
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            st = torch.cuda.memory_stats()
+            self.base = st["requested_bytes.all.current"]
+            self.base_allocated = st["allocated_bytes.all.current"]
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            torch = self.torch
+            torch.cuda.synchronize()
+            st = torch.cuda.memory_stats()
+            self.peak = st["requested_bytes.all.peak"] - self.base
+            self.peak_allocated = (st["allocated_bytes.all.peak"]
+                                   - self.base_allocated)
 
 
 # ---------------------------------------------------------------------------
@@ -1646,8 +1773,8 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
     served = run_serve(port, graph, engines)
     # -- the graph dry-run: plans, and plans against card runs ------------
     dry = run_dryrun(port, engines)
-    # -- dynamic graphs and durability (writes the engines' mirrors) ------
-    mutated = run_mutate(port, graph, engines, parity)
+    # -- dynamic graphs and durability, on a graph of their own ----------
+    mutated = run_mutate(port, MUTATE_GRAPH, parts_list, device, parity)
     return {"launches": main_launches, "parity_err": parity_err,
             "kernel_cells": kernel_cells, "parts": max(parts_list),
             "bsp_launches": bsp["launches"],
@@ -2909,13 +3036,23 @@ def served_after(port: Port, server, tag: str, counted) -> dict:
     return got, cells
 
 
-def run_mutate(port: Port, graph: str, engines: dict, parity) -> dict:
+def run_mutate(port: Port, graph: str, parts_list, device, parity) -> dict:
     """Dynamic graphs and durability on the card (module docstring,
-    ``mutate``).  Writes the engines' host mirrors: the last graph phase.
+    ``mutate``) on ``graph``, partitioned for the phase at each of
+    ``parts_list`` (its servers write those partitions' host mirrors).
     Returns the kernel launches of the phase's served and replayed
     queries (parity checks and direct calls are not counted)."""
     torch, serve, persist = port.torch, port.graph_server, port.persist
     t_phase = time.perf_counter()
+    gcfg = port.graph_workloads.ALL[graph]
+    edges = port.generate_edges(gcfg, SEED)
+    engines = {parts: port.GraphEngine(port.partition_graph(
+        edges, gcfg.num_vertices, parts), device=device)
+        for parts in parts_list}
+    log(f"[mutate] {graph}: {gcfg.num_vertices:,} vertices, {len(edges):,} "
+        f"edges, generated and partitioned at parts {list(parts_list)} in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del edges
     total = {"spmv_ell": 0, "bfs_pull": 0}
     cells = {}
 
@@ -2933,7 +3070,7 @@ def run_mutate(port: Port, graph: str, engines: dict, parity) -> dict:
         return serve.Query(serve.make_key(name, **kw))
 
     rng = np.random.default_rng(SEED)
-    for parts, (_, eng, _) in engines.items():
+    for parts, eng in engines.items():
         tag = f"parts={parts}"
         server = serve.GraphServer(eng, buckets=SERVE_BUCKETS, depth=2)
         # -- 1. the index over the resident graph --------------------------
@@ -3058,7 +3195,7 @@ def run_mutate(port: Port, graph: str, engines: dict, parity) -> dict:
     for parts in engines:
         tag = f"{MUTATE_REBUILD_GRAPH} parts={parts}"
         eng = port.GraphEngine(port.partition_graph(
-            edges, gcfg.num_vertices, parts), device=engines[parts][1].device)
+            edges, gcfg.num_vertices, parts), device=device)
         server = serve.GraphServer(eng, buckets=SERVE_BUCKETS, depth=2)
         dyn = server.dynamic_graph()
         u, v = (int(x) for x in dyn.current_edges()[0])
@@ -3082,7 +3219,7 @@ def run_mutate(port: Port, graph: str, engines: dict, parity) -> dict:
 
     # -- 8. durability at SERVE_PARTS ---------------------------------------
     import shutil
-    eng = engines[SERVE_PARTS][1]
+    eng = engines[SERVE_PARTS]
     card = card_line() if eng.device.type == "cuda" else "cpu"
     pdir = MUTATE_DIR / "durable"
     shutil.rmtree(pdir, ignore_errors=True)
@@ -3175,7 +3312,7 @@ def run_mutate(port: Port, graph: str, engines: dict, parity) -> dict:
     muts = [(sp.args["rebuild"], sp.dur) for sp in server.obs.spans()
             if sp.kind == "mutation"]
     check(sum(r["count"] for r in rows) == n_trace
-          and not any(m.counts.values()) and server.epoch == n_mut == 7
+          and not any(m.counts.values()) and server.epoch == n_mut == 2
           and len(muts) == n_mut,
           f"mutate replay: {sum(r['count'] for r in rows)} of {n_trace} "
           f"queries ok, counts {m.counts}, epoch {server.epoch}")
@@ -3313,15 +3450,15 @@ def run_dryrun(port: Port, engines: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def flash_bound(bh: int, sq: int, sk: int, d: int, itemsize: int,
-                causal: bool) -> tuple[float, str]:
-    """Least ms for one flash call: q, k, v read and o written once over
-    HBM rate, against q k^T and p @ v on the unmasked (query, key) pairs
-    (2 ops a multiply-add, D of each per pair and product) over the bf16
-    tensor-core peak."""
+                causal: bool, extra_bytes: int = 0) -> tuple[float, str]:
+    """Least ms for one flash call: q, k, v read and o written once (and
+    ``extra_bytes`` more, an lse output) over HBM rate, against q k^T and
+    p @ v on the unmasked (query, key) pairs (2 ops a multiply-add, D of
+    each per pair and product) over the bf16 tensor-core peak."""
     pairs = bh * (sum(min(q + 1, sk) for q in range(sq)) if causal
                   else sq * sk)
-    return bound(itemsize * d * bh * (2 * sq + 2 * sk), 4 * d * pairs,
-                 BF16_TC_OPS_PER_S)
+    return bound(itemsize * d * bh * (2 * sq + 2 * sk) + extra_bytes,
+                 4 * d * pairs, BF16_TC_OPS_PER_S)
 
 
 def flash_times(port: Port, device, q, k, v, batch: int,
@@ -3514,10 +3651,13 @@ def run_llm(port: Port, device, arch: str = LLM_ARCH, batch: int = LLM_BATCH,
 
     # -- llm-main -------------------------------------------------------------
     t0 = time.perf_counter()
+    before = requested_bytes(torch, device)
     model = models.Transformer(cfg, models.init_params(
         models.param_spec(cfg), torch.Generator(device=device).manual_seed(0),
         device))
     _sync(torch, device)
+    param_bytes = None if before is None \
+        else requested_bytes(torch, device) - before
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[llm-main] {arch}: {n_params:,} f32 parameters "
         f"({n_params * 4 / 1e9:.2f} GB) drawn on the device in "
@@ -3544,8 +3684,11 @@ def run_llm(port: Port, device, arch: str = LLM_ARCH, batch: int = LLM_BATCH,
           "served tokens out of range")
 
     with torch.inference_mode():
+        before = requested_bytes(torch, device)
         prompt = port.batch_at(0, global_batch=batch, seq_len=prompt_len,
                                vocab_size=cfg.vocab_size).to(device)
+        resident = None if before is None \
+            else param_bytes + requested_bytes(torch, device) - before
         # the kernel at layer 0's real q, k, v (kv heads repeated)
         layers, blk = models.layers, model.segments[0][0]
         h = layers.apply_norm(blk.ln1, models.model._embed(model, cfg, prompt),
@@ -3560,7 +3703,8 @@ def run_llm(port: Port, device, arch: str = LLM_ARCH, batch: int = LLM_BATCH,
                    "bfloat16", "layer-0 q, k, v")
         del h, q, k, v
 
-        lg_k, _ = models.forward_prefill(model, cfg, {"tokens": prompt})
+        with PeakBytes(torch, device) as pk:
+            lg_k, _ = models.forward_prefill(model, cfg, {"tokens": prompt})
         lg_n, _ = models.forward_prefill(model, cfg, {"tokens": prompt},
                                          impl="naive")
         short = prompt[:, :decode_prompt]
@@ -3624,8 +3768,13 @@ def run_llm(port: Port, device, arch: str = LLM_ARCH, batch: int = LLM_BATCH,
         "flash": flash, "flash_widths": widths,
         "flash_share_of_prefill": share,
         "prefill_logit_err": prefill_err, "decode_logit_err": decode_err}))
+    cell = {"cfg": cfg, "kind": "prefill", "batch": batch,
+            "seq": prompt_len, "resident": resident,
+            "peak": None if resident is None else resident + pk.peak,
+            "peak_allocated_above": pk.peak_allocated}
     return {"launches": launches["flash_attention_fwd"],
-            "parity_err": max(parity.err.values()), "flash": flash}
+            "parity_err": max(parity.err.values()), "flash": flash,
+            "dryrun_cells": {f"llm-main {arch} prefill": cell}}
 
 
 # ---------------------------------------------------------------------------
@@ -3692,9 +3841,15 @@ def run_train(port: Port, device, arch: str = LLM_ARCH,
     del q, k, v, q4, k4, v4, o4, lse4, do4
 
     # -- step 0: the kernel forward against the plain forward ----------------
-    params, _ = tr.build_state(cfg, tc0, device)
-    b0 = port.TokenStream(global_batch=batch, seq_len=seq,
-                          vocab_size=cfg.vocab_size, seed=tc0.seed).next()
+    before = requested_bytes(torch, device)
+    params, opt = tr.build_state(cfg, tc0, device)
+    b0 = tr.next_batch(port.TokenStream(
+        global_batch=batch, seq_len=seq, vocab_size=cfg.vocab_size,
+        seed=tc0.seed), cfg, tc0, device)
+    b0 = {k: v.to(device) for k, v in b0.items()}
+    resident = None if before is None \
+        else requested_bytes(torch, device) - before
+    del opt
     lk, _, gk = st.value_and_grad(cfg, params, b0)
     lp, _, gp = st.value_and_grad(cfg, params, b0, impl="plain")
     gaps = grad_gaps(torch, tree, gk, gp)
@@ -3722,10 +3877,10 @@ def run_train(port: Port, device, arch: str = LLM_ARCH,
         torch.cuda.reset_peak_memory_stats()
     hist = []
     t0 = time.perf_counter()
-    p_full, _, _ = tr.train(cfg, dataclasses.replace(
-        tc0, checkpoint_dir=str(ckpt_dir / "full"), checkpoint_every=0),
-        steps=steps, resume=False, history=hist, **run_kw)
-    _sync(torch, device)
+    with PeakBytes(torch, device) as pk:
+        p_full, _, _ = tr.train(cfg, dataclasses.replace(
+            tc0, checkpoint_dir=str(ckpt_dir / "full"), checkpoint_every=0),
+            steps=steps, resume=False, history=hist, **run_kw)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() if on_card else None
     main_launches = port.launches()
@@ -3794,9 +3949,14 @@ def run_train(port: Port, device, arch: str = LLM_ARCH,
            "grad_gaps_floor": floor,
            "lse_ms": lse_ms, "flash_ms": o_ms, "lse_err": parity.lse_err,
            "plain_bwd_ms": bwd_ms, "plain_fwd_ms": fwd_plain_ms,
-           "launches": launches["flash_attention_fwd"], "secs": secs}
+           "launches": launches["flash_attention_fwd"], "secs": secs,
+           "resident_bytes": resident, "peak_requested": pk.peak}
     log("[train] " + json.dumps(out))
     log(f"[train done] {secs:.1f} s")
+    out["dryrun_cells"] = {f"train {arch}": {
+        "cfg": cfg, "kind": "train", "batch": batch, "seq": seq,
+        "tc": tc0, "resident": resident, "peak": pk.peak,
+        "peak_allocated_above": pk.peak_allocated}}
     return out
 
 
@@ -3986,7 +4146,7 @@ def run_families(port: Port, device, families=FAMILIES,
     on_card = torch.device(device).type == "cuda"
     t_phase = time.perf_counter()
     parity = FlashParity(port, device)
-    cells, shapes, total = {}, [], 0
+    cells, shapes, total, dry_cells = {}, [], 0, {}
     for arch, batch, prompt_len, gen, keep in families:
         cfg = port.arch_registry.get_arch(arch)
         cut = keep is not None and keep < cfg.num_layers
@@ -3995,11 +4155,14 @@ def run_families(port: Port, device, families=FAMILIES,
         depth = (f"{keep} of {port.arch_registry.get_arch(arch).num_layers}"
                  f" layers" if cut else "full depth")
         t0 = time.perf_counter()
+        before = requested_bytes(torch, device)
         model = models.Transformer(cfg, models.init_params(
             models.param_spec(cfg),
             torch.Generator(device=device).manual_seed(0), device))
         _sync(torch, device)
         init_s = time.perf_counter() - t0
+        param_bytes = None if before is None \
+            else requested_bytes(torch, device) - before
         n_params = sum(p.numel() for p in model.parameters())
         log(f"[families] {arch} ({cfg.family}, {depth}): {n_params:,} f32 "
             f"parameters ({n_params * 4 / 1e9:.2f} GB) drawn on the device "
@@ -4036,6 +4199,24 @@ def run_families(port: Port, device, families=FAMILIES,
                            device=device, params=model)[1] for _ in range(3)]
         prefill_ms = statistics.median(r["prefill_s"] for r in runs) * 1e3
         tok_s = statistics.median(r["tok_per_s"] for r in runs)
+
+        # -- the dry-run's cell: resident bytes, one prefill's peak --------
+        with torch.inference_mode():
+            before = requested_bytes(torch, device)
+            pb = {"tokens": port.batch_at(
+                0, global_batch=batch, seq_len=prompt_len,
+                vocab_size=cfg.vocab_size).to(device),
+                **port.lm_serve.frontend_embeds(cfg, batch, device)}
+            resident = None if before is None \
+                else param_bytes + requested_bytes(torch, device) - before
+            with PeakBytes(torch, device) as pk:
+                models.forward_prefill(model, cfg, pb)
+            del pb
+        dry_cells[f"families {arch} prefill"] = {
+            "cfg": cfg, "kind": "prefill", "batch": batch,
+            "seq": prompt_len, "resident": resident,
+            "peak": None if resident is None else resident + pk.peak,
+            "peak_allocated_above": pk.peak_allocated}
 
         # -- checks -------------------------------------------------------
         moe = cfg.family == "moe"
@@ -4194,11 +4375,388 @@ def run_families(port: Port, device, families=FAMILIES,
            "parity_err": parity.err["bfloat16"], "secs": secs}
     log("[families] " + json.dumps(out))
     log(f"[families done] {secs:.1f} s")
+    out["dryrun_cells"] = dry_cells
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM training of the other families: flash_attention_fwd with its lse at
+# their training shapes
+# ---------------------------------------------------------------------------
+
+def train_flash_calls(port: Port, cfg, accum: int = 1) -> int:
+    """flash_attention_fwd launches of one training step: a stacked
+    layer's attention call runs in its forward and again in its remat
+    recompute (self and cross attention: 4 a decoder block; 2 an encoder
+    layer), a shared-attention call once (it is not rematerialised, as
+    in the reference), a mamba layer never."""
+    per = {"attn": 2, "moe": 2, "xattn": 4, "mamba": 0}
+    n = sum(1 if s.kind == "shared_attn" else per[s.kind] * s.count
+            for s in port.models.build_plan(cfg))
+    if cfg.family == "audio":
+        n += 2 * cfg.encoder_layers
+    return n * accum
+
+
+class RouteTape:
+    """Within the context, each ``moe.route`` call records its top-k
+    experts (``choices`` None) or takes the next of ``choices`` (with its
+    own probabilities as gates): one run's routing, forward and remat
+    recompute alike, replayed in another."""
+
+    def __init__(self, port: Port, choices: list | None = None):
+        self.port, self.choices, self.calls, self.i = port, choices, [], 0
+
+    def __enter__(self):
+        moe = self.port.model_moe
+        self.orig = orig = moe.route
+
+        def tape(router, x, E, K, C, choices=None):
+            if self.choices is None:
+                r = orig(router, x, E, K, C)
+                self.calls.append(r["gate_idx"].detach().clone())
+                return r
+            self.i += 1
+            return orig(router, x, E, K, C, choices=self.choices[self.i - 1])
+
+        moe.route = tape
+        return self
+
+    def __exit__(self, *exc):
+        self.port.model_moe.route = self.orig
+        if exc[0] is None and self.choices is not None:
+            check(self.i == len(self.choices),
+                  f"route replayed {self.i} of {len(self.choices)} calls")
+
+
+def lse_times(port: Port, device, q, k, v, batch: int, causal: bool) -> dict:
+    """flash_times (the forward alone, beside ref.py, SDPA and its bound)
+    plus the kernel and ref.py with ``return_lse=True`` and the bound of
+    that call (the lse's f32 row written too)."""
+    torch = port.torch
+    t = flash_times(port, device, q, k, v, batch, causal=causal)
+    bh, sq, d = q.shape
+    t["lse_bound_ms"], t["lse_bound_by"] = flash_bound(
+        bh, sq, k.shape[1], d, q.element_size(), causal,
+        extra_bytes=4 * bh * sq)
+    t["lse_ms"] = kernel_ms(torch, device, lambda: port.flash(
+        q, k, v, causal=causal, return_lse=True))
+    t["lse_plain_ms"] = kernel_ms(torch, device, lambda: port.
+                                  flash_attention_ref(q, k, v, causal=causal,
+                                                      return_lse=True),
+                                  reps=5)
+    return t
+
+
+def run_train_families(port: Port, device, families=TRAIN_FAMILIES,
+                       steps: int = TRAIN_FAMILY_STEPS) -> dict:
+    """The train-families phase (see the module docstring): each family
+    at its depth, step 0 through the kernel against the plain and naive
+    forwards (the MoE's routing replayed), the kernel's lse at every
+    shape the step gave it, then ``launch/train.py::train`` for
+    ``steps`` steps with the launch counters zeroed around it."""
+    torch, st, tr, tree = port.torch, port.train_steps, port.trainer, \
+        port.tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_phase = time.perf_counter()
+    card = card_line() if torch.device(device).type == "cuda" else "cpu"
+    parity = FlashParity(port, device)
+    cells, shapes, dry_cells, total = {}, [], {}, 0
+    for arch, batch, seq, keep in families:
+        full = port.arch_registry.get_arch(arch)
+        cfg = full if keep is None else dataclasses.replace(
+            full, num_layers=keep)
+        depth = ("full depth" if keep is None
+                 else f"{keep} of {full.num_layers} layers")
+        tc = st.default_train_config(cfg)
+        t_arch = time.perf_counter()
+
+        # -- step 0: resident state, then the kernel forward against the
+        # plain forward, naive attention's gap to plain the floor --------
+        before = requested_bytes(torch, device)
+        params, opt = tr.build_state(cfg, tc, device)
+        b0 = tr.next_batch(port.TokenStream(
+            global_batch=batch, seq_len=seq, vocab_size=cfg.vocab_size,
+            seed=tc.seed), cfg, tc, device)
+        b0 = {k: v.to(device) for k, v in b0.items()}
+        resident = None if before is None \
+            else requested_bytes(torch, device) - before
+        n_params = sum(t.numel() for t in tree.leaves(params))
+        del opt
+        first = [t.detach().flatten()[:4096].clone()
+                 for t in tree.leaves(params)]
+        vis = (f" + {cfg.vision_tokens} vision" if cfg.family == "vlm"
+               else "")
+        log(f"[train-families] {arch} ({cfg.family}, {depth}): "
+            f"{n_params:,} f32 parameters; batch {batch} x {seq}{vis}"
+            f"; default_train_config grad_accum {tc.grad_accum}; resident "
+            f"params + m + v + batch {nbytes(resident)}")
+        attention = cfg.family != "ssm"
+        gaps = floor = None
+        loss_gap = loss_floor = None
+        if attention:
+            moe = cfg.family == "moe"
+            with FlashCapture(port) as cap, RouteTape(port) as tape:
+                lk, mk, gk = st.value_and_grad(cfg, params, b0)
+            with RouteTape(port, tape.calls if moe else None):
+                lp, _, gp = st.value_and_grad(cfg, params, b0, impl="plain")
+            gaps = grad_gaps(torch, tree, gk, gp)
+            del gk
+            with RouteTape(port, tape.calls if moe else None):
+                ln, _, gn = st.value_and_grad(cfg, params, b0, impl="naive")
+            floor = grad_gaps(torch, tree, gn, gp)
+            del gn, gp
+            loss_gap = abs(float(lk) - float(lp))
+            loss_floor = abs(float(ln) - float(lp))
+            loss_tol = max(TRAIN_LOSS_TOL, TRAIN_GRAD_FACTOR * loss_floor)
+            replayed = (f" (the kernel run's routing, {len(tape.calls)} "
+                        f"route calls, replayed)" if moe else "")
+            metrics = {k: round(float(v), 6) for k, v in mk.items()}
+            log(f"[train-families] {arch} step 0, kernel vs plain forward"
+                f"{replayed}: loss {float(lk):.6f} vs {float(lp):.6f} (gap "
+                f"{loss_gap:.3e}; naive {float(ln):.6f}, floor "
+                f"{loss_floor:.3e}); metrics {metrics}"
+                f"; gradient leaves' relative norm gaps "
+                f"{[round(x, 5) for x in gaps]}, naive vs plain (the floor)"
+                f" {[round(x, 5) for x in floor]}")
+            check(loss_gap <= loss_tol, f"{arch}: step-0 loss gap "
+                  f"{loss_gap} beyond {loss_tol}")
+            check(all(a <= TRAIN_GRAD_FACTOR * b for a, b in zip(gaps, floor)),
+                  f"{arch}: gradient gaps {gaps} beyond {TRAIN_GRAD_FACTOR}"
+                  f" x the floor {floor}")
+            del tape
+
+            # -- the kernel's lse at every shape the step gave it --------
+            for (qs, ks, kw), (q, k, v) in cap.seen.items():
+                kw = dict(kw)
+                check(kw.pop("return_lse", False) and not kw.get("window")
+                      and not kw.get("softcap"),
+                      f"{arch}: flash options {kw} in training")
+                what = f"{arch} train {qs} x {ks} {kw}"
+                parity.lse(q, k, v, what, **kw)
+                got = port.flash(q, k, v, **kw)
+                want_o = port.flash_attention_ref(q, k, v, **kw)
+                parity.one(got, want_o, "bfloat16", what)
+                err = float((got.float() - want_o.float()).abs().max())
+                _, lse = port.flash(q, k, v, return_lse=True, **kw)
+                _, lse_ref = port.flash_attention_ref(q, k, v,
+                                                      return_lse=True, **kw)
+                lse_err = float((lse - lse_ref).abs().max())
+                causal = kw.get("causal", True)
+                t = lse_times(port, device, q, k, v, batch, causal)
+                shapes.append({"arch": arch, "q": list(qs), "kv": list(ks),
+                               "causal": causal, "max_abs_err": err,
+                               "lse_max_abs_err": lse_err, **t})
+                log(f"[times] flash_attention_fwd lse {arch} {qs} x {ks} "
+                    f"bf16 causal={causal}: kernel with lse "
+                    f"{t['lse_ms']:.4f} ms (without {t['ms']:.4f})  plain "
+                    f"{t['lse_plain_ms']:.4f} ms  bound "
+                    f"{t['lse_bound_ms']:.4f} ms ({t['lse_bound_by']})  "
+                    f"sdpa {t['library_ms']:.4f} ms; o max_abs_err "
+                    f"{err:.3e}, lse {lse_err:.3e} ({card})")
+                del got, want_o, lse, lse_ref
+            del cap
+        else:
+            log(f"[train-families] {arch}: no attention, so no kernel "
+                f"forward to hold against the plain one at step 0")
+        del params, b0
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- the main path: train() with the counters zeroed --------------
+        port.reset_launches()
+        hist = []
+        t0 = time.perf_counter()
+        with PeakBytes(torch, device) as pk:
+            p_end, _, _ = tr.train(cfg, dataclasses.replace(
+                tc, checkpoint_every=0, checkpoint_dir=str(
+                    TRAIN_DIR / "families")), batch=batch, seq=seq,
+                steps=steps, resume=False, history=hist, device=device,
+                log_every=1)
+        wall = time.perf_counter() - t0
+        launches = port.launches()
+        recs = [h for h in hist if "step" in h]
+        losses = [h["loss"] for h in recs]
+        norms = [h["grad_norm"] for h in recs]
+        step_ms = [h["s"] * 1e3 for h in recs]
+        n_leaves = len(first)
+        changed = sum(int(not torch.equal(a, b.detach().flatten()[:4096]))
+                      for a, b in zip(first, tree.leaves(p_end)))
+        del p_end, first
+        want = steps * train_flash_calls(port, cfg, tc.grad_accum)
+        log(f"[train-families] {arch} train() {steps} steps in {wall:.1f} s:"
+            f" losses {[round(x, 4) for x in losses]}, grad norms "
+            f"{[round(x, 3) for x in norms]}; launches {launches}, want "
+            f"{want} flash; {changed} of {n_leaves} parameter leaves "
+            f"changed")
+        check(len(recs) == steps and all(np.isfinite(losses + norms)),
+              f"{arch}: losses {losses}, grad norms {norms}")
+        check(launches["flash_attention_fwd"] == want
+              and launches["flash_attention_fwd_tc"] == want,
+              f"{arch}: train launched flash {launches}, want {want} (a "
+              f"stacked layer's attention in its forward and recompute, a "
+              f"shared call once), all bf16")
+        check(changed == n_leaves,
+              f"{arch}: {changed} parameter leaves changed in {steps} steps")
+        med = statistics.median(step_ms[1:]) if steps > 1 else step_ms[0]
+        tokens_s = batch * seq / (med / 1e3)
+        log(f"[times] train {arch} ({depth}) batch={batch} seq={seq}: "
+            f"{med:.1f} ms a step (median of steps 1-{steps - 1}; all "
+            f"{[round(x, 1) for x in step_ms]}), {tokens_s:.0f} text "
+            f"tokens/s, peak {nbytes(pk.peak)} requested / "
+            f"{nbytes(pk.peak_allocated)} allocated ({card})")
+        total += launches["flash_attention_fwd"]
+        cells[arch] = {
+            "family": cfg.family, "depth": depth, "params": n_params,
+            "batch": batch, "seq": seq, "grad_accum": tc.grad_accum,
+            "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+            "ms_a_step": med, "tokens_per_s": tokens_s,
+            "peak_requested": pk.peak, "peak_allocated": pk.peak_allocated,
+            "resident_bytes": resident,
+            "flash_launches": launches["flash_attention_fwd"],
+            "flash_launches_a_step": want // steps,
+            "loss_gap_plain": loss_gap, "loss_gap_floor": loss_floor,
+            "grad_gaps_plain": gaps, "grad_gaps_floor": floor,
+            "secs": time.perf_counter() - t_arch, "card": card}
+        dry_cells[f"train-families {arch}"] = {
+            "cfg": cfg, "kind": "train", "batch": batch, "seq": seq,
+            "tc": tc, "resident": resident, "peak": pk.peak,
+            "peak_allocated_above": pk.peak_allocated}
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    out = {"launches": total, "cells": cells, "lse_shapes": shapes,
+           "parity_err": parity.err["bfloat16"], "lse_err": parity.lse_err,
+           "secs": secs}
+    log("[train-families] " + json.dumps(out))
+    log(f"[train-families done] {secs:.1f} s")
+    out["dryrun_cells"] = dry_cells
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# the LM dry-run: the cells the card ran, planned on meta tensors, then
+# the registry's cells through the CLI
+# ---------------------------------------------------------------------------
+
+class DryrunCLI:
+    """The dry-run CLI's passes (``passes``: arch list, shape list and
+    worker processes, each pass a process of its own), started at once
+    in the background so that their host work overlaps the phase's own
+    plans; :meth:`finish` waits for them, prints each cell's lines and
+    reads the records from ``out_dir``.  :meth:`stop` ends any still
+    running (the script stops every process it starts)."""
+
+    def __init__(self, passes=DRYRUN_LM_PASSES, out_dir=DRYRUN_LM_DIR,
+                 smoke: bool = False):
+        import shutil
+        shutil.rmtree(out_dir, ignore_errors=True)
+        self.out_dir, self.runs = out_dir, []
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        self.t0 = time.perf_counter()
+        for archs, shapes_, jobs in passes:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", archs, "--shape", shapes_, "--mesh", "single",
+                   "--jobs", str(jobs), "--out", str(out_dir)] \
+                + ["--smoke"] * smoke
+            self.runs.append((archs, shapes_, jobs, cmd, subprocess.Popen(
+                cmd, env=env, cwd=HERE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+
+    def finish(self) -> dict:
+        passes = []
+        for archs, shapes_, jobs, cmd, proc in self.runs:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_LM_WAIT_S)
+            secs = time.perf_counter() - self.t0
+            for line in stdout.splitlines():
+                if line.startswith("[") or "per-device HBM" in line:
+                    log(f"[dryrun-lm] {line.strip()}")
+            check(proc.returncode == 0, f"dry-run CLI {' '.join(cmd[3:])} "
+                  f"failed:\n{stdout[-2000:]}\n{stderr[-2000:]}")
+            passes.append({"arch": archs, "shape": shapes_, "jobs": jobs,
+                           "seconds": secs})
+            log(f"[dryrun-lm] CLI --arch {archs} --shape {shapes_} --jobs "
+                f"{jobs}: done {secs:.1f} s after it started, on the host")
+        recs = [json.loads(p.read_text())
+                for p in sorted(self.out_dir.glob("*.json"))]
+        check(recs and all(r["status"] == "ok" and r["mesh"] == "single"
+                           for r in recs), "dry-run CLI records")
+        return {"passes": passes, "records": {
+            f"{r['arch']}__{r['shape']}": {
+                "program": r["program"], "lower_s": r["lower_s"],
+                "bottleneck_v5e": r["bottleneck"],
+                "bottleneck_h100": r["h100"]["bottleneck"],
+                "hbm_gb": (r["arg_bytes_per_device"]
+                           + r["temp_bytes_per_device"]) / 1e9}
+            for r in recs}}
+
+    def stop(self) -> None:
+        for *_, proc in self.runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def run_dryrun_lm(port: Port, cells: dict, device, cli: DryrunCLI) -> dict:
+    """Plan each cell the earlier phases ran on the card (``cells``: the
+    configuration, kind, batch and sequence as run, the resident bytes
+    and measured peak) with ``lower_cell`` on the one-card mesh.
+    Planned argument bytes must equal the resident bytes, and the planned
+    peak (arguments plus temps, the plain attention route's) must not be
+    under the measured one.  Then wait for the dry-run CLI's passes
+    (``cli``, started with this phase) and print each of their cells'
+    plan time and bottleneck."""
+    torch, st = port.torch, port.train_steps
+    t_phase = time.perf_counter()
+    card = card_line() if torch.device(device).type == "cuda" else "cpu"
+    mesh = port.mesh.make_local_mesh()
+    out = {}
+    for name, c in cells.items():
+        shape = port.ShapeConfig(name, c["kind"], c["seq"], c["batch"])
+        plan, meta = st.lower_cell(c["cfg"], shape, mesh, c.get("tc"))
+        planned_peak = plan.arg_bytes + plan.temp_bytes
+        res, peak = c["resident"], c["peak"]
+        ratio = None if peak is None else planned_peak / peak
+        shown = "not measured" if ratio is None else f"{ratio:.4f}"
+        log(f"[dryrun-lm] {name} ({meta['program']}, batch {c['batch']} x "
+            f"{c['seq']}): args planned {plan.arg_bytes:,} B vs resident "
+            f"{nbytes(res)}; peak planned {planned_peak:,} B "
+            f"({plan.attention_route} attention) vs measured {nbytes(peak)}"
+            f" requested (planned / measured {shown}"
+            f"; the run's max_memory_allocated above its start "
+            f"{nbytes(c['peak_allocated_above'])}); counted matmul "
+            f"{plan.cost.matmul_flops:.4e} FLOPs; planned in "
+            f"{plan.lower_s:.2f} s ({card})")
+        if res is not None:
+            check(plan.arg_bytes == res,
+                  f"dry-run {name}: planned argument bytes {plan.arg_bytes} "
+                  f"!= resident {res}")
+            check(planned_peak >= peak,
+                  f"dry-run {name}: planned peak {planned_peak} under the "
+                  f"measured {peak}")
+        out[name] = {"program": meta["program"],
+                     "planned_arg_bytes": plan.arg_bytes,
+                     "resident_bytes": res, "planned_peak": planned_peak,
+                     "measured_peak": peak, "ratio": ratio,
+                     "measured_peak_allocated_above":
+                         c["peak_allocated_above"],
+                     "matmul_flops": plan.cost.matmul_flops,
+                     "plan_s": plan.lower_s}
+    t_cells = time.perf_counter() - t_phase
+    done = cli.finish()
+    secs = time.perf_counter() - t_phase
+    res = {"cells": out, "cells_s": t_cells, "cli_passes": done["passes"],
+           "cli_records": done["records"], "secs": secs}
+    log("[dryrun-lm] " + json.dumps(res))
+    log(f"[dryrun-lm done] {secs:.1f} s (the CLI passes started "
+        f"{time.perf_counter() - cli.t0:.1f} s ago)")
+    return res
+
+
 def kernels_record(result: dict, llm: dict, trained: dict,
-                   families: dict) -> dict:
+                   families: dict, train_families: dict) -> dict:
     """The contract record of each kernel: spmv_ell at pagerank/bsp's
     ell_in buckets and bfs_pull at bfs/fast's, at the largest parts
     count; flash_attention_fwd at one TinyLlama prefill layer.  A graph
@@ -4236,7 +4794,8 @@ def kernels_record(result: dict, llm: dict, trained: dict,
                      "gathers_per_s": cell["gathers"] / cell["ms"] * 1e3})
     cell = llm["flash"]
     flash_paths = {"llm-main": llm["launches"], "train": trained["launches"],
-                   "families": families["launches"]}
+                   "families": families["launches"],
+                   "train-families": train_families["launches"]}
     rows.append({"name": "flash_attention_fwd", "route": "cuda",
                  "design": "wgmma (bf16 tensor cores, TMA k/v ring)",
                  "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -4245,14 +4804,17 @@ def kernels_record(result: dict, llm: dict, trained: dict,
                  "launches": sum(flash_paths.values()),
                  "launches_by_path": flash_paths,
                  "max_abs_err": max(llm["parity_err"],
-                                    families["parity_err"]),
+                                    families["parity_err"],
+                                    train_families["parity_err"]),
                  "ms": cell["ms"],
                  "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"],
                  "bound_by": cell["bound_by"],
                  "library_ms": cell["library_ms"],
                  "lse_ms": trained["lse_ms"],
-                 "lse_max_abs_err": trained["lse_err"],
-                 "family_shapes": families["shapes"]})
+                 "lse_max_abs_err": max(trained["lse_err"],
+                                        train_families["lse_err"]),
+                 "family_shapes": families["shapes"],
+                 "family_train_lse_shapes": train_families["lse_shapes"]})
     return {"kernels": rows}
 
 
@@ -4271,16 +4833,34 @@ def main() -> int:
     t0 = time.perf_counter()
     card = card_line()
     log(f"[card] {card}")
-    result = run(GRAPH, PARTS, "cuda", args.parent)
-    log(f"[graph done] {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    llm = run_llm(Port(), "cuda")
-    torch.cuda.empty_cache()
-    trained = run_train(Port(), "cuda")
-    torch.cuda.empty_cache()
-    fams = run_families(Port(), "cuda")
+    out, dry, cli = {}, {}, []
+
+    def dryrun_lm():
+        # started after the last timed phase: its worker processes would
+        # contend for the host cores that the step times depend on
+        cli.append(DryrunCLI())
+        return run_dryrun_lm(Port(), dry, "cuda", cli[0])
+
+    try:
+        for name, fn in (
+                ("graph", lambda: run(GRAPH, PARTS, "cuda", args.parent)),
+                ("llm", lambda: run_llm(Port(), "cuda")),
+                ("train", lambda: run_train(Port(), "cuda")),
+                ("families", lambda: run_families(Port(), "cuda")),
+                ("train-families", lambda: run_train_families(Port(),
+                                                              "cuda")),
+                ("dryrun-lm", dryrun_lm)):
+            out[name] = fn()
+            dry.update(out[name].pop("dryrun_cells", {}))
+            log(f"[{name} phase done] {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+    finally:
+        for c in cli:
+            c.stop()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(kernels_record(result, llm, trained, fams)))
+    print(json.dumps(kernels_record(out["graph"], out["llm"], out["train"],
+                                    out["families"],
+                                    out["train-families"])))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,20 +77,22 @@ def pad_cache_for_decode(cfg, cache, ctx_len: int, batch: int):
 
 
 def frontend_embeds(cfg, batch: int, device, seed: int = 2) -> dict:
-    """The stub frontends' inputs, drawn from a ``torch.Generator`` seeded
-    ``seed`` on ``device``: frame embeddings (batch, encoder_seq, d) at
-    scale 0.1 for the audio family, patch embeddings (batch,
-    vision_tokens, d) at 0.02 for the vlm (the reference's scales); none
-    for the other families."""
+    """The stub frontends' inputs, drawn in f32 from a ``torch.Generator``
+    seeded ``seed`` on ``device`` and held in bf16 (the dtype of the
+    dry-run's ``input_specs``; the model casts them to bf16 first, so
+    nothing of the f32 draw is lost): frame embeddings (batch,
+    encoder_seq, d) at scale 0.1 for the audio family, patch embeddings
+    (batch, vision_tokens, d) at 0.02 for the vlm (the reference's
+    scales); none for the other families."""
     gen = torch.Generator(device=device).manual_seed(seed)
     if cfg.family == "audio":
-        return {"enc_embeds": 0.1 * torch.randn(
+        return {"enc_embeds": (0.1 * torch.randn(
             (batch, cfg.encoder_seq, cfg.d_model), generator=gen,
-            device=device)}
+            device=device)).to(torch.bfloat16)}
     if cfg.family == "vlm":
-        return {"vis_embeds": 0.02 * torch.randn(
+        return {"vis_embeds": (0.02 * torch.randn(
             (batch, cfg.vision_tokens, cfg.d_model), generator=gen,
-            device=device)}
+            device=device)).to(torch.bfloat16)}
     return {}
 
 

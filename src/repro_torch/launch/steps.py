@@ -1,4 +1,5 @@
-"""Step functions for training, prefill and decode on one device.
+"""Step functions for training, prefill and decode on one device, and
+the one-card dry-run's planning of them.
 
 ``make_train_step`` builds the training step: the loss and its gradients
 (:func:`value_and_grad`, autograd over the parameter tree), gradient
@@ -6,19 +7,28 @@ accumulation in f32 over ``tc.grad_accum`` microbatches, then
 ``adamw_update``.  ``make_prefill_step`` and ``make_decode_step`` wrap
 the serving forwards.
 
-The JAX package's module also holds ``input_specs``, ``lower_cell`` and
-the sharding plans of its multi-pod dry-run.  They wait for the LM
-dry-run (ROADMAP.md item 13b) and the multi-card slice (LM queue L6);
-on one card there is no mesh to plan for.
+``input_specs``, ``abstract_cache`` and ``abstract_opt_state`` give
+meta-tensor stand-ins for every input of a cell (the reference's
+ShapeDtypeStructs), and :func:`lower_cell` plans a cell's step on them
+under the counter of ``roofline/jaxpr_cost.py``: nothing is allocated
+and no card is needed.  The reference's sharding plans
+(``batch_shardings``, ``cache_shardings``, its activation policies) wait
+for the multi-card slice (ROADMAP.md, LM queue L6): ``lower_cell``
+takes a mesh of one device.
 """
 
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass
+
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.models import model as MDL
-from repro_torch.optim import adamw_update
+from repro_torch.models.params import abstract_params
+from repro_torch.optim import adamw_update, init_opt_state
+from repro_torch.roofline.jaxpr_cost import Cost, CostCounter
 from repro_torch.tree import flatten, leaves, tree_map, unflatten
 
 
@@ -100,3 +110,125 @@ def make_decode_step(cfg: ModelConfig):
         return MDL.forward_decode(params, cfg, batch["tokens"], cache)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# The dry-run: abstract inputs and the plan of one cell
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Abstract batch (meta tensors) for one (arch x shape) cell, as the
+    reference's:
+
+    train/prefill: {"tokens": (B, S) int32} (+ modality stubs)
+    decode:        {"tokens": (B, 1) int32}
+
+    The audio family's ``enc_embeds`` (B, encoder_seq, d) and, but for
+    decode, the vlm's ``vis_embeds`` (B, vision_tokens, d) are bf16."""
+    B = shape.global_batch
+    S = 1 if shape.kind == "decode" else shape.seq_len
+    batch = {"tokens": torch.empty((B, S), dtype=torch.int32, device="meta")}
+    if cfg.family == "audio":
+        batch["enc_embeds"] = torch.empty(
+            (B, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16,
+            device="meta")
+    if cfg.family == "vlm" and shape.kind != "decode":
+        batch["vis_embeds"] = torch.empty(
+            (B, cfg.vision_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device="meta")
+    return batch
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, ctx_len: int):
+    """``init_cache`` on meta tensors."""
+    return MDL.init_cache(cfg, batch, ctx_len, device="meta")
+
+
+def abstract_opt_state(spec_tree):
+    """The optimizer state of ``abstract_params(spec_tree)``, on meta."""
+    return init_opt_state(abstract_params(spec_tree))
+
+
+def _storages(tree) -> dict:
+    """The storages under a tree's tensors (a Module's parameters
+    included), each once: storage key -> bytes."""
+    if isinstance(tree, torch.nn.Module):
+        tree = list(tree.parameters())
+    return {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+            for t in leaves(tree) if isinstance(t, torch.Tensor)}
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors of a tree, each storage once."""
+    return sum(_storages(tree).values())
+
+
+@dataclass
+class CellPlan:
+    """What planning one cell counted: its FLOPs and bytes (``cost``),
+    argument bytes (parameters, optimizer state, cache and batch),
+    output bytes (returned tensors the step allocated) and temp bytes
+    (the counter's peak of live storages the step allocated, outputs
+    included), and the planning run's wall time.  Meta tensors take the
+    plain attention route (``FlashAttention`` launches the kernel only on
+    CUDA tensors), so the temp bytes are the plain route's."""
+
+    cost: Cost
+    arg_bytes: int
+    out_bytes: int
+    temp_bytes: int
+    lower_s: float
+    attention_route: str = "plain"
+
+
+def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
+               tc: TrainConfig | None = None, *, impl="chunked"):
+    """Plan the step of a cell on abstract inputs: run it once on meta
+    tensors under the counter.  Returns ``(plan, meta)``: a
+    :class:`CellPlan` and ``{"program": ...}`` (``train_step``,
+    ``prefill_step`` or ``serve_step(decode)``), in the order of the
+    reference's ``(lowered, meta)``.
+
+    Every cell takes the parameters in the dtypes of ``param_spec``, the
+    ones the port holds: train cells with their optimizer state, prefill
+    and decode cells as ``launch/serve.py`` serves them.  (The
+    reference plans serving on bf16 checkpoints; the port keeps the f32
+    weights it drew, so its serving records are of f32 weights.)
+    ``mesh`` must hold one device (``launch/mesh.make_local_mesh()``):
+    the sharded plans are LM queue L6."""
+    if mesh.size != 1:
+        raise NotImplementedError(
+            f"lower_cell plans one card; a mesh of {mesh.size} devices "
+            f"({mesh.shape}) needs the sharded plans of ROADMAP.md, LM "
+            "queue L6 (param_shardings, cache_shardings, batch_shardings, "
+            "actctx)")
+    tc = tc or default_train_config(cfg)
+    spec_tree = MDL.param_spec(cfg)
+    params = abstract_params(spec_tree)
+    batch = input_specs(cfg, shape)
+    if shape.kind == "train":
+        args = (params, abstract_opt_state(spec_tree), batch)
+        fn, program = make_train_step(cfg, tc, impl=impl), "train_step"
+    else:
+        model = MDL.Transformer(cfg, params)
+        if shape.kind == "prefill":
+            args = (model, batch)
+            fn, program = make_prefill_step(cfg, impl=impl), "prefill_step"
+        else:
+            cache = abstract_cache(cfg, shape.global_batch, shape.seq_len)
+            args = (model, cache, batch)
+            fn, program = make_decode_step(cfg), "serve_step(decode)"
+    arg_bytes = sum(tree_bytes(a) for a in args)
+    counter = CostCounter()
+    t0 = time.perf_counter()
+    # no_grad, not inference_mode: under inference_mode the dispatcher
+    # hands einsum to the counter whole instead of its bmm
+    with counter, torch.set_grad_enabled(shape.kind == "train"):
+        out = fn(*args)
+    lower_s = time.perf_counter() - t0
+    arg_keys = set().union(*(_storages(a) for a in args))
+    plan = CellPlan(cost=counter.cost, arg_bytes=arg_bytes,
+                    out_bytes=sum(b for k, b in _storages(out).items()
+                                  if k not in arg_keys),
+                    temp_bytes=int(counter.cost.peak_live_bytes),
+                    lower_s=lower_s)
+    return plan, {"program": program}

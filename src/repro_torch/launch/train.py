@@ -1,10 +1,16 @@
 """Training driver: the end-to-end loop with checkpoint/restart, the
 straggler watchdog and a simulated failure with its remesh plan.
 
-Runs real steps on one device: the card unless ``--device cpu``.
+Runs real steps on one device: the card unless ``--device cpu``.  Every
+architecture of the registry trains; the audio family's frame embeddings
+and the vlm's patch embeddings are drawn each step from a generator
+seeded by ``(seed, step)`` (the stub frontends, as ``launch/serve.py``
+draws them), so a resumed run sees the same inputs.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --smoke --steps 200 --batch 8 --seq 128 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+      --smoke --steps 20 --batch 2 --seq 64 --device cpu --no-resume
 
   # fault-tolerance demo: drop the state at step 60, restore the last
   # checkpoint and replay to it
@@ -26,9 +32,9 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_arch, smoke_config
 from repro_torch.data import TokenStream
 from repro_torch.distributed.fault_tolerance import StepWatchdog, plan_remesh
+from repro_torch.launch.serve import frontend_embeds
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import init_params, param_spec
-from repro_torch.models.model import check_trainable
 from repro_torch.optim import init_opt_state
 from repro_torch.tree import tree_map
 
@@ -51,6 +57,17 @@ def build_state(cfg, tc: TrainConfig, device):
     return params, init_opt_state(params)
 
 
+def next_batch(stream: TokenStream, cfg, tc: TrainConfig, device) -> dict:
+    """The stream's next tokens and, for the audio and vlm families, the
+    stub frontend's embeddings in bf16 (``input_specs``' dtype), drawn
+    on ``device`` from a generator seeded by ``(tc.seed, step)``."""
+    step = stream.step
+    b = stream.next()
+    b.update(frontend_embeds(cfg, stream.global_batch, device,
+                             seed=(tc.seed << 32) + step))
+    return b
+
+
 def _restore(tc: TrainConfig, step: int, params, opt):
     params = ckpt.restore(tc.checkpoint_dir, step, params)
     opt = ckpt.restore(f"{tc.checkpoint_dir}/opt", step, opt)
@@ -66,10 +83,7 @@ def train(cfg, tc: TrainConfig, *, batch: int, seq: int, steps: int,
     ``(step, loss)`` pairs.  A ``history`` list receives a record of
     every step (``step``, ``loss``, ``grad_norm``, ``lr`` and its wall
     ``s`` up to those host reads), of every checkpoint written
-    (``write_s``) and of a restore (``read_s``).  The dense family only:
-    the others raise ``NotImplementedError`` before any weight is drawn
-    (``models.model.check_trainable``)."""
-    check_trainable(cfg)
+    (``write_s``) and of a restore (``read_s``)."""
     device = _device(device)
     params, opt = build_state(cfg, tc, device)
     stream = TokenStream(global_batch=batch, seq_len=seq,
@@ -106,10 +120,11 @@ def train(cfg, tc: TrainConfig, *, batch: int, seq: int, steps: int,
             simulate_failure = -1
             # re-run from the checkpoint step
             for _ in range(last, step):
-                params, opt, _ = step_fn(params, opt, stream.next())
+                params, opt, _ = step_fn(params, opt,
+                                         next_batch(stream, cfg, tc, device))
             print(f"[train] recovered; replayed {step - last} steps")
 
-        b = stream.next()
+        b = next_batch(stream, cfg, tc, device)
         t_step = time.perf_counter()
         watchdog.start()
         params, opt, metrics = step_fn(params, opt, b)

@@ -8,6 +8,7 @@ from repro_torch.models.model import (
     param_spec,
 )
 from repro_torch.models.params import (
+    abstract_params,
     init_params,
     param_count,
     params_from_arrays,
@@ -22,6 +23,7 @@ __all__ = [
     "forward_train",
     "init_cache",
     "param_spec",
+    "abstract_params",
     "init_params",
     "param_count",
     "params_from_arrays",

@@ -19,8 +19,7 @@ reference scans stacked parameters).  Segment kinds:
 Three entry points:
   forward_train   causal-LM loss over a parameter TREE (the stacked
                   leaves ``init_params`` returns, which autograd and the
-                  optimizer see), blocks rematerialised; the dense
-                  family only so far (ROADMAP.md item 13c)
+                  optimizer see), blocks rematerialised; every family
   forward_prefill full-sequence forward that also builds the KV/SSM cache
   forward_decode  single-token step against the cache
 """
@@ -41,15 +40,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models.params import spec, tree_map_specs
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Training runs the dense family; the others serve only so far."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training family {cfg.family!r} is not ported yet "
-            "(it serves); see ROADMAP.md, LM item 13c (train the other "
-            "families on the card)")
-
 
 # ---------------------------------------------------------------------------
 # Layer plan
@@ -241,15 +231,18 @@ def _attn_body(bp, x, cfg, seg: Segment, positions, impl, memory=None):
         x = x + a
         extras.update({"xk": xkv[0], "xv": xkv[1]})
     h = L.apply_norm(bp.ln2, x, cfg.norm)
+    aux = {}
     if seg.kind == "moe":
-        m, _ = MOE.apply_moe(bp.moe, h, cfg)
+        m, aux = MOE.apply_moe(bp.moe, h, cfg)
     else:
         m = L.apply_mlp(bp.mlp, h, cfg)
-    return x + m, extras
+    return x + m, extras, aux
 
 
-def _mamba_body(bp, x, cfg):
+def _mamba_body(bp, x, cfg, return_state=True):
     h = L.apply_norm(bp.ln, x, "rmsnorm")
+    if not return_state:
+        return x + M2.mamba2_block(bp.mixer, h, cfg)
     out, (h_last, conv) = M2.mamba2_block(bp.mixer, h, cfg,
                                           return_state=True)
     return x + out, {"h": h_last, "conv": conv}
@@ -271,8 +264,8 @@ def _run_segments(params: Transformer, cfg, x, positions, *, impl,
     caches = []
     for seg, blocks in zip(params.plan, params.segments):
         if seg.kind == "shared_attn":
-            x, extras = _attn_body(params.shared, x, cfg, seg, positions,
-                                   impl)
+            x, extras, _ = _attn_body(params.shared, x, cfg, seg,
+                                      positions, impl)
             caches.append(extras)
             continue
         per_layer = []
@@ -280,8 +273,8 @@ def _run_segments(params: Transformer, cfg, x, positions, *, impl,
             if seg.kind == "mamba":
                 x, extras = _mamba_body(bp, x, cfg)
             else:
-                x, extras = _attn_body(bp, x, cfg, seg, positions, impl,
-                                       memory=memory)
+                x, extras, _ = _attn_body(bp, x, cfg, seg, positions,
+                                          impl, memory=memory)
             per_layer.append(_clip_cache(extras, seg))
         caches.append({name: torch.stack([e[name] for e in per_layer])
                        for name in per_layer[0]})
@@ -305,7 +298,7 @@ def _encode_audio(params: Transformer, cfg, enc_embeds, impl):
     seg = Segment("enc_attn", cfg.encoder_layers, causal=False)
     for blocks in params.encoder.segments:
         for bp in blocks:
-            x, _ = _attn_body(bp, x, cfg, seg, pos, impl)
+            x = _attn_body(bp, x, cfg, seg, pos, impl)[0]
     return L.apply_norm(params.encoder.final_norm, x, cfg.norm)
 
 
@@ -326,8 +319,64 @@ def _layer_view(seg_tree: dict, i: int) -> SimpleNamespace:
                               for name, sub in seg_tree.items()})
 
 
-def _train_block(x, lp, cfg, seg: Segment, positions, impl):
-    return _attn_body(lp, x, cfg, seg, positions, impl)[0]
+def _train_block(x, lp, cfg, seg: Segment, positions, impl, memory):
+    """One layer of the training forward: its new residual and its aux
+    dict (the MoE's losses, else empty)."""
+    if seg.kind == "mamba":
+        return _mamba_body(lp, x, cfg, return_state=False), {}
+    x, _, aux = _attn_body(lp, x, cfg, seg, positions, impl, memory=memory)
+    return x, aux
+
+
+def _run_layer(remat: bool, *args):
+    """:func:`_train_block` on ``args``, recomputed in the backward when
+    ``remat`` (``torch.utils.checkpoint``, the role of
+    ``jax.checkpoint``)."""
+    if remat:
+        return checkpoint(_train_block, *args, use_reentrant=False)
+    return _train_block(*args)
+
+
+def _zero_aux(cfg, device):
+    if cfg.family == "moe":
+        return {k: torch.zeros((), dtype=torch.float32, device=device)
+                for k in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
+    return {}
+
+
+def _train_segments(params: dict, cfg, x, positions, *, impl, remat,
+                    memory=None):
+    """The reference's ``_run_segments(..., want_cache=False)`` over the
+    parameter tree: each layer of a stacked segment from its views
+    (:func:`_layer_view`), recomputed in the backward when ``remat``; a
+    shared-attention segment runs ``params["shared"]`` without remat,
+    so its gradient sums over every call.  Returns x and the aux dict
+    summed over the layers."""
+    aux_tot = _zero_aux(cfg, x.device)
+    shared = SimpleNamespace(**params["shared"]) if "shared" in params \
+        else None
+    for seg, seg_tree in zip(build_plan(cfg), params["segments"]):
+        if seg.kind == "shared_attn":
+            x = _attn_body(shared, x, cfg, seg, positions, impl)[0]
+            continue
+        for i in range(seg.count):
+            x, aux = _run_layer(remat, x, _layer_view(seg_tree, i), cfg, seg,
+                                positions, impl, memory)
+            aux_tot = {k: v + aux.get(k, 0.0) for k, v in aux_tot.items()}
+    return x, aux_tot
+
+
+def _encode_audio_train(params: dict, cfg, enc_embeds, impl, remat):
+    """The encoder over the frame embeddings from ``params["encoder"]``,
+    each layer recomputed in the backward when ``remat``."""
+    x = enc_embeds.to(torch.bfloat16)
+    pos = torch.arange(x.shape[1], device=x.device)
+    enc = params["encoder"]
+    seg = Segment("enc_attn", cfg.encoder_layers, causal=False)
+    for i in range(cfg.encoder_layers):
+        x = _run_layer(remat, x, _layer_view(enc["segments"][0], i), cfg,
+                       seg, pos, impl, None)[0]
+    return L.apply_norm(enc["final_norm"], x, cfg.norm)
 
 
 def _ce_chunk(xx, tt, ww, w, tied: bool):
@@ -366,32 +415,40 @@ def _chunked_ce(params: dict, cfg, x, tokens, vis: int, chunk: int = 512):
 
 def forward_train(params: dict, cfg: ModelConfig, batch, *, impl="chunked",
                   remat=True):
-    """Causal-LM loss of the parameter tree ``params`` on ``batch``
-    (``{"tokens": (B, S) int}``).  Returns ``(loss, {"ce": loss})``.
+    """Causal-LM loss of the parameter tree ``params`` on ``batch``:
+    ``tokens`` (B, S) int, plus ``enc_embeds`` (B, encoder_seq, d) for
+    the audio family and ``vis_embeds`` (B, vision_tokens, d), prepended
+    to the token embeddings and skipped by the loss, for the vlm.
+    Returns ``(loss, metrics)``: ``{"ce": ...}``, and for the MoE its
+    aux losses and dropped share summed over the layers, with ``loss =
+    ce + 0.01 moe_lb_loss + 1e-3 moe_z_loss`` as the reference's.
 
     ``impl="chunked"`` runs attention through the flash kernel on CUDA
     tensors (:class:`~repro_torch.models.layers.FlashAttention`),
     ``"plain"`` through its plain-torch forward, ``"naive"`` through
-    materialized scores.  ``remat`` recomputes each block in the
-    backward.  The embedding is cast to bf16 before the lookup, as the
-    reference's is.  The dense family only: the others raise
-    ``NotImplementedError`` (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    materialized scores.  ``remat`` recomputes each stacked layer (and
+    each encoder layer) in the backward.  The embedding is cast to bf16
+    before the lookup, as the reference's is."""
     tokens = batch["tokens"]
+    memory = None
+    if cfg.family == "audio":
+        memory = _encode_audio_train(params, cfg, batch["enc_embeds"], impl,
+                                     remat)
     x = params["embed"].to(torch.bfloat16)[tokens.long()]
-    if cfg.global_every > 0:  # gemma-style embed scaling
+    if cfg.family == "dense" and cfg.global_every > 0:  # gemma scaling
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    vis = 0
+    if cfg.family == "vlm":
+        x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
+        vis = cfg.vision_tokens
     positions = torch.arange(x.shape[1], device=x.device)
-    for seg, seg_tree in zip(build_plan(cfg), params["segments"]):
-        for i in range(seg.count):
-            lp = _layer_view(seg_tree, i)
-            if remat:
-                x = checkpoint(_train_block, x, lp, cfg, seg, positions,
-                               impl, use_reentrant=False)
-            else:
-                x = _train_block(x, lp, cfg, seg, positions, impl)
-    ce = _chunked_ce(params, cfg, x, tokens, 0)
-    return ce, {"ce": ce}
+    x, aux = _train_segments(params, cfg, x, positions, impl=impl,
+                             remat=remat, memory=memory)
+    ce = _chunked_ce(params, cfg, x, tokens, vis)
+    loss = ce
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+    return loss, {"ce": ce, **aux}
 
 
 def forward_prefill(params: Transformer, cfg: ModelConfig, batch, *,

@@ -103,6 +103,20 @@ def apply_moe(p, x, cfg, *, capacity_factor=None, group_size=256):
     C = _capacity(S, E, K, capacity_factor or cfg.capacity_factor)
     r = route(p["router"], x, E, K, C)
     dispatch = r["dispatch"]
+
+    # --- aux losses (fp32), before the experts: a layer's remat
+    # recompute then ends at the combine einsum's saved inputs and skips
+    # its product, which the backward does not need (JAX's remat drops
+    # it too) ---
+    # load-balance: E * sum_e mean_prob_e * frac_tokens_e (Switch eq. 4)
+    me = r["probs"].mean(dim=(0, 1))                              # (E,)
+    ce = r["onehot"].sum(dim=2).mean(dim=(0, 1))                  # (E,)
+    lb_loss = E * torch.sum(me * ce / K)
+    z_loss = torch.mean(torch.logsumexp(r["logits"], dim=-1) ** 2)
+    dropped = 1.0 - dispatch.sum(dim=(2, 3)).mean() / K
+    aux = {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss,
+           "moe_drop_frac": dropped}
+
     gate_w = torch.einsum("bske,bsk->bse", r["onehot"], r["gate_vals"])
     combine = dispatch * gate_w[..., None]                        # (B,S,E,C)
 
@@ -115,14 +129,4 @@ def apply_moe(p, x, cfg, *, capacity_factor=None, group_size=256):
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
     out_e = torch.einsum("ebcf,efd->ebcd", h, p["wo"].to(x.dtype))
     y = torch.einsum("ebcd,bsec->bsd", out_e, combine.to(x.dtype))
-
-    # --- aux losses (fp32) ---
-    # load-balance: E * sum_e mean_prob_e * frac_tokens_e (Switch eq. 4)
-    me = r["probs"].mean(dim=(0, 1))                              # (E,)
-    ce = r["onehot"].sum(dim=2).mean(dim=(0, 1))                  # (E,)
-    lb_loss = E * torch.sum(me * ce / K)
-    z_loss = torch.mean(torch.logsumexp(r["logits"], dim=-1) ** 2)
-    dropped = 1.0 - dispatch.sum(dim=(2, 3)).mean() / K
-    aux = {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss,
-           "moe_drop_frac": dropped}
     return y.reshape(B0, S0, d), aux

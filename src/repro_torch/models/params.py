@@ -3,12 +3,14 @@ materialized parameters from the same tree.
 
 A model definition builds a nested dict (lists for the segments) of
 ``ParamSpec`` leaves.  ``init_params`` materializes it from a
-``torch.Generator``; ``params_from_arrays`` builds the model from the
-JAX package's parameter tree, and ``params_to_arrays`` gives a model's
-or a parameter tree's values back as that tree, so tests can hold the
-two against each other on the same weights both ways.  The logical axes are kept for the sharding
-half of the reference's ``params.py``, which waits for a multi-card
-slice.
+``torch.Generator``, and ``abstract_params`` gives its meta-tensor
+stand-ins, which the dry-run plans against.  ``params_from_arrays``
+builds the model from the JAX package's parameter tree, and
+``params_to_arrays`` gives a model's or a parameter tree's values back
+as that tree, so tests can hold the two against each other on the same
+weights both ways.  The logical axes are kept for the sharding half of
+the reference's ``params.py``, which waits for the multi-card slice
+(ROADMAP.md, L6).
 """
 
 from __future__ import annotations
@@ -78,6 +80,15 @@ def init_params(spec_tree, generator: torch.Generator,
                            device=device).mul_(s.scale).to(s.dtype)
 
     return tree_map_specs(make, spec_tree)
+
+
+def abstract_params(spec_tree):
+    """The spec tree as meta tensors (shapes and dtypes, no storage), the
+    role of the reference's ShapeDtypeStruct tree; no generator is
+    involved and nothing is allocated."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+        spec_tree)
 
 
 def params_from_arrays(cfg, tree):

@@ -1,2 +1,3 @@
-"""Roofline terms of planned programs (``analysis.py``) and the FLOP and
-byte counter they come from (``jaxpr_cost.py``)."""
+"""Roofline terms of planned programs (``analysis.py``), the FLOP and
+byte counter they come from (``jaxpr_cost.py``), and the LM records'
+recount under the analytic HBM model (``recost.py``)."""

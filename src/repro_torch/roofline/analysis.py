@@ -14,7 +14,10 @@ planning run issues) and the collectives from the exchange tallies of
 ``core/partitioned.py::StackedComm``, priced with the same ring model
 (:func:`collective_stats`).  Each record carries two sets of terms: the
 reference's TPU v5e terms under its keys, and the H100's under
-``h100``.
+``h100``.  The H100 prices a graph program's FLOPs at the f32 CUDA-core
+peak (it runs no tensor-core work); an LM cell's counted matmul FLOPs
+at the bf16 tensor-core peak and the rest at the f32 peak
+(:func:`analyze`).
 """
 
 from __future__ import annotations
@@ -101,11 +104,14 @@ class Roofline:
     useful_flops_ratio: float = 0.0
     peak_hbm_bytes: float = 0.0
     collectives: dict = field(default_factory=dict)
-    # the same terms on the H100, FLOPs at the f32 CUDA-core peak (graph
-    # programs run no tensor-core work)
+    # the same terms on the H100 (see finalize)
     h100: dict = field(default_factory=dict)
 
-    def finalize(self):
+    def finalize(self, matmul_flops_per_device: float | None = None):
+        """Fill the terms.  On the H100, ``matmul_flops_per_device`` (an
+        LM cell's counted matmul FLOPs) run at the bf16 tensor-core peak
+        and the rest of the FLOPs at the f32 CUDA-core peak; without it
+        (a graph program) every FLOP at the f32 peak."""
         self.compute_s = self.flops_per_device / PEAK_FLOPS_BF16
         self.memory_s = self.bytes_per_device / HBM_BW
         self.collective_s = self.collective_wire_bytes / ICI_LINK_BW
@@ -116,10 +122,15 @@ class Roofline:
         self.useful_flops_ratio = (
             self.model_flops_total / total if total else 0.0)
         rate = H100_PEAK_FLOPS_F32
-        h = {"compute_s": self.flops_per_device / rate,
+        mm = matmul_flops_per_device or 0.0
+        h = {"compute_s": mm / H100_PEAK_FLOPS_BF16
+             + (self.flops_per_device - mm) / rate,
              "memory_s": self.bytes_per_device / H100_HBM_BW,
              "collective_s": self.collective_wire_bytes / H100_NVLINK_BW}
-        self.h100 = {"flops_per_s": rate, "hbm_bytes_per_s": H100_HBM_BW,
+        rates = {"flops_per_s": rate}
+        if matmul_flops_per_device is not None:
+            rates["matmul_flops_per_s"] = H100_PEAK_FLOPS_BF16
+        self.h100 = {**rates, "hbm_bytes_per_s": H100_HBM_BW,
                      "link_bytes_per_s": H100_NVLINK_BW, **h,
                      "bottleneck": max(h, key=h.get)[:-len("_s")]}
         return self
@@ -143,3 +154,22 @@ def model_flops(cfg, shape) -> float:
         return 2.0 * n * tokens
     tokens = shape.global_batch  # one token per sequence
     return 2.0 * n * tokens
+
+
+def analyze(cost, *, arch: str, shape_name: str, mesh_name: str,
+            devices: int, model_flops_total: float, arg_bytes: int,
+            temp_bytes: int) -> Roofline:
+    """The reference's ``analyze`` for a planned LM cell: a
+    :class:`Roofline` from the counted ``cost`` (``jaxpr_cost.Cost``) of
+    one device's step.  Bytes are the reference's fusion estimate of the
+    graph records, a third of the unfused bytes (``roofline/recost.py``
+    replaces them with its analytic model); no collective runs on one
+    card; the peak is the argument bytes plus the planned temp bytes."""
+    r = Roofline(
+        arch=arch, shape=shape_name, mesh=mesh_name, devices=devices,
+        flops_per_device=cost.total_flops / devices,
+        bytes_per_device=cost.bytes_touched / devices / 3.0,
+        collective_wire_bytes=0.0, model_flops_total=model_flops_total,
+        peak_hbm_bytes=float(arg_bytes + temp_bytes),
+        collectives=collective_stats({}, devices))
+    return r.finalize(cost.matmul_flops / devices)

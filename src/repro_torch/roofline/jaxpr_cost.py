@@ -15,10 +15,18 @@ keeps the reference's path, its ``Cost`` fields and ``count_fn(fn,
   * unfused bytes: inputs plus outputs of every op that is not a view,
     data movement included (an upper bound on memory traffic that
     ignores fusion and caches);
-  * ``peak_live_bytes`` (port only): the most bytes the tensors the call
-    allocated held at once, freed when the last tensor over a storage
-    dies (weakref finalisers), the figure behind a plan's temp bytes.
+  * ``peak_live_bytes`` (port only): the most bytes the storages the
+    call allocated held at once, each counted until the storage itself
+    is freed (a weakref finaliser on its Python object, which lives as
+    long as the storage does), so a tensor that autograd saved for the
+    backward, or that ``torch.utils.checkpoint`` holds for its
+    recompute, stays counted until the backward frees it: the figure
+    behind a plan's temp bytes.
 
+Under autograd the dispatcher sees the backward's ops too (the engine
+runs them with the caller's dispatch modes), and under
+``torch.utils.checkpoint`` the recompute's, so a training step's count
+holds its forward, its remat recompute and its backward.
 Views (``view``, ``slice``, ``permute``, ``expand`` ...) cost nothing.
 On ``device="meta"`` tensors nothing is allocated or computed, so a
 paper-scale program is counted on a host with no card.  A host read of
@@ -101,58 +109,122 @@ class CostCounter(TorchDispatchMode):
         super().__init__()
         self.cost = Cost()
         self.live_bytes = 0
-        self._refs: dict[int, list] = {}     # storage -> [tensors, bytes]
+        self._live: set[int] = set()          # storages counted as live
+        # a call signature on meta tensors -> its outputs' metadata and
+        # counts: meta kernels cost tens of microseconds of Python each,
+        # and a planning run repeats the same calls (layers, chunks), so
+        # a repeat builds empty meta outputs and adds the same counts
+        self._outs: dict = {}
 
-    def _release(self, key: int) -> None:
-        ent = self._refs.get(key)
-        if ent is None:
+    def _release(self, key: int, nbytes: int) -> None:
+        self._live.discard(key)
+        self.live_bytes -= nbytes
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._live:
             return
-        ent[0] -= 1
-        if ent[0] == 0:
-            self.live_bytes -= ent[1]
-            del self._refs[key]
-
-    def _track(self, t: torch.Tensor, fresh: bool) -> None:
-        key = t.untyped_storage()._cdata
-        ent = self._refs.get(key)
-        if ent is None:
-            if not fresh:
-                return                        # a view of an untracked input
-            ent = self._refs[key] = [0, t.untyped_storage().nbytes()]
-            self.live_bytes += ent[1]
-            self.cost.peak_live_bytes = max(self.cost.peak_live_bytes,
-                                            self.live_bytes)
-        ent[0] += 1
-        weakref.finalize(t, self._release, key)
+        self._live.add(key)
+        self.live_bytes += st.nbytes()
+        self.cost.peak_live_bytes = max(self.cost.peak_live_bytes,
+                                        self.live_bytes)
+        weakref.finalize(st, self._release, key, st.nbytes())
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if func is aten._local_scalar_dense.default and args[0].is_meta:
             return _zero(args[0].dtype)
-        out = func(*args, **kwargs)
-        schema = func._schema
-        mutates = schema.is_mutable
-        view = not mutates and any(r.alias_info is not None
-                                   for r in schema.returns)
-        outs = list(_tensors(out))
+        view, kind = _func_info(func)
         if view:
-            for t in outs:
-                self._track(t, fresh=False)
-            return out
-        ins = list(_tensors(args)) + list(_tensors(kwargs))
+            return func(*args, **kwargs)
+        key = _meta_key(func, args, kwargs)
+        hit = self._outs.get(key) if key is not None else None
+        if hit is not None:
+            metas, single, d_mm, d_ew, d_bytes = hit
+            outs = [torch.empty_strided(shape, stride, dtype=dtype,
+                                        device="meta")
+                    for shape, stride, dtype in metas]
+            out = outs[0] if single else tuple(outs)
+        else:
+            out = func(*args, **kwargs)
+            ins = list(_tensors(args)) + list(_tensors(kwargs))
+            outs = list(_tensors(out))
+            d_bytes = sum(_nbytes(t) for t in ins) \
+                + sum(_nbytes(t) for t in outs)
+            d_mm = _matmul_flops(func, args) if kind == "mm" else 0.0
+            d_ew = sum(t.numel() for t in outs) if kind == "ew" else 0.0
+            in_keys = {t.untyped_storage()._cdata for t in ins}
+            outs = [t for t in outs
+                    if t.untyped_storage()._cdata not in in_keys]
+            if key is not None and _cacheable(out, outs):
+                self._outs[key] = (
+                    [(tuple(t.shape), t.stride(), t.dtype) for t in outs],
+                    isinstance(out, torch.Tensor), d_mm, d_ew, d_bytes)
         c = self.cost
-        c.bytes_touched += sum(_nbytes(t) for t in ins) \
-            + sum(_nbytes(t) for t in outs)
+        c.bytes_touched += d_bytes
+        c.matmul_flops += d_mm
+        c.elementwise_flops += d_ew
+        for t in outs:
+            self._track(t)
+        return out
+
+
+_FUNC_INFO: dict = {}
+
+
+def _func_info(func) -> tuple[bool, str | None]:
+    """(is a view op, "mm" / "ew" / None: what its FLOPs count as)."""
+    info = _FUNC_INFO.get(func)
+    if info is None:
+        schema = func._schema
+        view = not schema.is_mutable and any(r.alias_info is not None
+                                             for r in schema.returns)
         if func in _MATMUL:
-            c.matmul_flops += _matmul_flops(func, args)
+            kind = "mm"
         elif torch.Tag.pointwise in func.tags \
                 or func.name().split("::")[-1].split(".")[0].rstrip("_") \
                 in _REDUCTIONS:
-            c.elementwise_flops += sum(t.numel() for t in outs)
-        in_keys = {t.untyped_storage()._cdata for t in ins}
-        for t in outs:
-            self._track(t, fresh=t.untyped_storage()._cdata not in in_keys)
-        return out
+            kind = "ew"
+        else:
+            kind = None
+        info = _FUNC_INFO[func] = (view, kind)
+    return info
+
+
+_ATOMS = (bool, int, float, str, type(None), torch.dtype, torch.device,
+          torch.memory_format, torch.layout)
+
+
+def _sig(x):
+    if isinstance(x, torch.Tensor):
+        if not x.is_meta:
+            raise TypeError
+        return ("T", tuple(x.shape), x.stride(), x.dtype)
+    if isinstance(x, (list, tuple)):
+        return tuple(_sig(v) for v in x)
+    if isinstance(x, _ATOMS):
+        return (type(x).__name__, x)
+    raise TypeError
+
+
+def _meta_key(func, args, kwargs):
+    """The signature of a call on meta tensors (shapes, strides, dtypes and
+    the other arguments), or None when an argument is of another kind
+    (a tensor elsewhere than on meta, say)."""
+    try:
+        return (func, _sig(args), _sig(tuple(sorted(kwargs.items()))))
+    except TypeError:
+        return None
+
+
+def _cacheable(out, fresh) -> bool:
+    """A functional op's result that depends on its arguments' metadata
+    alone: a meta tensor or a tuple of them, none aliasing an input."""
+    outs = [out] if isinstance(out, torch.Tensor) else out
+    return (isinstance(outs, (list, tuple)) and len(fresh) == len(outs)
+            and all(isinstance(t, torch.Tensor) and t.is_meta
+                    for t in outs))
 
 
 def count_fn(fn, *args, **kwargs) -> Cost:

@@ -11,38 +11,42 @@ it.
 from __future__ import annotations
 
 
+def _walk(t, out: list):
+    if isinstance(t, dict):
+        return (dict, [(k, _walk(t[k], out)) for k in sorted(t)])
+    if isinstance(t, (list, tuple)):
+        return (type(t), [_walk(v, out) for v in t])
+    out.append(t)
+    return None
+
+
 def flatten(tree):
     """``(leaves, spec)``: the leaves in order and the structure that
-    :func:`unflatten` rebuilds from them."""
-    leaves = []
+    :func:`unflatten` rebuilds from them.  (Module-level recursion: a
+    recursive closure would hold the leaves in a reference cycle, alive
+    until the cyclic collector runs, which on the card is gigabytes of
+    a training step's trees.)"""
+    leaves: list = []
+    spec = _walk(tree, leaves)
+    return leaves, spec
 
-    def walk(t):
-        if isinstance(t, dict):
-            return (dict, [(k, walk(t[k])) for k in sorted(t)])
-        if isinstance(t, (list, tuple)):
-            return (type(t), [walk(v) for v in t])
-        leaves.append(t)
-        return None
 
-    return leaves, walk(tree)
+def _build(s, it):
+    if s is None:
+        return next(it)
+    kind, children = s
+    if kind is dict:
+        return {k: _build(c, it) for k, c in children}
+    vals = [_build(c, it) for c in children]
+    if hasattr(kind, "_fields"):                  # a NamedTuple
+        return kind(*vals)
+    return kind(vals)
 
 
 def unflatten(spec, leaves):
     """The tree of ``spec`` with ``leaves`` in :func:`flatten`'s order."""
     it = iter(leaves)
-
-    def build(s):
-        if s is None:
-            return next(it)
-        kind, children = s
-        if kind is dict:
-            return {k: build(c) for k, c in children}
-        vals = [build(c) for c in children]
-        if hasattr(kind, "_fields"):              # a NamedTuple
-            return kind(*vals)
-        return kind(vals)
-
-    out = build(spec)
+    out = _build(spec, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has")
     return out

@@ -314,6 +314,8 @@ def test_urand28_plans_every_program_at_production_parts():
 
 
 def test_cli_writes_records_and_refuses_arch(tmp_path):
+    """--graph writes its 32 records as before; --arch (here the smoke
+    config, one card) now writes its cells' records beside them."""
     env = dict(os.environ, PYTHONPATH=SRC)
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--graph",
@@ -327,10 +329,23 @@ def test_cli_writes_records_and_refuses_arch(tmp_path):
     assert names == want
     rec = json.loads((tmp_path / names[0]).read_text())
     assert rec["status"] == "ok" and "h100" in rec
+    assert "matmul_flops_per_s" not in rec["h100"]
+    assert rec["h100"]["compute_s"] == pytest.approx(
+        rec["flops_per_device"] / analysis.H100_PEAK_FLOPS_F32)
     assert r.stdout.count("[graph ") == 32
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "tinyllama-1.1b"], env=env, capture_output=True, text=True,
+         "tinyllama-1.1b", "--shape", "train_4k,decode_32k", "--smoke",
+         "--out", str(tmp_path)], env=env, capture_output=True, text=True,
         timeout=300, cwd=REPO)
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "13b" in r.stderr
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "All dry-run cells passed." in r.stdout
+    for shape, program in (("train_4k", "train_step"),
+                           ("decode_32k", "serve_step(decode)")):
+        rec = json.loads((tmp_path / f"tinyllama-1.1b__{shape}__single"
+                                     f".json").read_text())
+        assert rec["status"] == "ok" and rec["program"] == program
+        assert rec["mesh"] == "single" and rec["devices"] == 1
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        want + [f"tinyllama-1.1b__{s}__single.json"
+                for s in ("train_4k", "decode_32k")])

@@ -54,7 +54,9 @@ def test_sources_import_no_jax_or_reference():
              ("launch", "steps.py"), ("launch", "train.py"),
              ("optim", "adamw.py"), ("checkpoint", "checkpoint.py"),
              ("distributed", "fault_tolerance.py"),
-             ("models", "moe.py"), ("models", "mamba2.py"))} <= set(files)
+             ("models", "moe.py"), ("models", "mamba2.py"),
+             ("launch", "mesh.py"), ("roofline", "recost.py"),
+             ("models", "params.py"), ("models", "model.py"))} <= set(files)
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, f"forbidden imports: {bad}"

@@ -185,15 +185,23 @@ def test_swa_window_longer_than_context_decodes_right():
 @pytest.mark.parametrize("name", [n for n, c in ARCHS.items()
                                   if c.family != "dense"])
 def test_other_families_raise(name):
-    """The other families serve (tests/test_torch_families.py), but
-    training them is not ported yet: forward_train raises, naming the
-    ROADMAP item, before it touches a weight."""
+    """forward_train runs the other families now (their parity with the
+    reference is in tests/test_torch_train_families.py): a finite loss,
+    the same with and without remat; the audio and vlm families raise a
+    KeyError naming the frontend stub a batch of tokens alone lacks."""
     cfg = smoke_config(name)
     tree = init_params(param_spec(cfg), torch.Generator().manual_seed(0),
                        "cpu")
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward_train(tree, cfg, batch)
+    batch = {"tokens": torch.zeros((1, 32), dtype=torch.int32)}
+    stub = {"audio": ("enc_embeds", cfg.encoder_seq),
+            "vlm": ("vis_embeds", cfg.vision_tokens)}.get(cfg.family)
+    if stub is not None:
+        with pytest.raises(KeyError, match=stub[0]):
+            forward_train(tree, cfg, batch)
+        batch[stub[0]] = torch.zeros((1, stub[1], cfg.d_model))
+    loss, metrics = forward_train(tree, cfg, batch)
+    assert torch.isfinite(loss) and float(metrics["ce"]) > 0
+    assert torch.equal(forward_train(tree, cfg, batch, remat=False)[0], loss)
 
 
 def test_serve_needs_a_card_unless_told_cpu(monkeypatch):
