@@ -18,6 +18,10 @@ against its plain-PyTorch version:
   cc/async and pagerank/async (staleness 1 and 2), cc/incremental,
   kcore/incremental and pagerank/warm on the same partitions (kernel
   ``spmv_ell`` on pagerank/async's and pagerank/warm's push combines);
+- the programs over ``torch.distributed``, one part a rank
+  (``DistComm``): all sixteen over NCCL at one rank, and over gloo at
+  four ranks sharing the card (kernels ``spmv_ell`` and ``bfs_pull`` on
+  every rank), and int8 gradient compression on the card;
 - fault injection, guards and checkpoint/rollback recovery: bfs/fast,
   pagerank/bsp, pagerank/fast, betweenness, bfs/async and pagerank/async
   guarded, checkpointed and recovered from a seeded drop + corrupt +
@@ -143,6 +147,33 @@ prints no result):
            run rounds, ms in modes auto and ell (median of 3 after the
            checked run), syncs, wire bytes per round by op, and the BSP
            sibling's ms and rounds from this run; ``[async done]`` the
+           phase's seconds.
+  dist     first the case for ``partitioned.part_sums``: how many rows
+           of DIST_SPLIT_DRAWS seeded (DIST_WORLD, n_local) float32
+           fields differ in bits between one batched row sum and one
+           row at a time (``[dist] part sums`` line).  Then
+           the sixteen programs (triangles on the TRI_N-vertex graph) and
+           the guarded runs of bfs/fast and pagerank/bsp under
+           DIST_CHAOS, over ``torch.distributed`` (``DistComm``, one
+           part a rank) in mode auto, each against the same run over
+           ``StackedComm`` on the same partitions, launch counters zeroed
+           around each run.  One rank over NCCL at parts 1 in this
+           process: outputs bit for bit, rounds, guard verdicts, wire by
+           (phase, op) and launches equal, each program timed (median of
+           3) through both comms.  Then DIST_WORLD gloo ranks at parts
+           DIST_WORLD, all on the one card (NCCL takes a card a rank):
+           each rank a process of this script (``--dist-rank``) that
+           loads its part from a file this process wrote
+           (``GraphShards.take_part``), so no rank partitions the graph;
+           every rank's exit code is checked, within DIST_TIMEOUT_S.
+           Rank 0's gathered outputs bit for bit and every rank's digest
+           of them, rounds, verdicts, wire and launches equal
+           StackedComm's at parts DIST_WORLD, spmv_ell and bfs_pull
+           launch on every rank, and the ops gloo staged through pinned
+           host memory are printed.  Then ``compress_tree`` over a seeded
+           tree of TinyLlama's parameter shapes: payloads, scales and
+           residuals on the card bit-equal to the CPU's.  ``[dist]``
+           lines: rounds, ms per comm, launches; ``[dist done]`` the
            phase's seconds.
   chaos    at parts 4 in mode auto, launch counters zeroed around each
            program: bfs/fast, pagerank/bsp, pagerank/fast, betweenness,
@@ -369,7 +400,9 @@ import gc
 import json
 import math
 import os
+import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -458,6 +491,13 @@ MUTATE_DIR = HERE / "build" / "persist"
 MUTATE_DURABLE = {"batches": 4, "size": 64, "snapshot_every": 2}
 MUTATE_REPLAY = {**SERVE_REPLAY, "mutate_every": 3.0, "mutate_size": 64,
                  "snapshot_every": 2}
+DIST_DIR = HERE / "build" / "dist"    # part hand-off files, rank logs
+DIST_WORLD = 4           # gloo ranks sharing the card, one part each
+DIST_TIMEOUT_S = 420     # a rank still running then fails the phase
+DIST_CHAOS = "drop@r1p0 corrupt@r2p1"
+DIST_CHAOS_PROGRAMS = (("bfs", "fast"), ("pagerank", "bsp"))
+DIST_WARMUP = (("bfs", "fast"), ("pagerank", "bsp"))
+DIST_SPLIT_DRAWS = 4     # seeded fields part_sum_split reduces both ways
 ASYNC_SIBLING = {"bfs/async": "bfs/fast", "sssp/async": "sssp",
                  "cc/async": "cc", "pagerank/async": "pagerank/fast",
                  "cc/incremental": "cc", "kcore/incremental": "kcore",
@@ -639,7 +679,7 @@ class Port:
         from repro_torch.core import CheckpointRunner, GraphEngine, \
             incremental, localops, partition_graph, registry, run_program, \
             superstep
-        from repro_torch.core.partitioned import pack_bits
+        from repro_torch.core.partitioned import pack_bits, part_sums
         from repro_torch.graphs import generate_edges, urand_edges
         from repro_torch.kernels import _build, _ell
         from repro_torch.kernels.frontier import kernel as frontier_kernel
@@ -669,6 +709,10 @@ class Port:
         from repro_torch.launch import serve as lm_serve
         from repro_torch.launch import mesh
         from repro_torch.configs.base import ShapeConfig
+        from repro_torch.distributed import compression
+        from repro_torch.obs.telemetry import tally_delta
+        self.compression = compression
+        self.tally_delta = tally_delta
         self.mesh = mesh
         self.ShapeConfig = ShapeConfig
         self.model_moe = model_moe
@@ -698,6 +742,7 @@ class Port:
         self.registry = registry
         self.partition_graph = partition_graph
         self.pack_bits = pack_bits
+        self.part_sums = part_sums
         self.generate_edges = generate_edges
         self.urand_edges = urand_edges
         self.run_program = run_program
@@ -1765,6 +1810,8 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
     bsp = run_bsp(port, m, engines, device)
     # -- async supersteps and the incremental programs -------------------
     asy = run_async(port, m, engines, main, bsp, program_ms)
+    # -- the programs over torch.distributed, one part a rank -----------
+    dst = run_dist(port, engines, device)
     # -- fault injection, guards and recovery -----------------------------
     chaos = run_chaos(port, engines, main, bsp, asy)
     # -- observability: telemetry builds, probes, traced recovery ---------
@@ -1783,7 +1830,8 @@ def run(graph: str, parts_list, device, parent_root: str | None = None) \
             "inc_launches": asy["inc_launches"],
             "chaos_launches": chaos["launches"], "obs_launches": obs,
             "serve_launches": served, "dryrun_launches": dry,
-            "mutate_launches": mutated}
+            "mutate_launches": mutated, "dist_launches": dst["launches"],
+            "dist_by_rank": dst["by_rank"]}
 
 def suite_fields(eng, prog, outs) -> dict:
     """Output name -> host value (vertex fields gathered to numpy)."""
@@ -2306,6 +2354,412 @@ def run_async(port: Port, m, engines: dict, main: dict, bsp: dict,
     log(f"[async done] {secs:.1f} s")
     return {"launches": async_launches, "inc_launches": inc_launches,
             "runs": runs}
+
+
+# ---------------------------------------------------------------------------
+# the multi-rank exchange: DistComm over torch.distributed
+# ---------------------------------------------------------------------------
+
+def dist_params(algo: str, variant: str) -> dict:
+    """Registry defaults, but pagerank/async and /warm at ASYNC_PR_PARAMS
+    (as the async phase runs them)."""
+    return dict(ASYNC_PR_PARAMS) if algo == "pagerank" \
+        and variant in ("async", "warm") else {}
+
+
+def dist_args(port: Port, eng, garr, spec) -> tuple:
+    """Root ROOT, or the incremental programs' cold seeds (computed from
+    the shards the engine holds, scattered to its parts)."""
+    if any(k != "scalar" for k in spec.input_kinds):
+        (seed,) = port.incremental.cold_seed(spec, eng.g)
+        return (garr, eng.scatter_vertex_field(
+            seed, port.incremental.KIND_DTYPES[spec.input_kinds[0]]))
+    return (garr,) + (ROOT,) * len(spec.inputs)
+
+
+def dist_programs(port: Port, eng, garr, tri, programs) -> dict:
+    """Each of ``programs`` once in local-ops mode auto (triangles on the
+    ``tri`` engine and arrays), launch counters zeroed just before and
+    read just after each run, then the guarded chaos runs of
+    DIST_CHAOS_PROGRAMS under DIST_CHAOS: per run the host fields
+    (vertex fields gathered to every part), rounds, the wire it tallied
+    by (phase, op), launches, the ok verdict of a guarded run, and the
+    run's synchronized ms.  The same code under either comm."""
+    torch = port.torch
+    out = {}
+    runs = [(a, v, {}) for a, v in programs] \
+        + [(a, v, {"guard": True, "faults": DIST_CHAOS})
+           for a, v in DIST_CHAOS_PROGRAMS]
+    for algo, variant, opts in runs:
+        e, ga = tri if algo == "triangles" else (eng, garr)
+        spec = port.registry.get_spec(algo, variant)
+        prog = e.program(algo, variant, **opts, **dist_params(algo, variant))
+        args = dist_args(port, e, ga, spec)
+        _sync(torch, e.device)
+        before = e.comm.tally()
+        port.reset_launches()
+        t0 = time.perf_counter()
+        res = prog(*args)
+        _sync(torch, e.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = port.launches()
+        ok = res[-1] if opts else None
+        *outs, rounds = res[:-1] if opts else res
+        key = f"{algo}/{variant}" + (" chaos" if opts else "")
+        out[key] = {
+            "fields": suite_fields(e, prog, outs),
+            "rounds": rounds, "ok": ok, "ms": ms,
+            "wire": port.tally_delta(before, e.comm.tally()),
+            "launches": {k: launches[k] for k in ("spmv_ell", "bfs_pull")},
+            "prog": prog, "args": args}
+    return out
+
+
+def hand_off(g, path: Path) -> int:
+    """Write one part's shards (``GraphShards.take_part``) for a rank to
+    load with :func:`load_part`; the file's bytes."""
+    with open(path, "wb") as f:
+        pickle.dump(g, f, protocol=5)
+    return path.stat().st_size
+
+
+def load_part(path: Path):
+    """The shards :func:`hand_off` wrote."""
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def wait_ranks(procs, timeout_s: float) -> None:
+    """Wait for every rank process; fail the phase if one exits non-zero
+    or is still running ``timeout_s`` after the wait began (every rank
+    still running is then killed, so none outlives the phase)."""
+    deadline = time.monotonic() + timeout_s
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.01))
+            except subprocess.TimeoutExpired:
+                check(False, f"rank {r} still running after "
+                             f"{timeout_s} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    check(not bad, f"ranks failed (rank, exit code): {bad}")
+
+
+def fields_digest(fields: dict) -> str:
+    """A digest of a run's host fields, to hold ranks' gathers equal."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(fields):
+        v = fields[k]
+        h.update(k.encode())
+        h.update(v.dtype.str.encode() + v.tobytes()
+                 if isinstance(v, np.ndarray) else repr(v).encode())
+    return h.hexdigest()
+
+
+def dist_same(tag: str, got: dict, want: dict, fields: bool = True) -> None:
+    """Fail unless a DistComm run equals the StackedComm run of the same
+    program: rounds, ok verdict, wire by (phase, op), kernel launches,
+    and (``fields``) every output bit for bit."""
+    check(got["rounds"] == want["rounds"],
+          f"{tag}: rounds {got['rounds']} vs stacked {want['rounds']}")
+    check(got["ok"] == want["ok"],
+          f"{tag}: ok {got['ok']} vs stacked {want['ok']}")
+    check(got["wire"] == want["wire"],
+          f"{tag}: wire {got['wire']} vs stacked {want['wire']}")
+    check(got["launches"] == want["launches"],
+          f"{tag}: launches {got['launches']} vs stacked "
+          f"{want['launches']}")
+    if fields:
+        check(same_fields(got["fields"], want["fields"]),
+              f"{tag}: outputs differ from stacked")
+
+
+def dist_rank_main(rank: int, d: Path) -> int:
+    """One rank of the [dist] phase's gloo run (``chip_smoke.py
+    --dist-rank R``): load this rank's part of the graph and of the
+    triangles graph, build the engines over the process group
+    (``DistComm``), warm up, run ``job.json``'s programs with
+    :func:`dist_programs`, and write the results (rank 0 with its
+    gathered fields; every rank its fields' digest)."""
+    port = Port()
+    torch = port.torch
+    import torch.distributed as dist
+    job = json.loads((d / "job.json").read_text())
+    device = job["device"]
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DIST_WORLD))
+    dist.init_process_group("gloo", init_method=f"file://{d}/rdzv-gloo",
+                            rank=rank, world_size=DIST_WORLD)
+    try:
+        port.localops.set_mode("auto")
+        mesh = port.mesh.make_graph_mesh(DIST_WORLD)
+        t0 = time.perf_counter()
+        eng = port.GraphEngine(load_part(d / f"part{rank}.pkl"),
+                               device=device, mesh=mesh)
+        garr = eng.device_graph()
+        teng = port.GraphEngine(load_part(d / f"tri{rank}.pkl"),
+                                device=device, mesh=mesh)
+        tri = (teng, teng.device_graph())
+        _sync(torch, device)
+        load_s = time.perf_counter() - t0
+        dist_programs(port, eng, garr, tri, DIST_WARMUP)
+        programs = [tuple(p) for p in job["programs"]]
+        t0 = time.perf_counter()
+        res = dist_programs(port, eng, garr, tri, programs)
+        out = {"rank": rank, "comm": repr(eng.comm), "load_s": load_s,
+               "run_s": time.perf_counter() - t0,
+               "staged": sorted(eng.comm.staged_ops | teng.comm.staged_ops),
+               "runs": {}}
+        for key, r in res.items():
+            cell = {k: r[k] for k in ("rounds", "ok", "ms", "wire",
+                                      "launches")}
+            cell["digest"] = fields_digest(r["fields"])
+            if rank == 0:
+                cell["fields"] = r["fields"]
+            out["runs"][key] = cell
+        with open(d / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f, protocol=5)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_dist_compression(port: Port, device) -> dict:
+    """``compress_tree`` on the card over a seeded tree of TinyLlama's
+    parameter shapes with a seeded carried residual, against the same
+    call on the CPU: payloads, scales and residuals bit for bit."""
+    torch, comp, tree = port.torch, port.compression, port.tree
+    cfg = port.arch_registry.ARCHS[LLM_ARCH]
+    shapes = port.models.abstract_params(port.models.param_spec(cfg))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def draw(m, scale):
+        return torch.randn(m.shape, generator=gen, device=device) * scale
+
+    grads = tree.tree_map(lambda m: draw(m, 1e-3), shapes)
+    resid = tree.tree_map(lambda m: draw(m, 1e-6), shapes)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    q, s, r = comp.compress_tree(grads, resid)
+    _sync(torch, device)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    host = tree.tree_map(lambda t: t.cpu(), (grads, resid))
+    del grads, resid
+    t0 = time.perf_counter()
+    qc, sc, rc = comp.compress_tree(*host)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    leaves = 0
+    for name, a, b in (("q", q, qc), ("scale", s, sc), ("resid", r, rc)):
+        la, lb = tree.leaves(a), tree.leaves(b)
+        leaves = len(la)
+        for i, (x, y) in enumerate(zip(la, lb)):
+            x = x.cpu()
+            check(x.dtype == y.dtype and x.shape == y.shape
+                  and torch.equal(x.view(-1).view(torch.uint8),
+                                  y.view(-1).view(torch.uint8)),
+                  f"compression: {name} of leaf {i} differs between the "
+                  "card and the CPU")
+    n = sum(t.numel() for t in tree.leaves(q))
+    del q, s, r
+    return {"leaves": leaves, "elements": n, "card_ms": card_ms,
+            "cpu_ms": cpu_ms}
+
+
+def part_sum_split(port: Port, device, n_local: int) -> dict:
+    """The case for ``partitioned.part_sums``: seeded float32 fields of
+    the shape pagerank sums at parts DIST_WORLD, ``(DIST_WORLD,
+    n_local)``, reduced in one call (``x.sum(dim=1)``, what the stacked
+    parts would run without part_sums) against each part's ``(1,
+    n_local)`` row alone (what a rank holding one part runs).  Counts
+    the rows whose bits differ; ``part_sums`` must equal the one-row
+    sums in every row."""
+    torch = port.torch
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = differ = 0
+    for _ in range(DIST_SPLIT_DRAWS):
+        x = torch.rand((DIST_WORLD, n_local), generator=gen, device=device)
+        one = torch.cat([x[p:p + 1].sum(dim=1) for p in range(DIST_WORLD)])
+        differ += int((x.sum(dim=1) != one).sum())
+        rows += DIST_WORLD
+        check(torch.equal(port.part_sums(x), one),
+              "part_sums differs from the one-row sums")
+    return {"rows": rows, "differ": differ, "n_local": n_local}
+
+
+def run_dist(port: Port, engines: dict, device) -> dict:
+    """The graph programs over ``torch.distributed`` (``DistComm``), one
+    part a rank, against ``StackedComm`` on the same partitions.
+
+    1. One rank at parts 1 over NCCL on the card (gloo off it): every
+       program through both comms in this process, outputs, rounds,
+       wire and launches equal, each timed (median of 3) beside the
+       other.
+    2. DIST_WORLD gloo ranks at parts DIST_WORLD, all on the one card
+       (NCCL takes a card a rank): this process hands each rank its
+       part (and its part of the triangles graph) as a file, runs the
+       programs with StackedComm for the references, starts the ranks
+       (``chip_smoke.py --dist-rank``), waits for every one with a
+       timeout, and holds their outputs, rounds, guard verdicts under
+       DIST_CHAOS, wire and launches to the references; on the card
+       spmv_ell and bfs_pull must launch on every rank.
+    3. ``compress_tree`` on the card against the CPU."""
+    import torch.distributed as dist
+    torch = port.torch
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    card = card_line() if on_card else "cpu"
+    programs = tuple(port.registry.available())
+    split = part_sum_split(port, device, engines[DIST_WORLD][0].n_local)
+    log(f"[dist] part sums: {split['differ']} of {split['rows']} float32 "
+        f"rows of ({DIST_WORLD}, {split['n_local']}) differ in bits between "
+        "one batched x.sum(dim=1) and one-row sums; part_sums equals the "
+        f"one-row sums ({card})")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    tri_edges = port.urand_edges(TRI_N, 16 * TRI_N, SEED)
+    stacked = {}
+    for parts in (1, DIST_WORLD):
+        g, eng, garr = engines[parts]
+        g_t = port.partition_graph(tri_edges, TRI_N, parts)
+        eng_t = port.GraphEngine(g_t, device=device)
+        stacked[parts] = (g, eng, garr, g_t, (eng_t, eng_t.device_graph()))
+    port.localops.set_mode("auto")
+    launches = {"spmv_ell": 0, "bfs_pull": 0}
+
+    # -- one rank over NCCL, parts 1 ---------------------------------------
+    g, eng_s, garr_s, g_t, tri_s = stacked[1]
+    want = dist_programs(port, eng_s, garr_s, tri_s, programs)
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(
+        backend, init_method=f"file://{DIST_DIR}/rdzv-one", rank=0,
+        world_size=1, **({"device_id": torch.device(
+            "cuda", torch.cuda.current_device())} if on_card else {}))
+    one = {}
+    try:
+        mesh = port.mesh.make_graph_mesh(1)
+        eng_d = port.GraphEngine(g, device=device, mesh=mesh)
+        check(eng_d.distributed and eng_d.comm.backend == backend,
+              f"one-rank engine: {eng_d.comm!r}")
+        garr_d = eng_d.device_graph()
+        eng_dt = port.GraphEngine(g_t, device=device, mesh=mesh)
+        tri_d = (eng_dt, eng_dt.device_graph())
+        got = dist_programs(port, eng_d, garr_d, tri_d, programs)
+        for key, w in want.items():
+            r = got[key]
+            dist_same(f"[dist] {backend} parts=1 {key}", r, w)
+            for name in launches:
+                launches[name] += r["launches"][name]
+            ms_d = median_ms(torch, device,
+                             lambda r=r: r["prog"](*r["args"]))
+            ms_s = median_ms(torch, device,
+                             lambda w=w: w["prog"](*w["args"]))
+            one[key] = {"rounds": r["rounds"], "ok": r["ok"], "ms": ms_d,
+                        "stacked_ms": ms_s, "launches": r["launches"]}
+            log(f"[dist] {backend} world=1 parts=1 {key:24s} rounds="
+                f"{r['rounds']:3d} DistComm {ms_d:9.2f} ms  StackedComm "
+                f"{ms_s:9.2f} ms  launches {r['launches']}  ({card})")
+        del garr_d, tri_d, got
+    finally:
+        dist.destroy_process_group()
+    check(not on_card or all(launches.values()),
+          f"[dist] one rank: a kernel never launched {launches}")
+
+    # -- DIST_WORLD gloo ranks sharing the card, parts DIST_WORLD ----------
+    g, eng_s, garr_s, g_t, tri_s = stacked[DIST_WORLD]
+    want = dist_programs(port, eng_s, garr_s, tri_s, programs)
+    t0 = time.perf_counter()
+    handed = sum(hand_off(g.take_part(p), DIST_DIR / f"part{p}.pkl")
+                 + hand_off(g_t.take_part(p), DIST_DIR / f"tri{p}.pkl")
+                 for p in range(DIST_WORLD))
+    log(f"[dist] handed {DIST_WORLD} parts to the ranks: "
+        f"{handed / 2 ** 30:.2f} GiB of files in "
+        f"{time.perf_counter() - t0:.1f} s")
+    (DIST_DIR / "job.json").write_text(json.dumps(
+        {"programs": programs, "device": str(device)}))
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(DIST_WORLD):
+        with open(DIST_DIR / f"rank{r}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"), "--dist-rank",
+                 str(r), "--dist-dir",
+                 str(DIST_DIR)], cwd=HERE, stdout=f,
+                stderr=subprocess.STDOUT))
+    try:
+        wait_ranks(procs, DIST_TIMEOUT_S)
+    except BaseException:
+        for r in range(DIST_WORLD):
+            log(f"[dist] rank {r} log tail:\n"
+                + (DIST_DIR / f"rank{r}.log").read_text()[-3000:])
+        raise
+    gloo_s = time.perf_counter() - t0
+    ranks = [load_part(DIST_DIR / f"rank{r}.pkl")
+             for r in range(DIST_WORLD)]
+    by_rank = []
+    for res in ranks:
+        r = res["rank"]
+        check(res["comm"].startswith(f"DistComm(parts={DIST_WORLD}, "
+                                     f"rank={r}, backend=gloo"),
+              f"rank {r}: {res['comm']}")
+        counts = {"spmv_ell": 0, "bfs_pull": 0}
+        for key, w in want.items():
+            got = res["runs"][key]
+            dist_same(f"[dist] gloo rank {r} {key}", got, w,
+                      fields=False)
+            check(got["digest"] == fields_digest(w["fields"]),
+                  f"[dist] gloo rank {r} {key}: gathered outputs differ "
+                  "from stacked")
+            if r == 0:
+                dist_same(f"[dist] gloo rank 0 {key}", got, w)
+            for name in counts:
+                counts[name] += got["launches"][name]
+        check(not on_card or all(counts.values()),
+              f"[dist] gloo rank {r}: a kernel never launched {counts}")
+        by_rank.append(counts)
+    staged = ranks[0]["staged"]
+    check(set(staged) <= {"sum", "min", "or", "bcast", "perm", "psum",
+                          "gather"} and bool(staged) == on_card,
+          f"[dist] gloo staged {staged}")
+    for key, w in want.items():
+        got = ranks[0]["runs"][key]
+        log(f"[dist] gloo world={DIST_WORLD} parts={DIST_WORLD} {key:24s} "
+            f"rounds={got['rounds']:3d} ok={got['ok']} rank-0 "
+            f"{got['ms']:9.2f} ms (one run; StackedComm {w['ms']:9.2f} ms)"
+            f"  launches a rank {got['launches']}  ({card})")
+    log(f"[dist] gloo: {DIST_WORLD} ranks in {gloo_s:.1f} s (each loaded "
+        f"its part in {max(x['load_s'] for x in ranks):.1f} s at most and "
+        f"ran the programs in {max(x['run_s'] for x in ranks):.1f} s); "
+        f"outputs, rounds, guard verdicts and wire equal to StackedComm "
+        f"at parts {DIST_WORLD}; launches by rank {by_rank}; ops staged "
+        f"through pinned host memory (gloo on CUDA tensors): "
+        f"{', '.join(staged) or 'none'}")
+    for c in by_rank:
+        for name in launches:
+            launches[name] += c[name]
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+
+    # -- compression -------------------------------------------------------
+    comp = run_dist_compression(port, device)
+    log(f"[dist] compress_tree over {comp['leaves']} leaves of "
+        f"{LLM_ARCH}'s shapes ({comp['elements']:,} elements): q, scales "
+        f"and residuals on the card bit-equal to the CPU's; "
+        f"{comp['card_ms']:.1f} ms on the card, {comp['cpu_ms']:.1f} ms on "
+        f"the CPU ({card})")
+    secs = time.perf_counter() - t_phase
+    out = {"one": one, "gloo": {k: {x: v[x] for x in ("rounds", "ok", "ms",
+                                                      "launches")}
+                                for k, v in ranks[0]["runs"].items()},
+           "gloo_s": gloo_s, "staged": staged, "by_rank": by_rank,
+           "part_sums": split,
+           "compression": comp, "secs": secs}
+    log("[dist] " + json.dumps(out, default=str))
+    log(f"[dist done] {secs:.1f} s")
+    return {"launches": launches, "by_rank": by_rank}
 
 
 # ---------------------------------------------------------------------------
@@ -4769,6 +5223,7 @@ def kernels_record(result: dict, llm: dict, trained: dict,
              result["bsp_launches"], "multi-source": result["multi_launches"],
              "async": result["async_launches"],
              "incremental": result["inc_launches"],
+             "dist": result["dist_launches"],
              "chaos": result["chaos_launches"],
              "obs": result["obs_launches"],
              "serve": result["serve_launches"],
@@ -4786,6 +5241,8 @@ def kernels_record(result: dict, llm: dict, trained: dict,
                      "launches": sum(c[name] for c in paths.values()),
                      "launches_by_path": {k: c[name]
                                           for k, c in paths.items()},
+                     "dist_gloo_launches_by_rank": [
+                         c[name] for c in result["dist_by_rank"]],
                      "max_abs_err": result["parity_err"][name],
                      "ms": cell["ms"], "plain_ms": cell["plain_ms"],
                      "bound_ms": cell["bound_ms"],
@@ -4824,7 +5281,13 @@ def main() -> int:
     ap.add_argument("--parent", default=None,
                     help="checkout whose graph kernels to time beside "
                          "these (per bucket and per BFS round)")
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dist_rank is not None:
+        # a rank of the [dist] phase's gloo run, started by run_dist
+        return dist_rank_main(args.dist_rank, Path(args.dist_dir))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "

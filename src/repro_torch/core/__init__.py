@@ -14,7 +14,7 @@ from repro_torch.core.api import CompiledProgram, GraphEngine
 from repro_torch.core.faults import FaultEvent, FaultSchedule
 from repro_torch.core.graph import EllMeta, GraphShards, abstract_graph, \
     partition_graph
-from repro_torch.core.partitioned import StackedComm
+from repro_torch.core.partitioned import DistComm, StackedComm
 from repro_torch.core.recovery import Checkpoint, CheckpointRunner, \
     RecoveryError, RunReport
 from repro_torch.core.superstep import AsyncSuperstepProgram, \
@@ -23,7 +23,7 @@ from repro_torch.core.superstep import AsyncSuperstepProgram, \
 
 __all__ = [
     "AsyncSuperstepProgram", "Checkpoint", "CheckpointRunner",
-    "CompiledProgram", "EllMeta", "FaultEvent", "FaultSchedule",
+    "CompiledProgram", "DistComm", "EllMeta", "FaultEvent", "FaultSchedule",
     "GraphEngine", "GraphShards", "PhasedProgram", "RecoveryError",
     "RunReport", "StackedComm", "SuperstepProgram", "incremental",
     "localops", "partition_graph", "registry", "run_phases", "run_program",

@@ -1,8 +1,14 @@
 """Public graph-engine API: registry-driven superstep programs over P
-graph parts stacked on one device.
+graph parts, stacked on one device or one a rank.
 
-``GraphEngine`` binds a partitioned graph to a device.  The single entry
-point is :meth:`GraphEngine.program`:
+``GraphEngine`` binds a partitioned graph to a device and to the mesh
+the caller names (``core/partitioned.py::GraphMesh``): by default the
+one-process mesh, every part stacked here (``StackedComm``), whatever
+process group is up; a launcher of P ranks passes
+``mesh=launch.mesh.make_graph_mesh(P)``, and the engine then holds this
+rank's part alone (``DistComm``: it keeps and uploads only that part's
+rows, and vertex fields are ``(1, n_local)``).  The single entry point
+is :meth:`GraphEngine.program`:
 
     eng = GraphEngine(g)                      # cuda, or raise
     prog = eng.program("bfs", "fast", max_levels=32)
@@ -11,8 +17,8 @@ point is :meth:`GraphEngine.program`:
 ``program()`` resolves the (algo, variant) pair through
 ``core/registry.py``, binds the program to the engine's exchange
 context, and interns the callable keyed on algorithm + params + batch +
-graph shapes + (device, parts) + layout and local-ops mode: repeated
-calls return the SAME object.  ``batch=B`` builds the multi-source
+graph shapes + (device, parts, held parts) + layout and local-ops mode:
+repeated calls return the SAME object.  ``batch=B`` builds the multi-source
 variant: the call takes B values per input (e.g. B roots) and vertex
 outputs gain a batch dim, ``(P, B, n_local)``.  ``exec_mode="async"``
 picks an algo's double-buffered variant (``program("bfs",
@@ -38,7 +44,7 @@ import torch
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import localops, registry
 from repro_torch.core.graph import GraphShards
-from repro_torch.core.partitioned import StackedComm
+from repro_torch.core.partitioned import GraphMesh, StackedComm
 from repro_torch.core.superstep import AsyncSuperstepProgram, \
     PhasedProgram, SuperstepProgram, run_program, run_program_batched
 from repro_torch.obs import telemetry as obs_telemetry
@@ -161,6 +167,9 @@ class GraphEngine:
     # kernel path; "coo" withholds them - every program then runs the
     # reference scatter idiom
     layout: str = "ell"
+    # the deployment: the one-process mesh GraphMesh(g.parts) when not
+    # given (a launcher of ranks passes launch.mesh.make_graph_mesh)
+    mesh: GraphMesh | None = None
     _cache: dict = field(default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self):
@@ -168,7 +177,22 @@ class GraphEngine:
             else _default_device()
         if self.layout not in ("ell", "coo"):
             raise ValueError(f"layout {self.layout!r} not in ('ell', 'coo')")
-        self.comm = StackedComm(self.g.parts, self.device)
+        if self.mesh is None:
+            self.mesh = GraphMesh(self.g.parts)
+        if self.mesh.parts != self.g.parts:
+            raise ValueError(f"a mesh of {self.mesh.parts} parts for a "
+                             f"graph of {self.g.parts}")
+        self.comm = self.mesh.comm(self.device)
+        if self.distributed:
+            self.g = self.g.take_part(self.comm.first_part)
+        elif self.g.part_index is not None:
+            raise ValueError(f"shards of part {self.g.part_index} alone "
+                             "need the distributed mesh")
+
+    @property
+    def distributed(self) -> bool:
+        """True when the parts are ranks (``DistComm``)."""
+        return self.mesh.distributed
 
     def program(self, algo: str, variant: str | None = None, *,
                 static_iters: int = 0, batch: int | None = None,
@@ -248,7 +272,8 @@ class GraphEngine:
                telemetry, tuple(sorted(params.items())),
                (g.n, g.n_orig, g.parts, g.n_local, g.e_max),
                g.layout_signature(),
-               (str(self.device), g.parts),
+               (str(self.device), g.parts, self.comm.first_part,
+                self.comm.local_parts),
                (self.layout, mode))
         hit = self._cache.get(key)
         if hit is not None:
@@ -289,18 +314,22 @@ class GraphEngine:
         return self.g.device_arrays(self.layout, self.device)
 
     def gather_vertex_field(self, arr: torch.Tensor) -> np.ndarray:
-        """(P, n_local) stacked -> (n_orig,) numpy."""
+        """(L, n_local) held parts -> (n_orig,) numpy of every part (under
+        ``DistComm`` an all-gather: every rank gets the whole field)."""
+        arr = self.comm.gather_parts(arr)
         return arr.reshape(-1)[: self.g.n_orig].cpu().numpy()
 
     def gather_batched_vertex_field(self, arr: torch.Tensor) -> np.ndarray:
-        """(P, B, n_local) batched -> (B, n_orig) numpy."""
+        """(L, B, n_local) batched -> (B, n_orig) numpy, gathered as
+        :meth:`gather_vertex_field`."""
+        arr = self.comm.gather_parts(arr)
         b = arr.transpose(0, 1).reshape(arr.shape[1], -1)
         return b[:, : self.g.n_orig].cpu().numpy()
 
     def scatter_vertex_field(self, arr, dtype=None) -> torch.Tensor:
-        """(n_orig,) host values -> (P, n_local) vertex field on the
-        engine's device (the inverse of ``gather_vertex_field``).  The
-        padded tail is zero-filled."""
+        """(n_orig,) host values -> (L, n_local) vertex field of the held
+        parts on the engine's device (the inverse of
+        ``gather_vertex_field``).  The padded tail is zero-filled."""
         g = self.g
         a = np.asarray(arr)
         if a.ndim != 1 or a.shape[0] < g.n_orig:
@@ -310,5 +339,7 @@ class GraphEngine:
         dt = np.dtype(dtype) if dtype is not None else a.dtype
         full = np.zeros((g.n,), dt)
         full[: g.n_orig] = a[: g.n_orig]
-        return torch.from_numpy(full.reshape(g.parts, g.n_local)) \
-            .to(self.device)
+        first = self.comm.first_part
+        held = full.reshape(g.parts, g.n_local)[
+            first:first + self.comm.local_parts]
+        return torch.from_numpy(np.ascontiguousarray(held)).to(self.device)

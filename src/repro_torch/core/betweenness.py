@@ -96,7 +96,7 @@ def bc_backward_program(shards, comm: StackedComm,
     ell_out = shards.ell("ell_out")
 
     def init(g, dist, sigma):
-        delta0 = torch.zeros((comm.parts, n_local), dtype=torch.float32,
+        delta0 = torch.zeros((comm.local_parts, n_local), dtype=torch.float32,
                              device=comm.device)
         dist_g = comm.broadcast_global(dist)          # loop-invariant (n,)
         return delta0, dist, sigma, dist_g, 1

@@ -102,7 +102,7 @@ def cc_async_program(shards, comm: StackedComm, max_rounds: int = 64,
     def init_vals(g):
         # every vertex proposes its identity label in round one
         return comm.gid(n_local), torch.ones(
-            (comm.parts, n_local), dtype=torch.bool, device=comm.device)
+            (comm.local_parts, n_local), dtype=torch.bool, device=comm.device)
 
     def relax(g, labels, frontier):
         srcl = g["out_src_local"]

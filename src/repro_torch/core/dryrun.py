@@ -111,7 +111,7 @@ class PlanComm(StackedComm):
         return out
 
 
-def _inputs(spec, g, device) -> tuple:
+def _inputs(spec, eng) -> tuple:
     """Per-query inputs of one planning run: root 0, or meta vertex
     fields of the input's dtype."""
     out = []
@@ -119,8 +119,9 @@ def _inputs(spec, g, device) -> tuple:
         if kind == "scalar":
             out.append(0)
         else:
-            out.append(torch.empty((g.parts, g.n_local),
-                                   dtype=_INPUT_DTYPES[kind], device=device))
+            out.append(torch.empty((eng.comm.local_parts, eng.g.n_local),
+                                   dtype=_INPUT_DTYPES[kind],
+                                   device=eng.device))
     return tuple(out)
 
 
@@ -133,7 +134,7 @@ def plan_program(eng: GraphEngine, garr: dict, algo: str, variant: str,
     prog = eng.program(algo, variant, static_iters=static_iters, **params)
     comm.reset_wire()
     t0 = time.perf_counter()
-    cost = count_fn(prog, garr, *_inputs(prog.spec, eng.g, eng.device))
+    cost = count_fn(prog, garr, *_inputs(prog.spec, eng))
     return prog, cost, comm.plan_tally(), time.perf_counter() - t0
 
 
@@ -254,7 +255,7 @@ def measure_vs_plan(eng: GraphEngine, garr: dict, algo: str, variant: str,
                                         static_iters, **params)
     prog = eng.program(algo, variant, static_iters=static_iters, **params)
     inputs = tuple(0 if kind == "scalar" else torch.zeros(
-        (eng.g.parts, eng.g.n_local), dtype=_INPUT_DTYPES[kind],
+        (eng.comm.local_parts, eng.g.n_local), dtype=_INPUT_DTYPES[kind],
         device=eng.device) for kind in prog.spec.input_kinds)
     card = eng.device.type == "cuda"
     if card:

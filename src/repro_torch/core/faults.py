@@ -1,7 +1,7 @@
 """Deterministic fault injection at the exchanges.
 
-Every exchange of ``partitioned.StackedComm`` routes its OUTGOING
-payload through :func:`tap`; when a :class:`FaultSchedule` is armed
+Every exchange of ``partitioned.StackedComm`` (and ``DistComm``) routes
+its OUTGOING payload through :func:`tap`; when a :class:`FaultSchedule` is armed
 (:func:`active`) the tap perturbs one part's slice of that payload, with
 seeded choices, at the rounds the schedule addresses, so a chaos run is
 as reproducible as a clean one (same schedule, same graph, same faults,
@@ -33,7 +33,8 @@ Detection has two channels, both read by the guarded loops
   * transport stamps -- :func:`stamp_violation` says whether a stamped
     kind (drop / stall / dup / corrupt) covers the current round: the
     stand-in for sequence numbers and payload checksums.  It is a pure
-    function of the schedule and the round, never of whether a tap
+    function of the schedule and the round (so every rank of a
+    ``DistComm`` group gives the same verdict), never of whether a tap
     fired: a stamped event taints its round even when that round's
     branch never shipped the addressed payload (bfs/fast's push / pull
     switch); ``stale`` stays silent;
@@ -233,12 +234,14 @@ def _rng(ev: FaultEvent, seed: int) -> np.random.Generator:
 
 
 def tap(op: str, payload: torch.Tensor, parts: int,
-        words: bool = False) -> torch.Tensor:
-    """Perturb an OUTGOING ``(P, ...)`` exchange payload per the armed
-    schedule: event ``ev`` perturbs part ``ev.part``'s slice
-    ``payload[ev.part]`` at the rounds it addresses (an event whose part
-    is past ``parts`` never fires).  ``words`` marks a payload of bitmap
-    words.
+        words: bool = False, first: int = 0) -> torch.Tensor:
+    """Perturb an OUTGOING ``(L, ...)`` exchange payload per the armed
+    schedule: row i is what global part ``first + i`` ships (``first``
+    0 and L = P when every part is stacked here, the rank's part alone
+    under ``DistComm``), and event ``ev`` perturbs part ``ev.part``'s
+    slice at the rounds it addresses, on the process that holds that
+    part (an event whose part is past ``parts`` never fires).  ``words``
+    marks a payload of bitmap words.
 
     Returns ``payload`` itself when nothing fires, else a perturbed copy:
     the caller's tensor is never written (a broadcast ships the sender's
@@ -252,13 +255,14 @@ def tap(op: str, payload: torch.Tensor, parts: int,
     for ev in sched.events:
         if ev.op is not None and ev.op != op:
             continue
-        if not ev.round <= r < ev.round + _span(ev) or ev.part >= parts:
+        if not ev.round <= r < ev.round + _span(ev) or ev.part >= parts \
+                or not first <= ev.part < first + payload.shape[0]:
             continue
         if ev.kind == "dup" and op != "sum":
             continue                        # the others are idempotent
         if out is None:
             out = payload.clone(memory_format=torch.contiguous_format)
-        piece = out[ev.part]
+        piece = out[ev.part - first]
         if ev.kind in ("drop", "stall"):
             piece.fill_(_identity_value(op, out.dtype))
         elif ev.kind == "dup":

@@ -281,6 +281,32 @@ class GraphShards:
     # blocked-ELL view (see module docstring); built by partition_graph
     ell_meta: dict = field(default_factory=dict)     # name -> EllMeta
     ell_arrays: dict = field(default_factory=dict)   # key -> np.ndarray
+    # None: the arrays hold every part; p: only part p's rows, (1, ...)
+    part_index: int | None = None
+
+    def take_part(self, p: int) -> "GraphShards":
+        """Part ``p`` alone: every array's row ``p`` as a ``(1, ...)``
+        array (COO shards, degrees, the ELL views), with the shared
+        shapes and ``ell_meta``, so the kernels see the same bucket
+        layout and launch the same grid over one part.  One part's
+        shards give themselves for their own ``p``."""
+        if not 0 <= p < self.parts:
+            raise ValueError(f"part {p} not in [0, {self.parts})")
+        if self.part_index is not None:
+            if p != self.part_index:
+                raise ValueError(f"shards of part {self.part_index} hold "
+                                 f"no part {p}")
+            return self
+        def cut(a):
+            return np.ascontiguousarray(a[p:p + 1])
+
+        return GraphShards(
+            n=self.n, n_orig=self.n_orig, parts=self.parts,
+            n_local=self.n_local, e_max=self.e_max,
+            **{k: cut(getattr(self, k)) for k in _COO_KEYS},
+            ell_meta=dict(self.ell_meta),
+            ell_arrays={k: cut(v) for k, v in self.ell_arrays.items()},
+            part_index=p)
 
     @classmethod
     def from_arrays(cls, d: dict) -> "GraphShards":
@@ -302,7 +328,8 @@ class GraphShards:
             **{k: np.asarray(d[k]) for k in _COO_KEYS},
             ell_meta=metas,
             ell_arrays={k: np.asarray(v)
-                        for k, v in d.get("ell_arrays", {}).items()})
+                        for k, v in d.get("ell_arrays", {}).items()},
+            part_index=d.get("part_index"))
 
     def ell(self, name: str) -> EllMeta:
         """Meta handle for program factories.  When the blocked-ELL
@@ -350,9 +377,9 @@ class GraphShards:
         return arrs
 
     def device_arrays(self, layout: str = "ell", device="cuda") -> dict:
-        """``(P, ...)`` int32 tensors on ``device``.  ``layout="coo"``
-        omits the ELL arrays: local ops then take the COO scatter
-        reference path."""
+        """``(L, ...)`` int32 tensors of the parts these shards hold on
+        ``device``.  ``layout="coo"`` omits the ELL arrays: local ops
+        then take the COO scatter reference path."""
         if layout not in ("ell", "coo"):
             raise ValueError(f"layout {layout!r} not in ('ell', 'coo')")
         keys = list(_COO_KEYS)

@@ -84,7 +84,7 @@ def kcore_incremental_program(shards, comm: StackedComm,
 
     def outputs(state):
         c = state[0]
-        return c, int(c.max())
+        return c, comm.max_scalar(c.amax(dim=1))
 
     def guard(g, prev, state):
         # support-decrement peeling: the assignment is non-negative and
@@ -108,10 +108,17 @@ def kcore_incremental_program(shards, comm: StackedComm,
 
 def host_und_degree(g: GraphShards) -> np.ndarray:
     """(n,) undirected multigraph degree from the host shard arrays
-    (self-loops dropped): the cold upper bound for k-core peeling."""
-    deg = (g.out_degree.astype(np.int64)
-           + g.in_degree.astype(np.int64)).reshape(-1)
-    lo = (np.arange(g.parts, dtype=np.int64) * g.n_local)[:, None]
+    (self-loops dropped): the cold upper bound for k-core peeling.  One
+    part's shards fill that part's block; the others stay 0, and no
+    engine holding that part reads them."""
+    first = 0 if g.part_index is None else g.part_index
+    held = g.out_degree.shape[0]
+    deg = np.zeros(g.n, np.int64)
+    deg[first * g.n_local:(first + held) * g.n_local] = (
+        g.out_degree.astype(np.int64)
+        + g.in_degree.astype(np.int64)).reshape(-1)
+    lo = (np.arange(first, first + held, dtype=np.int64)
+          * g.n_local)[:, None]
     srcg = g.out_src_local.astype(np.int64) + lo
     is_loop = (g.out_dst_global < g.n) & (g.out_dst_global == srcg)
     loops = np.zeros(g.n, np.int64)

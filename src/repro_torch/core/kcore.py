@@ -28,7 +28,7 @@ def _undirected_degree(g, comm: StackedComm, n: int, n_local: int):
     dropped), (P, n_local) int32."""
     srcl, dst = g["out_src_local"], g["out_dst_global"]
     is_loop = (dst < n) & (dst == srcl + comm.lo(n_local))
-    loops = torch.zeros((comm.parts, n_local), dtype=torch.int32,
+    loops = torch.zeros((comm.local_parts, n_local), dtype=torch.int32,
                         device=comm.device)
     loops.scatter_add_(1, torch.where(is_loop, srcl, 0).long(),
                        is_loop.to(torch.int32))
@@ -51,9 +51,9 @@ def kcore_program(shards, comm: StackedComm,
         return g
 
     def init(g, *_):
-        alive0 = torch.ones((comm.parts, n_local), dtype=torch.bool,
+        alive0 = torch.ones((comm.local_parts, n_local), dtype=torch.bool,
                             device=comm.device)
-        core0 = torch.zeros((comm.parts, n_local), dtype=torch.int32,
+        core0 = torch.zeros((comm.local_parts, n_local), dtype=torch.int32,
                             device=comm.device)
         return alive0, core0, g["und_degree"], 0, 1
 
@@ -84,7 +84,7 @@ def kcore_program(shards, comm: StackedComm,
 
     def outputs(state):
         core = state[1]
-        return core, int(core.max())
+        return core, comm.max_scalar(core.amax(dim=1))
 
     def guard(g, prev, state):
         # peeling invariants: live degrees within [0, undirected degree]

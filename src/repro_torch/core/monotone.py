@@ -66,11 +66,11 @@ def monotone_async_program(*, name: str, variant: str = "async",
             cnt + changed.sum(dim=1, dtype=torch.int32)
 
     def _empty(vals):
-        return torch.full((comm.parts, n), inf, dtype=vals.dtype,
+        return torch.full((comm.local_parts, n), inf, dtype=vals.dtype,
                           device=vals.device)
 
     def _zeros():
-        return torch.zeros(comm.parts, dtype=torch.int32,
+        return torch.zeros(comm.local_parts, dtype=torch.int32,
                            device=comm.device)
 
     def init(g, *ins):

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import localops
-from repro_torch.core.partitioned import StackedComm
+from repro_torch.core.partitioned import StackedComm, part_sums
 from repro_torch.core.superstep import AsyncSuperstepProgram, \
     SuperstepProgram
 
@@ -62,7 +62,8 @@ def _local_contrib(rank, out_degree):
     return torch.where(out_degree > 0, rank / out_degree.float(), 0.0)
 
 
-def _rank_mass_ok(rank: torch.Tensor, n: int, n_orig: int, margin: float):
+def _rank_mass_ok(comm: StackedComm, rank: torch.Tensor, n: int,
+                  n_orig: int, margin: float):
     """Mass-conservation invariant of the guards.
 
     Rank mass starts at ``n / n_orig`` (padded tail vertices carry 1 /
@@ -71,15 +72,16 @@ def _rank_mass_ok(rank: torch.Tensor, n: int, n_orig: int, margin: float):
     n / n_orig * margin)``; ``margin`` absorbs transient overshoot (bf16
     error feedback, stale remote terms).  A dropped, duplicated or
     corrupted contribution block moves the mass out of the band, and NaN
-    fails the non-negativity check.  A global bool tensor."""
-    mass = rank.sum(dim=1).sum()
+    fails the non-negativity check.  A bool tensor: the mass term is
+    global, the sign term per part."""
+    mass = comm.sum_parts(part_sums(rank))
     cap = (1.0 + (n - n_orig) / n_orig) * margin
     return (rank >= 0).all() & (mass > (1.0 - ALPHA) * 0.9) & (mass < cap)
 
 
 def _uniform(comm: StackedComm, n_local: int, n_orig: int) -> torch.Tensor:
-    """The cold (P, n_local) float32 rank, 1 / n_orig everywhere."""
-    return torch.full((comm.parts, n_local), 1.0 / n_orig,
+    """The cold (L, n_local) float32 rank, 1 / n_orig everywhere."""
+    return torch.full((comm.local_parts, n_local), 1.0 / n_orig,
                       dtype=torch.float32, device=comm.device)
 
 
@@ -100,12 +102,12 @@ def pagerank_bsp_program(shards, comm: StackedComm, iters: int = 50,
         cg = comm.broadcast_global(contrib)         # all-gather (n,) f32
         z = localops.spmv_pull(g, ell_in, cg)       # local SpMV (pull)
         new_rank = _rank_update(base, z)
-        err = comm.psum_scalar((new_rank - rank).abs().sum(dim=1))
+        err = comm.psum_scalar(part_sums((new_rank - rank).abs()))
         return new_rank, err
 
     def guard(g, prev, state):
         rank, err = state
-        return _rank_mass_ok(rank, n, n_orig, 1.02) & (err >= 0)
+        return _rank_mass_ok(comm, rank, n, n_orig, 1.02) & (err >= 0)
 
     return SuperstepProgram(
         name="pagerank", variant="bsp", inputs=(),
@@ -158,7 +160,7 @@ def pagerank_fast_program(shards, comm: StackedComm, iters: int = 50,
                                 0.0)
         else:
             rank0 = _uniform(comm, n_local, n_orig)
-        resid0 = torch.zeros((comm.parts, n), dtype=torch.float32,
+        resid0 = torch.zeros((comm.local_parts, n), dtype=torch.float32,
                              device=comm.device)
         return rank0, resid0, 1.0, 0
 
@@ -183,14 +185,14 @@ def pagerank_fast_program(shards, comm: StackedComm, iters: int = 50,
             new_resid = torch.zeros_like(resid)
         new_rank = _rank_update(base, z)
         if (it + 1) % err_every == 0:
-            err = comm.psum_scalar((new_rank - rank).abs().sum(dim=1))
+            err = comm.psum_scalar(part_sums((new_rank - rank).abs()))
         else:
             err = err_prev
         return new_rank, new_resid, err, it + 1
 
     def guard(g, prev, state):
         rank, resid, err, it = state
-        return _rank_mass_ok(rank, n, n_orig, 1.02) \
+        return _rank_mass_ok(comm, rank, n, n_orig, 1.02) \
             & torch.isfinite(resid).all() & (err >= 0) & (it >= 0)
 
     return SuperstepProgram(
@@ -229,10 +231,9 @@ def pagerank_async_program(shards, comm: StackedComm, iters: int = 64,
     tol32 = _f32(tol)
     if staleness < 1:
         raise ValueError(f"staleness must be >= 1, got {staleness}")
-    ar = torch.arange(comm.parts, device=comm.device)
 
     def _contrib_acc(g, rank):
-        """(own (P, n_local), ship (P, n)): the push accumulator's own
+        """(own (L, n_local), ship (L, n)): the push accumulator's own
         block, and the accumulator with that block zeroed for shipping
         (the exchange delivers purely remote contributions)."""
         srcl = g["out_src_local"]
@@ -242,7 +243,7 @@ def pagerank_async_program(shards, comm: StackedComm, iters: int = 64,
             g, ell_dst, torch.where(valid, torch.gather(contrib, 1, srcl),
                                     0.0), "add", identity=0.0)
         own = comm.own_slice(acc)
-        acc.view(comm.parts, comm.parts, n_local)[ar, ar] = 0.0
+        comm.zero_own(acc)
         return own, acc
 
     def init(g):
@@ -251,7 +252,7 @@ def pagerank_async_program(shards, comm: StackedComm, iters: int = 64,
         # the residual column ships 1.0 per part, so halt cannot fire
         # before a real residual arrives
         handle0 = comm.exchange_sum_start(ship0, 1.0)
-        zeros = torch.zeros((comm.parts, n_local), dtype=torch.float32,
+        zeros = torch.zeros((comm.local_parts, n_local), dtype=torch.float32,
                             device=comm.device)
         return (rank0, zeros, ship0, 1.0, 1.0, 0, 1, 1, 1), handle0
 
@@ -259,7 +260,7 @@ def pagerank_async_program(shards, comm: StackedComm, iters: int = 64,
         rank, remote, _, _, err_g, it, age_cur, age_infl, max_age = state
         own, ship = _contrib_acc(g, rank)
         new_rank = _rank_update(base, own + remote)
-        err_local = (new_rank - rank).abs().sum(dim=1)
+        err_local = part_sums((new_rank - rank).abs())
         return (new_rank, remote, ship, err_local, err_g, it, age_cur,
                 age_infl, max(max_age, age_cur))
 
@@ -283,7 +284,7 @@ def pagerank_async_program(shards, comm: StackedComm, iters: int = 64,
         # looser mass margin: the remote term lags the own term by up to
         # 2 * staleness + 1 rounds, so transient overshoot is larger
         rank, remote, ship = state[0], state[1], state[2]
-        return _rank_mass_ok(rank, n, n_orig, 1.05) \
+        return _rank_mass_ok(comm, rank, n, n_orig, 1.05) \
             & torch.isfinite(remote).all() & (remote >= 0).all() \
             & torch.isfinite(ship).all() & (ship >= 0).all() \
             & (state[3] >= 0) & (state[4] >= 0) \

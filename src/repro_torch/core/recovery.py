@@ -126,6 +126,11 @@ class CheckpointRunner:
         if checkpoint_every < 1:
             raise ValueError(
                 f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        if engine.distributed:
+            raise ValueError(
+                "CheckpointRunner snapshots one process's carry; per-rank "
+                "snapshots of a DistComm engine (in-flight handles "
+                "finished first) are ROADMAP.md item L6c")
         self.engine = engine
         self.spec = registry.get_spec(algo, variant)
         self.schedule = faults_mod.as_schedule(faults)

@@ -1,8 +1,8 @@
 """Superstep programs: the engine's declarative algorithm abstraction.
 
 An algorithm is a :class:`SuperstepProgram` (``init / step / halt /
-outputs`` callables over stacked per-part graph tensors and the
-exchanges of a ``partitioned.StackedComm``), and ONE shared function
+outputs`` callables over per-part graph tensors and the exchanges of a
+``partitioned.StackedComm`` or ``DistComm``), and ONE shared function
 (:func:`run_program`) supplies the loop every algorithm would otherwise
 repeat:
 
@@ -148,9 +148,14 @@ class AsyncSuperstepProgram:
                              ``fold`` returns
 
     Round k's exchange is finished in round k + 1, after that round's
-    ``local``.  With all parts stacked on one device the overlap is
-    nominal: the split shapes the rounds, the halt rule and the wire, not
-    the time.
+    ``local``; the loop carries the handle a ``start`` returns, whatever
+    it is.  Under ``StackedComm`` (every part on one device) the handle
+    is the received rows themselves and nothing is in flight: the split
+    shapes the rounds, the halt rule and the wire, not the time.  Under
+    ``DistComm`` (a part a rank) it is a pending collective: NCCL runs it
+    on its own stream, ordered after the payload and before the finish
+    on the compute stream, and gloo on its own thread, so ``local`` may
+    run while it is in flight.  No overlap is measured yet.
     """
 
     name: str
@@ -212,7 +217,8 @@ def _round_ok(prog, g: dict, prev, state) -> bool:
         else (lambda g_, p_, s_: finite_state(s_))
     verdict = check(g, prev, state)
     if isinstance(verdict, torch.Tensor):
-        verdict = verdict.all().item()      # the guarded round's one sync
+        # the guarded round's one sync, AND over every part
+        verdict = prog.comm.all_parts(verdict)
     return bool(verdict) and not faults.stamp_violation()
 
 

@@ -45,7 +45,7 @@ def _sym_adjacency_bits(g, comm: StackedComm, n: int, n_local: int):
     vertices, (P, n_local, n/32): row u holds {v : u->v or v->u},
     self-loops excluded (parallel edges set the same bit)."""
     lo = comm.lo(n_local)
-    dense = torch.zeros((comm.parts, n_local * (n + 1)), dtype=torch.uint8,
+    dense = torch.zeros((comm.local_parts, n_local * (n + 1)), dtype=torch.uint8,
                         device=comm.device)       # slop column n: sentinel
     srcl, dst = g["out_src_local"], g["out_dst_global"]
     keep = (dst < n) & (dst != srcl + lo)
@@ -54,7 +54,7 @@ def _sym_adjacency_bits(g, comm: StackedComm, n: int, n_local: int):
     for row, col, ok in ((srcl, dst, keep), (dstl, src, keep_in)):
         slot = row.long() * (n + 1) + torch.where(ok, col, n).long()
         dense.scatter_(1, slot, 1)
-    dense = dense.reshape(comm.parts, n_local, n + 1)[:, :, :n]
+    dense = dense.reshape(comm.local_parts, n_local, n + 1)[:, :, :n]
     return _pack_rows(dense)
 
 
@@ -72,21 +72,22 @@ def triangles_program(n: int, n_local: int,
         return g
 
     def init(g, *_):
-        tri2 = torch.zeros((comm.parts, n_local), dtype=torch.float64,
+        tri2 = torch.zeros((comm.local_parts, n_local), dtype=torch.float64,
                            device=comm.device)
         return g["adj_bits"], tri2, 0
 
     def step(g, state):
         block, tri2, r = state
         if r < parts:                          # no-op past P rounds
-            a = _unpack_rows(g["adj_bits"], n)     # (P, n_local, n) mine
+            a = _unpack_rows(g["adj_bits"], n)     # (L, n_local, n) mine
             b = _unpack_rows(block, n)             # block q's rows
             common = torch.bmm(a, b.transpose(1, 2))  # |N(u) ^ N(v)|
             # round r: part me holds block q = (me - r) mod P, so each
             # part's gate columns start at its own q * n_local
-            me = torch.arange(parts, device=comm.device)
+            row, me = comm.own_index()
             q = (me - r) % parts
-            gate = a.reshape(parts, n_local, parts, n_local)[me, :, q]
+            gate = a.reshape(comm.local_parts, n_local, parts,
+                             n_local)[row, :, q]
             tri2 = tri2 + (gate * common).sum(dim=2)
         return comm.shift(block, words=True), tri2, r + 1
 

@@ -21,7 +21,7 @@ bytes under the keys the reference's ``recost`` gives them
 ``lower_s`` is the planning run's wall time and ``compile_s`` is absent
 (the record's ``timing`` says so).  ``--mesh single`` is
 ``launch/mesh.make_local_mesh()``, the one card; the pod meshes wait
-for the sharded plans (ROADMAP.md, LM queue L6).  ``--smoke`` plans the
+for the sharded plans (ROADMAP.md, LM queue L6b).  ``--smoke`` plans the
 reduced configs.
 
 A graph program (``core/dryrun.py``) writes
@@ -58,7 +58,7 @@ def _mesh(mesh_name: str):
 def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir, *,
              impl: str = "chunked", cfg=None) -> dict:
     """Plan one (arch x shape) cell on ``mesh_name`` (``single``; a pod
-    mesh raises the L6 error), print its memory and roofline terms, and
+    mesh raises the L6b error), print its memory and roofline terms, and
     write its record to ``out_dir``.  ``cfg`` overrides the registry's
     configuration of ``arch``."""
     from repro_torch.configs.registry import get_arch, get_shape
@@ -246,7 +246,7 @@ def main() -> None:
         raise NotImplementedError(
             f"--mesh {mesh}: the LM dry-run plans one card (--mesh single);"
             " the production meshes need the sharded plans of ROADMAP.md, "
-            "LM queue L6 (param_shardings, cache_shardings, "
+            "LM queue L6b (param_shardings, cache_shardings, "
             "batch_shardings, actctx)")
     from repro_torch.configs.registry import ARCHS
     archs = list(ARCHS) if args.arch == "all" else args.arch.split(",")

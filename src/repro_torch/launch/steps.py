@@ -13,7 +13,7 @@ ShapeDtypeStructs), and :func:`lower_cell` plans a cell's step on them
 under the counter of ``roofline/jaxpr_cost.py``: nothing is allocated
 and no card is needed.  The reference's sharding plans
 (``batch_shardings``, ``cache_shardings``, its activation policies) wait
-for the multi-card slice (ROADMAP.md, LM queue L6): ``lower_cell``
+for the multi-card slice (ROADMAP.md, LM queue L6b): ``lower_cell``
 takes a mesh of one device.
 """
 
@@ -194,12 +194,12 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     reference plans serving on bf16 checkpoints; the port keeps the f32
     weights it drew, so its serving records are of f32 weights.)
     ``mesh`` must hold one device (``launch/mesh.make_local_mesh()``):
-    the sharded plans are LM queue L6."""
+    the sharded plans are LM queue L6b."""
     if mesh.size != 1:
         raise NotImplementedError(
             f"lower_cell plans one card; a mesh of {mesh.size} devices "
             f"({mesh.shape}) needs the sharded plans of ROADMAP.md, LM "
-            "queue L6 (param_shardings, cache_shardings, batch_shardings, "
+            "queue L6b (param_shardings, cache_shardings, batch_shardings, "
             "actctx)")
     tc = tc or default_train_config(cfg)
     spec_tree = MDL.param_spec(cfg)

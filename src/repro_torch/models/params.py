@@ -10,7 +10,7 @@ builds the model from the JAX package's parameter tree, and
 as that tree, so tests can hold the two against each other on the same
 weights both ways.  The logical axes are kept for the sharding half of
 the reference's ``params.py``, which waits for the multi-card slice
-(ROADMAP.md, L6).
+(ROADMAP.md, L6b).
 """
 
 from __future__ import annotations

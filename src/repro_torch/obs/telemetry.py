@@ -22,9 +22,12 @@ delivered, which the loop reads anyway), so the row is written on the
 host: no device buffer, no extra ``Tensor.item``, nothing to read back.
 
 **Wire record** — every exchange of ``core/partitioned.py`` adds one
-part's payload bytes and one tap to its ``StackedComm``'s tallies under
-``(phase, op)``, cumulatively.  A telemetry call measures the
-difference of those tallies across the call (:meth:`WireRecord.measure`):
+part's payload bytes and one tap to its comm's tallies under ``(phase,
+op)``, cumulatively: ``StackedComm``'s, or under ``DistComm`` each
+rank's, which counts its own part's bytes, so rank 0's record is the one
+``StackedComm`` gives for the same program and parts.  A telemetry call
+measures the difference of those tallies across the call
+(:meth:`WireRecord.measure`):
 the one-shot ``init`` / ``outputs`` cells whole, the loop's ``round``
 cells as per-round figures (bytes and taps over rounds, integer
 division), and the loop's measured total as ``loop_bytes``.
@@ -55,7 +58,7 @@ SERIES_FIXED_COLS = ("done", "halt")
 
 def tally_delta(before: dict, after: dict) -> dict:
     """``{(phase, op): (bytes, taps)}`` shipped between two cumulative
-    tallies (``StackedComm.tally()``); cells with no tap are left out."""
+    tallies (``comm.tally()``); cells with no tap are left out."""
     out = {}
     for key, (b1, t1) in after.items():
         b0, t0 = before.get(key, (0, 0))

@@ -112,6 +112,10 @@ class GraphServer:
                  persistence: Persistence | str | None = None, obs=None):
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        if engine.distributed:
+            raise ValueError(
+                "GraphServer serves from one process; serving over a "
+                "DistComm engine is ROADMAP.md item L6c")
         self.engine = engine
         # serving-path observability: an obs.SpanRecorder records every
         # pipeline stage (admission -> validate -> coalesce_wait ->

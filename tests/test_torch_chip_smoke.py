@@ -12,7 +12,10 @@ card.
 
 import importlib.util
 import os
+import subprocess
+import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -103,3 +106,72 @@ def test_train_families_and_dryrun_lm_phases_rehearse(cs, tmp_path):
     assert sorted(dr["cli_records"]) == [
         "mamba2-1.3b__decode_32k", "tinyllama-1.1b__train_4k",
         "whisper-small__decode_32k"]
+
+
+# ---------------------------------------------------------------------------
+# the [dist] phase: its host helpers, and the phase rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+def _urand_engines(cs, port, n=1024, parts_list=(1, 4)):
+    edges = port.urand_edges(n, 16 * n, cs.SEED)
+    out = {}
+    for parts in parts_list:
+        g = port.partition_graph(edges, n, parts)
+        eng = port.GraphEngine(g, device="cpu")
+        out[parts] = (g, eng, eng.device_graph())
+    return out
+
+
+def test_dist_part_hand_off_round_trips(cs, tmp_path):
+    """A part written for a rank loads as the same one-part shards: every
+    array, the shared ELL metas and the part index."""
+    port = cs.Port()
+    g = _urand_engines(cs, port, parts_list=(4,))[4][0]
+    for p in range(4):
+        path = tmp_path / f"part{p}.pkl"
+        assert cs.hand_off(g.take_part(p), path) == path.stat().st_size
+        h = cs.load_part(path)
+        assert h.part_index == p and h.parts == 4 and h.n == g.n
+        assert h.ell_meta == g.ell_meta
+        for k in ("out_src_local", "out_dst_global", "in_src_global",
+                  "in_dst_local", "out_degree", "in_degree"):
+            assert np.array_equal(getattr(h, k), getattr(g, k)[p:p + 1])
+        assert h.ell_arrays.keys() == g.ell_arrays.keys()
+        for k, v in h.ell_arrays.items():
+            assert np.array_equal(v, g.ell_arrays[k][p:p + 1]), k
+
+
+def test_dist_wait_ranks_checks_every_exit_code(cs):
+    """A rank that exits non-zero fails the phase, and so does one still
+    running at the timeout, which is killed with every other one."""
+    def start(code):
+        return subprocess.Popen([sys.executable, "-c", code])
+
+    cs.wait_ranks([start("pass"), start("pass")], 60)
+    with pytest.raises(AssertionError, match=r"\(1, 3\)"):
+        cs.wait_ranks([start("pass"), start("raise SystemExit(3)")], 60)
+    procs = [start("pass"), start("import time; time.sleep(60)")]
+    with pytest.raises(AssertionError, match="rank 1 still running"):
+        cs.wait_ranks(procs, 2)
+    assert all(p.poll() is not None for p in procs)
+
+
+def test_dist_phase_rehearses(cs, tmp_path, monkeypatch, capsys):
+    """``run_dist`` on the CPU at urand 1024 (triangles on 512 vertices):
+    one gloo rank at parts 1 and four at parts 4 (rank processes of
+    chip_smoke.py itself) equal to StackedComm, nothing staged, no
+    kernel launched; compression at the smoke config's shapes."""
+    monkeypatch.setattr(cs, "DIST_DIR", tmp_path / "dist")
+    monkeypatch.setattr(cs, "TRI_N", 512)
+    port = cs.Port()
+    out = cs.run_dist(port, _urand_engines(cs, port), "cpu")
+    assert out["launches"] == {"spmv_ell": 0, "bfs_pull": 0}
+    assert out["by_rank"] == [{"spmv_ell": 0, "bfs_pull": 0}] * 4
+    text = capsys.readouterr().out
+    assert text.count("[dist] gloo world=1 parts=1 ") == 18
+    assert text.count("[dist] gloo world=4 parts=4 ") == 18
+    assert "bfs/fast chaos" in text and "ok=0" in text
+    assert "part_sums equals the one-row sums (cpu)" in text
+    assert "ops staged through pinned host memory (gloo on CUDA " \
+        "tensors): none" in text
+    assert "[dist done]" in text and not (tmp_path / "dist").exists()

@@ -54,6 +54,8 @@ def test_sources_import_no_jax_or_reference():
              ("launch", "steps.py"), ("launch", "train.py"),
              ("optim", "adamw.py"), ("checkpoint", "checkpoint.py"),
              ("distributed", "fault_tolerance.py"),
+             ("distributed", "compression.py"),
+             ("distributed", "__init__.py"),
              ("models", "moe.py"), ("models", "mamba2.py"),
              ("launch", "mesh.py"), ("roofline", "recost.py"),
              ("models", "params.py"), ("models", "model.py"))} <= set(files)
@@ -184,3 +186,38 @@ def test_dryrun_and_training_load_no_jax():
                        capture_output=True, text=True, timeout=300, cwd=REPO)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "PLAN-AND-TRAIN 2" in r.stdout, r.stdout
+
+
+_DIST_RUN = r"""
+import sys, tempfile
+import torch
+import torch.distributed as dist
+from repro_torch.core import GraphEngine, partition_graph
+from repro_torch.distributed import compress_tree, init_ef_state
+from repro_torch.graphs import urand_edges
+from repro_torch.launch.mesh import make_graph_mesh
+dist.init_process_group("gloo", init_method="file://" + tempfile.mkdtemp()
+                        + "/rdzv", rank=0, world_size=1)
+eng = GraphEngine(partition_graph(urand_edges(128, 512, seed=3), 128, 1),
+                  device="cpu", mesh=make_graph_mesh(1))
+garr = eng.device_graph()
+parents, rounds = eng.program("bfs", "fast")(garr, 0)
+grads = {"w": torch.ones(8)}
+q, s, r = compress_tree(grads, init_ef_state(grads))
+dist.destroy_process_group()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("DIST-RUN", type(eng.comm).__name__, rounds, int(q["w"][0]))
+"""
+
+
+def test_distcomm_and_compression_run_loads_no_jax():
+    """A program over a one-rank gloo group (``DistComm``) and a
+    compressed gradient tree leave jax and the JAX package unloaded."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", _DIST_RUN], env=env,
+                       capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "DIST-RUN DistComm" in r.stdout and r.stdout.split()[-1] \
+        == "127", r.stdout
