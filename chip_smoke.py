@@ -19,9 +19,10 @@ against its plain-PyTorch version:
   kcore/incremental and pagerank/warm on the same partitions (kernel
   ``spmv_ell`` on pagerank/async's and pagerank/warm's push combines);
 - the programs over ``torch.distributed``, one part a rank
-  (``DistComm``): all sixteen over NCCL at one rank, and over gloo at
-  four ranks sharing the card (kernels ``spmv_ell`` and ``bfs_pull`` on
-  every rank), and int8 gradient compression on the card;
+  (``DistComm``): all sixteen over NCCL at one rank, and the eight that
+  launch a kernel or use the async exchange over gloo at four ranks
+  sharing the card (kernels ``spmv_ell`` and ``bfs_pull`` on every
+  rank), and int8 gradient compression on the card;
 - fault injection, guards and checkpoint/rollback recovery: bfs/fast,
   pagerank/bsp, pagerank/fast, betweenness, bfs/async and pagerank/async
   guarded, checkpointed and recovered from a seeded drop + corrupt +
@@ -62,9 +63,15 @@ against its plain-PyTorch version:
   layers), whisper-small and internvl2-1b at full width (kernel
   ``flash_attention_fwd`` with its ``lse`` at their training shapes:
   non-causal, Sq != Sk, head dims 64, 112 and 128; none in mamba2);
+- the sharded LM step: ``launch/train.py::train(mesh=)`` on
+  TinyLlama-1.1B at full width (4 of 22 layers) over a (data 2, model 2)
+  mesh of four gloo ranks sharing the card, DTensor shardings and the
+  train policy (kernel ``flash_attention_fwd`` on every rank, on its own
+  heads);
 - the LM dry-run: ``launch/steps.py::lower_cell`` plans, on meta
   tensors, the cells the phases above ran on the card, then
-  ``launch/dryrun.py --arch`` plans registry cells on the host.
+  ``launch/dryrun.py --arch`` plans registry cells on the host, one
+  device of TinyLlama's sharded plan at 256 and 512 devices among them.
 
 Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
@@ -151,17 +158,19 @@ prints no result):
   dist     first the case for ``partitioned.part_sums``: how many rows
            of DIST_SPLIT_DRAWS seeded (DIST_WORLD, n_local) float32
            fields differ in bits between one batched row sum and one
-           row at a time (``[dist] part sums`` line).  Then
-           the sixteen programs (triangles on the TRI_N-vertex graph) and
-           the guarded runs of bfs/fast and pagerank/bsp under
-           DIST_CHAOS, over ``torch.distributed`` (``DistComm``, one
-           part a rank) in mode auto, each against the same run over
+           row at a time (``[dist] part sums`` line).  Then the
+           programs and the guarded runs of bfs/fast and pagerank/bsp
+           under DIST_CHAOS, over ``torch.distributed`` (``DistComm``,
+           one part a rank) in mode auto, each against the same run over
            ``StackedComm`` on the same partitions, launch counters zeroed
            around each run.  One rank over NCCL at parts 1 in this
-           process: outputs bit for bit, rounds, guard verdicts, wire by
+           process, all sixteen programs (triangles on the TRI_N-vertex
+           graph): outputs bit for bit, rounds, guard verdicts, wire by
            (phase, op) and launches equal, each program timed (median of
-           3) through both comms.  Then DIST_WORLD gloo ranks at parts
-           DIST_WORLD, all on the one card (NCCL takes a card a rank):
+           3) through both comms.  Then DIST_PROGRAMS (the programs that
+           launch a kernel or use the async exchange) on DIST_WORLD gloo
+           ranks at parts DIST_WORLD, all on the one card (NCCL takes a
+           card a rank):
            each rank a process of this script (``--dist-rank``) that
            loads its part from a file this process wrote
            (``GraphShards.take_part``), so no rank partitions the graph;
@@ -171,7 +180,8 @@ prints no result):
            StackedComm's at parts DIST_WORLD, spmv_ell and bfs_pull
            launch on every rank, and the ops gloo staged through pinned
            host memory are printed.  Then ``compress_tree`` over a seeded
-           tree of TinyLlama's parameter shapes: payloads, scales and
+           tree of the shapes of one TinyLlama layer and its embeddings,
+           with a seeded carried residual: payloads, scales and
            residuals on the card bit-equal to the CPU's.  ``[dist]``
            lines: rounds, ms per comm, launches; ``[dist done]`` the
            phase's seconds.
@@ -374,6 +384,41 @@ prints no result):
            call, none in mamba2; all bf16), finite losses and grad norms,
            every parameter leaf changed, ms a step, tokens/s and peak
            bytes beside the card line.
+  sharded  (after train-families) first one probe process a collective
+           DTensor issues, each in a one-rank gloo group on a CUDA
+           tensor (how each ended is printed; every one is staged
+           through pinned host memory whatever it did, by backend and
+           device), and ``lower_cell`` of the step at SHARDED_MESH.
+           Then TinyLlama-1.1B at full width, SHARDED_LAYERS layers,
+           batch SHARDED_BATCH x SHARDED_SEQ, trained SHARDED_STEPS
+           steps by ``train()`` in this process through the kernel and
+           through the plain forward (the bf16 floor); then the same
+           steps by ``train(mesh=)`` on SHARDED_MESH, four gloo ranks
+           sharing the card (``chip_smoke.py --sharded-rank``, a file
+           rendezvous, exit codes checked within SHARDED_TIMEOUT_S;
+           started with the phase, they set up while this process runs
+           and wait for its ``go`` file).
+           Each rank: the bytes its parameter, optimizer and batch
+           shards hold (requested bytes around drawing them, and the
+           shards' own bytes) equal to the plan's argument bytes; flash
+           launched layers x 2 x steps times at (B/2 * H/2, S, D);
+           its parameters saved from the mesh and restored onto
+           (4, 1), equal.  The losses within 1e-3 of the one-process
+           run and every leaf within rtol 3e-3 / atol 3e-4 (or twice
+           the floor); what the steps did, by relative norms, which
+           do not shrink with the warmup's learning rates: each step's
+           gradient norm within SHARDED_GNORM_TOL and each leaf's
+           update (trained minus initial) within SHARDED_DELTA_TOL of
+           the one-process update (or twice their floors).  Then each rank runs prefill of
+           the prompt and SHARDED_DECODE decode steps on the mesh under
+           the inference policy from the seeded initial weights (the
+           cache laid out by ``cache_shardings``), flash launched once
+           a layer on every rank, the logits within llm-main's bounds
+           of one process's.  ``[sharded]`` lines: the probes and the
+           ops staged, losses, leaf gaps, grad norms, update gaps, ms a
+           step by rank beside the one-process ms, bytes, planned
+           collectives, the serving logits' gaps; ``[sharded done]``
+           the phase's seconds.
   dryrun-lm (last) ``lower_cell`` plans on meta tensors each cell the
            card ran: llm-main's prefill, train's 8 x 1024 step, the
            train-families steps and the families' prefills, with the
@@ -383,11 +428,15 @@ prints no result):
            planned peak (arguments plus temps, the plain attention
            route's) not under the run's requested peak, the ratio and
            max_memory_allocated printed.  The passes of
-           ``launch/dryrun.py --arch ... --mesh single`` over
-           DRYRUN_LM_PASSES start on the host when this phase starts,
-           after the last timed phase (5 and 2 worker processes, beside
-           the plans above), and are waited for: records in
-           build/dryrun_lm, each cell's plan seconds and bottleneck.
+           ``launch/dryrun.py --arch ...`` over DRYRUN_LM_PASSES start
+           on the host when this phase starts, after the last timed
+           phase (a pass of 5 worker processes at --mesh single, and
+           TinyLlama's train_4k at --mesh pod and at --mesh multipod,
+           beside the plans above), and are waited for: records in
+           build/dryrun_lm, each cell's plan seconds and bottleneck; a
+           sharded record's argument bytes a device equal to its
+           shards' bytes (``param_shardings``, ``batch_shardings``,
+           AdamW's state), its collective wire printed.
 
 The last three lines are the kernels' JSON record, the card line, and the
 result line ``{"ok": true, "device": {...}}``.
@@ -395,6 +444,7 @@ result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -497,6 +547,12 @@ DIST_TIMEOUT_S = 420     # a rank still running then fails the phase
 DIST_CHAOS = "drop@r1p0 corrupt@r2p1"
 DIST_CHAOS_PROGRAMS = (("bfs", "fast"), ("pagerank", "bsp"))
 DIST_WARMUP = (("bfs", "fast"), ("pagerank", "bsp"))
+# the programs over DistComm: those that launch a kernel or use the async
+# exchange (the other eight run over StackedComm in every earlier phase)
+DIST_PROGRAMS = (("bfs", "fast"), ("pagerank", "bsp"),
+                      ("pagerank", "fast"), ("betweenness", "default"),
+                      ("bfs", "async"), ("sssp", "async"), ("cc", "async"),
+                      ("pagerank", "async"))
 DIST_SPLIT_DRAWS = 4     # seeded fields part_sum_split reduces both ways
 ASYNC_SIBLING = {"bfs/async": "bfs/fast", "sssp/async": "sssp",
                  "cc/async": "cc", "pagerank/async": "pagerank/fast",
@@ -648,11 +704,41 @@ TRAIN_FAMILY_STEPS = 3
 # list, worker processes) each, the costliest cells first; they start
 # with the dryrun-lm phase, after every timed phase, and seven workers
 # leave a core to that phase's own plans
+# the dry-run CLI's passes: (archs, shapes, mesh, worker processes).  The
+# SSM, audio and vlm archs on one card (each plans in under 20 s on the
+# card machine's host; this phase plans the MoE's and the hybrid's cells
+# the card ran), and TinyLlama's sharded plan at pod and multipod
 DRYRUN_LM_PASSES = (
-    ("dbrx-132b,qwen2.5-32b,gemma3-27b,phi3.5-moe-42b-a6.6b,zamba2-7b,"
-     "internvl2-1b,h2o-danube-3-4b,tinyllama-1.1b", "train_4k", 5),
-    ("whisper-small,mamba2-1.3b", "all", 2))
+    ("mamba2-1.3b,whisper-small,internvl2-1b", "train_4k", "single", 3),
+    ("tinyllama-1.1b", "train_4k", "pod", 1),
+    ("tinyllama-1.1b", "train_4k", "multipod", 1))
 DRYRUN_LM_DIR = HERE / "build" / "dryrun_lm"
+# the sharded LM step: TinyLlama-1.1B at full width, depth cut, on a
+# (data 2, model 2) mesh of gloo ranks sharing the card (NCCL takes a
+# card a rank), DTensor shardings and the train policy; held against the
+# same seeded steps in one process within tests/test_system.py's
+# tolerances (loss 1e-3; rtol 3e-3, atol 3e-4) or twice the bf16 floor.
+# In its first steps (default_train_config's warmup: learning rates 3e-6
+# to 9e-6) AdamW moves a weight by about the learning rate, far under
+# that atol, so what the steps do is held by relative norms, which do
+# not scale with the learning rate: each step's gradient norm and each
+# leaf's update p_after - p_before against the one-process run's,
+# within tests/test_torch_sharded_train.py's bounds or twice the floor
+SHARDED_DIR = HERE / "build" / "sharded"
+SHARDED_MESH = (2, 2)
+SHARDED_LAYERS = 4       # of TinyLlama's 22
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 4, 1024, 3
+SHARDED_TIMEOUT_S = 420  # a rank still running then fails the phase
+SHARDED_PROBE_S = 120
+SHARDED_LOSS_TOL = 1e-3
+SHARDED_RTOL, SHARDED_ATOL = 3e-3, 3e-4
+SHARDED_GNORM_TOL, SHARDED_DELTA_TOL = 5e-4, 0.3
+SHARDED_FLOOR_FACTOR = 2.0
+# then prefill and decode on the mesh under the inference policy: the
+# prompt's last logits and SHARDED_DECODE steps on a cache of SHARDED_SEQ
+# + SHARDED_CTX_PAD positions laid out by cache_shardings, against one
+# process within llm-main's logit bounds
+SHARDED_DECODE, SHARDED_CTX_PAD = 2, 64
 DRYRUN_LM_WAIT_S = 300   # a CLI pass still running then fails the phase
 
 
@@ -709,9 +795,17 @@ class Port:
         from repro_torch.launch import serve as lm_serve
         from repro_torch.launch import mesh
         from repro_torch.configs.base import ShapeConfig
-        from repro_torch.distributed import compression
+        from repro_torch.distributed import actctx, compression
         from repro_torch.obs.telemetry import tally_delta
+        from repro_torch import checkpoint
+        from repro_torch.configs.base import ModelConfig, TrainConfig
+        from repro_torch.models import params as model_params
+        self.actctx = actctx
         self.compression = compression
+        self.checkpoint = checkpoint
+        self.ModelConfig = ModelConfig
+        self.TrainConfig = TrainConfig
+        self.params = model_params
         self.tally_delta = tally_delta
         self.mesh = mesh
         self.ShapeConfig = ShapeConfig
@@ -2377,7 +2471,7 @@ def dist_args(port: Port, eng, garr, spec) -> tuple:
     return (garr,) + (ROOT,) * len(spec.inputs)
 
 
-def dist_programs(port: Port, eng, garr, tri, programs) -> dict:
+def dist_programs(port: Port, eng, garr, programs, tri=None) -> dict:
     """Each of ``programs`` once in local-ops mode auto (triangles on the
     ``tri`` engine and arrays), launch counters zeroed just before and
     read just after each run, then the guarded chaos runs of
@@ -2482,9 +2576,8 @@ def dist_same(tag: str, got: dict, want: dict, fields: bool = True) -> None:
 
 def dist_rank_main(rank: int, d: Path) -> int:
     """One rank of the [dist] phase's gloo run (``chip_smoke.py
-    --dist-rank R``): load this rank's part of the graph and of the
-    triangles graph, build the engines over the process group
-    (``DistComm``), warm up, run ``job.json``'s programs with
+    --dist-rank R``): load this rank's part of the graph, build the
+    engine over the process group (``DistComm``), warm up, run ``job.json``'s programs with
     :func:`dist_programs`, and write the results (rank 0 with its
     gathered fields; every rank its fields' digest)."""
     port = Port()
@@ -2502,19 +2595,15 @@ def dist_rank_main(rank: int, d: Path) -> int:
         eng = port.GraphEngine(load_part(d / f"part{rank}.pkl"),
                                device=device, mesh=mesh)
         garr = eng.device_graph()
-        teng = port.GraphEngine(load_part(d / f"tri{rank}.pkl"),
-                                device=device, mesh=mesh)
-        tri = (teng, teng.device_graph())
         _sync(torch, device)
         load_s = time.perf_counter() - t0
-        dist_programs(port, eng, garr, tri, DIST_WARMUP)
+        dist_programs(port, eng, garr, DIST_WARMUP)
         programs = [tuple(p) for p in job["programs"]]
         t0 = time.perf_counter()
-        res = dist_programs(port, eng, garr, tri, programs)
+        res = dist_programs(port, eng, garr, programs)
         out = {"rank": rank, "comm": repr(eng.comm), "load_s": load_s,
                "run_s": time.perf_counter() - t0,
-               "staged": sorted(eng.comm.staged_ops | teng.comm.staged_ops),
-               "runs": {}}
+               "staged": sorted(eng.comm.staged_ops), "runs": {}}
         for key, r in res.items():
             cell = {k: r[k] for k in ("rounds", "ok", "ms", "wire",
                                       "launches")}
@@ -2530,11 +2619,13 @@ def dist_rank_main(rank: int, d: Path) -> int:
 
 
 def run_dist_compression(port: Port, device) -> dict:
-    """``compress_tree`` on the card over a seeded tree of TinyLlama's
-    parameter shapes with a seeded carried residual, against the same
-    call on the CPU: payloads, scales and residuals bit for bit."""
+    """``compress_tree`` on the card over a seeded tree of the shapes of
+    one TinyLlama layer and its embeddings, with a seeded carried
+    residual, against the same call on the CPU: payloads, scales and
+    residuals bit for bit."""
     torch, comp, tree = port.torch, port.compression, port.tree
-    cfg = port.arch_registry.ARCHS[LLM_ARCH]
+    cfg = dataclasses.replace(port.arch_registry.ARCHS[LLM_ARCH],
+                              num_layers=1)
     shapes = port.models.abstract_params(port.models.param_spec(cfg))
     gen = torch.Generator(device=device).manual_seed(SEED)
 
@@ -2596,17 +2687,19 @@ def run_dist(port: Port, engines: dict, device) -> dict:
     part a rank, against ``StackedComm`` on the same partitions.
 
     1. One rank at parts 1 over NCCL on the card (gloo off it): every
-       program through both comms in this process, outputs, rounds,
-       wire and launches equal, each timed (median of 3) beside the
-       other.
+       program (triangles on a TRI_N-vertex graph) through both comms
+       in this process, outputs, rounds, wire and launches equal, each
+       timed (median of 3) beside the other.
     2. DIST_WORLD gloo ranks at parts DIST_WORLD, all on the one card
        (NCCL takes a card a rank): this process hands each rank its
-       part (and its part of the triangles graph) as a file, runs the
+       part as a file, runs the
        programs with StackedComm for the references, starts the ranks
        (``chip_smoke.py --dist-rank``), waits for every one with a
        timeout, and holds their outputs, rounds, guard verdicts under
        DIST_CHAOS, wire and launches to the references; on the card
-       spmv_ell and bfs_pull must launch on every rank.
+       spmv_ell and bfs_pull must launch on every rank.  These ranks
+       take DIST_PROGRAMS, the programs that launch a kernel or use
+       the async exchange.
     3. ``compress_tree`` on the card against the CPU."""
     import torch.distributed as dist
     torch = port.torch
@@ -2621,19 +2714,16 @@ def run_dist(port: Port, engines: dict, device) -> dict:
         f"one-row sums ({card})")
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     DIST_DIR.mkdir(parents=True)
-    tri_edges = port.urand_edges(TRI_N, 16 * TRI_N, SEED)
-    stacked = {}
-    for parts in (1, DIST_WORLD):
-        g, eng, garr = engines[parts]
-        g_t = port.partition_graph(tri_edges, TRI_N, parts)
-        eng_t = port.GraphEngine(g_t, device=device)
-        stacked[parts] = (g, eng, garr, g_t, (eng_t, eng_t.device_graph()))
     port.localops.set_mode("auto")
     launches = {"spmv_ell": 0, "bfs_pull": 0}
 
     # -- one rank over NCCL, parts 1 ---------------------------------------
-    g, eng_s, garr_s, g_t, tri_s = stacked[1]
-    want = dist_programs(port, eng_s, garr_s, tri_s, programs)
+    g, eng_s, garr_s = engines[1]
+    g_t = port.partition_graph(port.urand_edges(TRI_N, 16 * TRI_N, SEED),
+                               TRI_N, 1)
+    eng_t = port.GraphEngine(g_t, device=device)
+    want = dist_programs(port, eng_s, garr_s, programs,
+                         (eng_t, eng_t.device_graph()))
     backend = "nccl" if on_card else "gloo"
     dist.init_process_group(
         backend, init_method=f"file://{DIST_DIR}/rdzv-one", rank=0,
@@ -2648,7 +2738,7 @@ def run_dist(port: Port, engines: dict, device) -> dict:
         garr_d = eng_d.device_graph()
         eng_dt = port.GraphEngine(g_t, device=device, mesh=mesh)
         tri_d = (eng_dt, eng_dt.device_graph())
-        got = dist_programs(port, eng_d, garr_d, tri_d, programs)
+        got = dist_programs(port, eng_d, garr_d, programs, tri_d)
         for key, w in want.items():
             r = got[key]
             dist_same(f"[dist] {backend} parts=1 {key}", r, w)
@@ -2670,11 +2760,11 @@ def run_dist(port: Port, engines: dict, device) -> dict:
           f"[dist] one rank: a kernel never launched {launches}")
 
     # -- DIST_WORLD gloo ranks sharing the card, parts DIST_WORLD ----------
-    g, eng_s, garr_s, g_t, tri_s = stacked[DIST_WORLD]
-    want = dist_programs(port, eng_s, garr_s, tri_s, programs)
+    programs = DIST_PROGRAMS
+    g, eng_s, garr_s = engines[DIST_WORLD]
+    want = dist_programs(port, eng_s, garr_s, programs)
     t0 = time.perf_counter()
     handed = sum(hand_off(g.take_part(p), DIST_DIR / f"part{p}.pkl")
-                 + hand_off(g_t.take_part(p), DIST_DIR / f"tri{p}.pkl")
                  for p in range(DIST_WORLD))
     log(f"[dist] handed {DIST_WORLD} parts to the ranks: "
         f"{handed / 2 ** 30:.2f} GiB of files in "
@@ -2745,18 +2835,18 @@ def run_dist(port: Port, engines: dict, device) -> dict:
 
     # -- compression -------------------------------------------------------
     comp = run_dist_compression(port, device)
-    log(f"[dist] compress_tree over {comp['leaves']} leaves of "
-        f"{LLM_ARCH}'s shapes ({comp['elements']:,} elements): q, scales "
-        f"and residuals on the card bit-equal to the CPU's; "
-        f"{comp['card_ms']:.1f} ms on the card, {comp['cpu_ms']:.1f} ms on "
-        f"the CPU ({card})")
+    log(f"[dist] compress_tree over {comp['leaves']} leaves of one "
+        f"{LLM_ARCH} layer's and its embeddings' shapes "
+        f"({comp['elements']:,} elements): q, scales and residuals on the "
+        f"card bit-equal to the CPU's; {comp['card_ms']:.1f} ms on the "
+        f"card, {comp['cpu_ms']:.1f} ms on the CPU ({card})")
+
     secs = time.perf_counter() - t_phase
     out = {"one": one, "gloo": {k: {x: v[x] for x in ("rounds", "ok", "ms",
                                                       "launches")}
                                 for k, v in ranks[0]["runs"].items()},
            "gloo_s": gloo_s, "staged": staged, "by_rank": by_rank,
-           "part_sums": split,
-           "compression": comp, "secs": secs}
+           "part_sums": split, "compression": comp, "secs": secs}
     log("[dist] " + json.dumps(out, default=str))
     log(f"[dist done] {secs:.1f} s")
     return {"launches": launches, "by_rank": by_rank}
@@ -5091,6 +5181,499 @@ def run_train_families(port: Port, device, families=TRAIN_FAMILIES,
 
 
 # ---------------------------------------------------------------------------
+# the sharded LM step: DTensor plans over gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def gloo_probe_main(op: str, d: Path) -> int:
+    """One probe of the [sharded] phase (``chip_smoke.py --gloo-probe
+    OP``): ``OP`` of torch's functional collectives on a CUDA tensor in
+    a one-rank gloo group.  Exit code 0 when it returned."""
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{d}/probe-{op}",
+                            rank=0, world_size=1)
+    try:
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        c10d, name = torch.ops._c10d_functional, dist.group.WORLD.group_name
+        call = {"all_gather_into_tensor": lambda: c10d.all_gather_into_tensor(
+                    x, 1, name),
+                "reduce_scatter_tensor": lambda: c10d.reduce_scatter_tensor(
+                    x, "sum", 1, name),
+                "all_reduce": lambda: c10d.all_reduce(x, "sum", name),
+                "all_to_all_single": lambda: c10d.all_to_all_single(
+                    x, [8], [8], name)}[op]
+        c10d.wait_tensor(call())
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def start_gloo_probes(port: Port, d: Path) -> dict:
+    """Start one probe process a collective DTensor issues
+    (``actctx.FUNCOL_OPS``), each in a one-rank gloo group on a CUDA
+    tensor: op -> process."""
+    return {op: subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--gloo-probe", op,
+         "--sharded-dir", str(d)], cwd=HERE, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL) for op in port.actctx.FUNCOL_OPS}
+
+
+def gloo_probe_results(procs: dict) -> dict:
+    """op -> "returned" or how its process ended (a signal's name)."""
+    import signal
+    out = {}
+    for op, p in procs.items():
+        try:
+            rc = p.wait(timeout=SHARDED_PROBE_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            out[op] = f"still running after {SHARDED_PROBE_S} s"
+            continue
+        out[op] = ("returned" if rc == 0 else signal.Signals(-rc).name
+                   if rc < 0 else f"exit code {rc}")
+    return out
+
+
+def sharded_rank_main(rank: int, d: Path) -> int:
+    """One rank of the [sharded] phase (``chip_smoke.py --sharded-rank
+    R``), set up and then waiting for the parent's ``go`` file: the
+    parameter, optimizer and batch bytes this rank holds once
+    ``build_state`` and the batch's shard are drawn (requested bytes of
+    the caching allocator around them, and the local shards' bytes);
+    then ``launch/train.py::train`` on the job's mesh, the flash
+    wrapper's calls recorded by shape; then the trained parameters saved
+    from this mesh and restored onto (world, 1), each leaf compared with
+    the saved one; then prefill and decode on the mesh from the seeded
+    initial weights (:func:`sharded_serve`), launches counted around
+    them.  Writes ``rank{R}.json``, and rank 0 the logits to
+    ``serve.pt``."""
+    port = Port()
+    torch, st, tr, P = port.torch, port.train_steps, port.trainer, \
+        port.params
+    import torch.distributed as dist
+    job = json.loads((d / "job.json").read_text())
+    device = torch.device(job["device"])
+    cfg = port.ModelConfig(**job["cfg"])
+    mesh = port.mesh.make_local_mesh(*job["mesh"])
+    world = mesh.size
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"file://{d}/rdzv",
+                            rank=rank, world_size=world)
+    try:
+        while not (d / "go").exists():   # the parent's own runs come first
+            time.sleep(0.05)
+        tc = port.TrainConfig(**job["tc"])
+        spec = port.models.param_spec(cfg)
+        dm = port.mesh.device_mesh(mesh, device.type)
+        sh = P.param_shardings(spec, mesh)
+        shape = port.ShapeConfig("sharded", "train", job["seq"],
+                                 job["batch"])
+        before = requested_bytes(torch, device)
+        params, opt = tr.build_state(cfg, tc, device, sh, dm)
+        full = tr.next_batch(port.TokenStream(
+            global_batch=job["batch"], seq_len=job["seq"],
+            vocab_size=cfg.vocab_size, seed=tc.seed), cfg, tc, device)
+        b = P.distribute(full, st.batch_shardings(cfg, shape, mesh, full), dm)
+        del full
+        resident = None if before is None \
+            else requested_bytes(torch, device) - before
+        local = sum(st.tree_bytes(t) for t in (params, opt, b))
+        del params, opt, b
+
+        # each flash forward's (B*H, S, D): the wrapper's calls on the
+        # card, the plain forward FlashAttention runs on CPU tensors
+        shapes = []
+        mod, name = (port.flash_ops, "flash_attention_fwd") \
+            if device.type == "cuda" else (port.model_layers,
+                                           "_flash_fwd_impl")
+        orig = getattr(mod, name)
+
+        def record(q, k, v, **kw):
+            shapes.append(tuple(q.shape) if q.dim() == 3 else
+                          (q.shape[0] * q.shape[2], q.shape[1], q.shape[3]))
+            return orig(q, k, v, **kw)
+
+        setattr(mod, name, record)
+        port.reset_launches()
+        hist = []
+        t0 = time.perf_counter()
+        try:
+            params, opt, _ = tr.train(
+                cfg, tc, batch=job["batch"], seq=job["seq"],
+                steps=job["steps"], device=device, mesh=mesh, resume=False,
+                log_every=job["steps"], history=hist)
+        finally:
+            setattr(mod, name, orig)
+        train_s = time.perf_counter() - t0
+        launches = port.launches()
+        del opt
+
+        # elastic: saved from this mesh, restored onto (world, 1)
+        staged = port.actctx.staged_backend("gloo", device.type)
+        with port.actctx.StagedCollectives() if staged \
+                else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            port.checkpoint.save(d / "ckpt", job["steps"], params)
+            save_s = time.perf_counter() - t0
+            other = port.mesh.make_local_mesh(world, 1)
+            t0 = time.perf_counter()
+            back = port.checkpoint.restore(d / "ckpt", job["steps"], params,
+                                           P.param_shardings(spec, other))
+            restore_s = time.perf_counter() - t0
+            equal = True
+            for a, r in zip(port.tree.leaves(params), port.tree.leaves(back)):
+                equal &= bool(torch.equal(a.full_tensor(), r.full_tensor()))
+            layout = [str(x.placements) for x in port.tree.leaves(back)[:2]]
+        del params, back
+        serve = sharded_serve(port, cfg, tc, mesh, dm, shape, device, staged)
+        logits = serve.pop("logits")
+        if rank == 0:
+            torch.save(logits, d / "serve.pt")
+        out = {"rank": rank, "resident": resident, "local_bytes": local,
+               "launches": launches, "flash_shapes": sorted(set(shapes)),
+               "flash_calls": len(shapes),
+               "steps": [h for h in hist if "step" in h],
+               "staged": next((h["staged"] for h in hist if "staged" in h),
+                              {}),
+               "train_s": train_s, "save_s": save_s,
+               "restore_s": restore_s, "restored_equal": equal,
+               "restored_layout": layout, "serve": serve}
+        (d / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_prompt(port: Port, cfg, batch: int, seq: int, device):
+    """The [sharded] phase's (batch, seq + SHARDED_DECODE) tokens: a
+    prompt of ``seq`` and the tokens its decode steps take."""
+    return port.batch_at(2, global_batch=batch,
+                         seq_len=seq + SHARDED_DECODE,
+                         vocab_size=cfg.vocab_size).to(device)
+
+
+def decode_logits(port: Port, cfg, model, prompt, seq: int, cache,
+                  lay=lambda t: t) -> list:
+    """The logits of SHARDED_DECODE decode steps from ``cache`` on the
+    tokens of ``prompt`` after its first ``seq``, each laid out by
+    ``lay``."""
+    out = []
+    for t in range(seq, seq + SHARDED_DECODE):
+        lg, cache = port.models.forward_decode(model, cfg,
+                                               lay(prompt[:, t:t + 1]), cache)
+        out.append(lg)
+    return out
+
+
+def one_process_serve(port: Port, cfg, params, prompt, seq: int) -> tuple:
+    """Prefill of ``prompt[:, :seq]`` on plain ``params`` in this
+    process: its last logits, and its cache padded to the decode
+    buffers of SHARDED_CTX_PAD more positions."""
+    models = port.models
+    with port.torch.no_grad():
+        lg, cache = models.forward_prefill(models.Transformer(cfg, params),
+                                           cfg, {"tokens": prompt[:, :seq]})
+        return lg, port.lm_serve.pad_cache_for_decode(
+            cfg, cache, seq + SHARDED_CTX_PAD, prompt.shape[0])
+
+
+def sharded_serve(port: Port, cfg, tc, mesh, dm, shape, device,
+                  staged: bool) -> dict:
+    """One rank's prefill and decode on ``mesh`` under the inference
+    policy, from the seeded initial weights (``build_state``): the
+    prompt's tokens laid out by ``batch_shardings``, the decode cache
+    built by a one-process prefill on this rank and laid out by
+    ``cache_shardings``.  The launch counts and seconds are those of the
+    sharded calls alone; ``logits`` holds the prefill's last logits and
+    each decode step's, gathered."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    torch, st, tr, P = port.torch, port.train_steps, port.trainer, \
+        port.params
+    batch, seq = shape.global_batch, shape.seq_len
+    prompt = sharded_prompt(port, cfg, batch, seq, device)
+    one, _ = tr.build_state(cfg, tc, device)
+    _, cache = one_process_serve(port, cfg, one, prompt, seq)
+    del one
+    params, _ = tr.build_state(cfg, tc, device,
+                               P.param_shardings(port.models.param_spec(cfg),
+                                                 mesh), dm)
+    def lay(t):     # a batch's tokens split over the data axes
+        return P.distribute({"tokens": t}, st.batch_shardings(
+            cfg, shape, mesh, {"tokens": t}), dm)["tokens"]
+
+    infer = port.actctx.make_infer_policy(
+        mesh, batch_axes=port.mesh.batch_axes(mesh, batch))
+    staging = port.actctx.StagedCollectives() if staged \
+        else contextlib.nullcontext()
+    port.reset_launches()
+    t0 = time.perf_counter()
+    with staging as sc, port.actctx.policy(infer), torch.no_grad(), \
+            implicit_replication():
+        model = port.models.Transformer(cfg, params)
+        lg, _ = port.models.forward_prefill(
+            model, cfg, {"tokens": lay(prompt[:, :seq])})
+        cache = P.distribute(cache, st.cache_shardings(
+            cfg, mesh, batch, seq + SHARDED_CTX_PAD), dm)
+        logits = [lg] + decode_logits(port, cfg, model, prompt, seq, cache,
+                                      lay)
+        layout = [str(t.placements) for t in
+                  port.tree.leaves(cache["segments"])[:1]]
+        logits = [x.full_tensor().float().cpu() for x in logits]
+    return {"logits": logits, "launches": port.launches(),
+            "s": time.perf_counter() - t0, "cache_layout": layout,
+            "staged": dict(sc.staged) if staged else {}}
+
+
+def run_sharded(port: Port, device, arch: str = LLM_ARCH,
+                layers: int = SHARDED_LAYERS, batch: int = SHARDED_BATCH,
+                seq: int = SHARDED_SEQ, steps: int = SHARDED_STEPS) -> dict:
+    """The [sharded] phase (see the module docstring): ``layers`` of
+    ``arch`` at full width trained ``steps`` steps on a SHARDED_MESH of
+    gloo ranks sharing the card (``launch/train.py::train(mesh=)``:
+    DTensor shardings, the train policy, explicit ZeRO-3 gathers, flash
+    on each rank's own heads) against the same seeded steps in one
+    process through the kernel, within the reference test's tolerances
+    or twice the bf16 floor (the one-process kernel run against the
+    plain one), and each step's gradient norm and each leaf's update
+    within SHARDED_GNORM_TOL and SHARDED_DELTA_TOL (relative) or twice
+    their floors; each rank's resident bytes against ``lower_cell``'s
+    plan at the same mesh; the parameters saved from the mesh restored
+    onto (world, 1) equal; prefill and decode on the mesh against one
+    process within llm-main's logit bounds, flash launched on every
+    rank."""
+    import shutil
+    torch, st, tr = port.torch, port.train_steps, port.trainer
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    card = card_line() if on_card else "cpu"
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    SHARDED_DIR.mkdir(parents=True)
+    probes = start_gloo_probes(port, SHARDED_DIR) if on_card else {}
+    cfg = dataclasses.replace(port.arch_registry.get_arch(arch),
+                              num_layers=layers)
+    tc = dataclasses.replace(st.default_train_config(cfg),
+                             checkpoint_every=0,
+                             checkpoint_dir=str(SHARDED_DIR / "one"))
+    mesh = port.mesh.make_local_mesh(*SHARDED_MESH)
+    world = mesh.size
+
+    # -- the ranks start (and wait for "go" once set up) ------------------
+    (SHARDED_DIR / "job.json").write_text(json.dumps({
+        "device": str(device), "cfg": dataclasses.asdict(cfg),
+        "tc": dataclasses.asdict(tc), "mesh": list(SHARDED_MESH),
+        "batch": batch, "seq": seq, "steps": steps}))
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        with open(SHARDED_DIR / f"rank{r}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"),
+                 "--sharded-rank", str(r), "--sharded-dir",
+                 str(SHARDED_DIR)], cwd=HERE, stdout=f,
+                stderr=subprocess.STDOUT))
+    try:
+        # -- the plan, and one process through the kernel and the plain
+        # route, while the ranks start ---------------------------------
+        shape = port.ShapeConfig("sharded", "train", seq, batch)
+        plan, _ = st.lower_cell(cfg, shape, mesh, tc)
+        coll = {f"{op}/{g}": calls
+                for (op, g), (_, calls) in plan.cost.collectives.items()}
+        ref = {}
+        for impl in ("chunked", "plain"):
+            hist = []
+            p, _, _ = tr.train(cfg, tc, batch=batch, seq=seq, steps=steps,
+                               device=device, resume=False, log_every=steps,
+                               impl=impl, history=hist)
+            ref[impl] = ([h["loss"] for h in hist if "step" in h],
+                         [t.float().cpu() for t in port.tree.leaves(p)],
+                         [h["s"] * 1e3 for h in hist if "step" in h],
+                         [h["grad_norm"] for h in hist if "step" in h])
+            del p
+        # the initial weights (each update's start), and prefill and
+        # decode on them in this process
+        p0, _ = tr.build_state(cfg, tc, device)
+        leaves_0 = [t.float().cpu() for t in port.tree.leaves(p0)]
+        prompt = sharded_prompt(port, cfg, batch, seq, device)
+        lg, cache = one_process_serve(port, cfg, p0, prompt, seq)
+        with torch.no_grad():
+            serve_ref = [x.float().cpu() for x in [lg] + decode_logits(
+                port, cfg, port.models.Transformer(cfg, p0), prompt, seq,
+                cache)]
+        del p0, lg, cache
+        probed = gloo_probe_results(probes)
+        if on_card:
+            torch.cuda.empty_cache()
+        (SHARDED_DIR / "go").write_text("")
+        t_go = time.perf_counter()
+        wait_ranks(procs, SHARDED_TIMEOUT_S)
+    except BaseException:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for r in range(world):
+            log(f"[sharded] rank {r} log tail:\n"
+                + (SHARDED_DIR / f"rank{r}.log").read_text()[-3000:])
+        raise
+    ranks_s, go_s = time.perf_counter() - t0, time.perf_counter() - t_go
+    ranks = [json.loads((SHARDED_DIR / f"rank{r}.json").read_text())
+             for r in range(world)]
+
+    # -- checks ---------------------------------------------------------
+    loss_k, leaves_k, ms_k, gnorm_k = ref["chunked"]
+    loss_p, leaves_p, _, gnorm_p = ref["plain"]
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    step_ms = [[round(s["s"] * 1e3, 1) for s in r["steps"]] for r in ranks]
+    loss_floor = max(abs(a - b) for a, b in zip(loss_k, loss_p))
+    loss_gap = max(abs(a - b) for a, b in zip(losses, loss_k))
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"[sharded] losses {losses}")
+    check(all([s["loss"] for s in r["steps"]] == losses for r in ranks),
+          "[sharded] ranks disagree on the losses")
+    check(loss_gap <= max(SHARDED_LOSS_TOL, SHARDED_FLOOR_FACTOR
+                          * loss_floor),
+          f"[sharded] loss gap {loss_gap} to the one-process run (floor "
+          f"{loss_floor})")
+    gnorms = [s["grad_norm"] for s in ranks[0]["steps"]]
+    gnorm_floor = max(abs(a / b - 1) for a, b in zip(gnorm_p, gnorm_k))
+    gnorm_gap = max(abs(a / b - 1) for a, b in zip(gnorms, gnorm_k))
+    check(gnorm_gap <= max(SHARDED_GNORM_TOL, SHARDED_FLOOR_FACTOR
+                           * gnorm_floor),
+          f"[sharded] grad norms {gnorms} against the one-process run's "
+          f"{gnorm_k}: relative gap {gnorm_gap} (floor {gnorm_floor})")
+    saved = SHARDED_DIR / "ckpt" / f"step_{steps}"
+    worst, worst_floor = 0.0, 0.0
+    delta_worst, delta_floor = 0.0, 0.0
+    for i, (k, pl, p0) in enumerate(zip(leaves_k, leaves_p, leaves_0)):
+        got = torch.from_numpy(np.load(saved / f"arr_{i}.npy")).float()
+        # the update, by relative norm against the one-process update
+        want = k - p0
+        rel = float((got - p0 - want).norm() / want.norm())
+        rel_floor = float((pl - p0 - want).norm() / want.norm())
+        delta_worst = max(delta_worst, rel)
+        delta_floor = max(delta_floor, rel_floor)
+        check(rel <= max(SHARDED_DELTA_TOL,
+                         SHARDED_FLOOR_FACTOR * rel_floor),
+              f"[sharded] leaf {i}: its update is {rel:.3e} of the "
+              f"one-process update away from it (floor {rel_floor:.3e})")
+        floor = float((k - pl).abs().max())
+        excess = float(((got - k).abs() - SHARDED_ATOL
+                        - SHARDED_RTOL * k.abs()).max())
+        gap = float((got - k).abs().max())
+        worst = max(worst, gap)
+        worst_floor = max(worst_floor, floor)
+        check(excess <= 0 or gap <= SHARDED_FLOOR_FACTOR * floor,
+              f"[sharded] leaf {i}: gap {gap} to the one-process run past "
+              f"rtol {SHARDED_RTOL} / atol {SHARDED_ATOL} and "
+              f"{SHARDED_FLOOR_FACTOR} x the floor {floor}")
+    per_rank = layers * 2 * steps       # each layer's forward and recompute
+    want_shape = (batch // SHARDED_MESH[0] * cfg.num_heads
+                  // SHARDED_MESH[1], seq, cfg.head_dim)
+    for r in ranks:
+        n = r["launches"]["flash_attention_fwd"]
+        check(not on_card or n == per_rank,
+              f"[sharded] rank {r['rank']} launched flash {n} times, want "
+              f"{per_rank}")
+        check(r["flash_calls"] == per_rank
+              and [tuple(x) for x in r["flash_shapes"]] == [want_shape],
+              f"[sharded] rank {r['rank']} flash calls {r['flash_calls']} "
+              f"at {r['flash_shapes']}, want {per_rank} at {want_shape}")
+        check(r["local_bytes"] == plan.arg_bytes,
+              f"[sharded] rank {r['rank']}: shards hold {r['local_bytes']} "
+              f"B, the plan {plan.arg_bytes}")
+        check(r["resident"] is None or r["resident"] == plan.arg_bytes,
+              f"[sharded] rank {r['rank']}: resident {r['resident']} B, "
+              f"the plan {plan.arg_bytes}")
+        check(r["restored_equal"], f"[sharded] rank {r['rank']}: restore "
+              "onto the other mesh differs")
+        n = r["serve"]["launches"]["flash_attention_fwd"]
+        check(not on_card or n == layers,
+              f"[sharded] rank {r['rank']}: prefill launched flash {n} "
+              f"times, want {layers}")
+    serve_got = torch.load(SHARDED_DIR / "serve.pt")
+    serve_err = {}
+    for i, (a, b) in enumerate(zip(serve_got, serve_ref)):
+        what = "prefill" if i == 0 else f"decode step {i}"
+        serve_err[what] = e = logit_diff(torch, a, b)
+        check(a.shape == b.shape and e["finite"]
+              and e["max"] <= LOGIT_MAX_TOL and e["mean"] <= LOGIT_MEAN_TOL
+              and e["argmax_other"] == 0,
+              f"[sharded] {what} logits on the mesh against one process: "
+              f"{e} beyond max {LOGIT_MAX_TOL}, mean {LOGIT_MEAN_TOL} or "
+              "argmax")
+    check(len(serve_got) == 1 + SHARDED_DECODE, "[sharded] serve logits")
+    staged = ranks[0]["staged"]
+    check(bool(staged) == on_card and set(staged)
+          <= set(port.actctx.FUNCOL_OPS), f"[sharded] staged {staged}")
+    launches = sum(r["launches"]["flash_attention_fwd"] for r in ranks)
+    secs = time.perf_counter() - t_phase
+    log(f"[sharded] gloo on CUDA tensors under torch {torch.__version__}, "
+        f"one op a one-rank group: "
+        + (", ".join(f"{k} {v}" for k, v in probed.items()) or "not run")
+        + "; staged through pinned host memory (by backend and device): "
+        + (", ".join(f"{k} x{v}" for k, v in staged.items()) or "none")
+        + f" ({card})")
+    log(f"[sharded] {arch} {layers} of its layers at full width, batch "
+        f"{batch} x {seq}, mesh {mesh.shape} of gloo ranks: losses "
+        f"{[round(x, 6) for x in losses]} vs one process {loss_k} (gap "
+        f"{loss_gap:.3e}; kernel vs plain floor {loss_floor:.3e}); "
+        f"parameter leaves' worst gap {worst:.3e} (floor {worst_floor:.3e})"
+        f"; ms a step by rank {step_ms} (one process "
+        f"{[round(x, 1) for x in ms_k]}); grad norms "
+        f"{[round(x, 6) for x in gnorms]} vs {[round(x, 6) for x in gnorm_k]}"
+        f" (relative gap {gnorm_gap:.3e}, floor {gnorm_floor:.3e}); each "
+        f"leaf's update within {delta_worst:.3e} of the one-process update "
+        f"by relative norm (floor {delta_floor:.3e}); flash {per_rank} a "
+        f"rank at {want_shape}, launches by rank "
+        f"{[r['launches']['flash_attention_fwd'] for r in ranks]}; "
+        f"bytes a rank held {ranks[0]['local_bytes']:,} = planned "
+        f"{plan.arg_bytes:,} (resident "
+        f"{nbytes(ranks[0]['resident'])}); planned collectives "
+        f"{coll}; restored onto {(world, 1)} equal "
+        f"({ranks[0]['restored_layout'][0]}), save {ranks[0]['save_s']:.1f}"
+        f" s, restore {ranks[0]['restore_s']:.1f} s; ranks {ranks_s:.1f} s"
+        f" ({go_s:.1f} s after go) ({card})")
+    sv = ranks[0]["serve"]
+    log(f"[sharded] prefill of {batch} x {seq} and {SHARDED_DECODE} decode "
+        f"steps on the mesh, inference policy, cache "
+        f"{sv['cache_layout'][0]}: logits against one process "
+        + "; ".join(f"{k} max {v['max']:.3e} mean {v['mean']:.3e}"
+                    for k, v in serve_err.items())
+        + f"; flash launches by rank "
+        f"{[r['serve']['launches']['flash_attention_fwd'] for r in ranks]}"
+        f"; {sv['s']:.1f} s on rank 0, staged "
+        + (", ".join(f"{k} x{v}" for k, v in sv["staged"].items())
+           or "none") + f" ({card})")
+    out = {"arch": arch, "layers": layers, "batch": batch, "seq": seq,
+           "mesh": list(SHARDED_MESH), "losses": losses,
+           "one_process_losses": loss_k, "loss_gap": loss_gap,
+           "loss_floor": loss_floor, "worst_leaf_gap": worst,
+           "worst_leaf_floor": worst_floor, "grad_norms": gnorms,
+           "one_process_grad_norms": gnorm_k, "grad_norm_gap": gnorm_gap,
+           "grad_norm_floor": gnorm_floor, "update_gap": delta_worst,
+           "update_floor": delta_floor,
+           "serve_logits": serve_err, "serve_s": sv["s"], "step_ms_by_rank": step_ms,
+           "one_process_step_ms": ms_k, "flash_shape": want_shape,
+           "launches_by_rank": [r["launches"]["flash_attention_fwd"]
+                                for r in ranks],
+           "planned_arg_bytes": plan.arg_bytes,
+           "resident_by_rank": [r["resident"] for r in ranks],
+           "planned_collectives": coll, "staged": staged,
+           "gloo_probe": probed, "ranks_s": ranks_s, "after_go_s": go_s,
+           "train_s_by_rank": [r["train_s"] for r in ranks], "secs": secs}
+    log("[sharded] " + json.dumps(out))
+    log(f"[sharded done] {secs:.1f} s ({card})")
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    serve_by_rank = [r["serve"]["launches"]["flash_attention_fwd"]
+                     for r in ranks]
+    return {"launches": launches, "by_rank": out["launches_by_rank"],
+            "serve_launches": sum(serve_by_rank),
+            "serve_by_rank": serve_by_rank}
+
+
+# ---------------------------------------------------------------------------
 # the LM dry-run: the cells the card ran, planned on meta tensors, then
 # the registry's cells through the CLI
 # ---------------------------------------------------------------------------
@@ -5107,21 +5690,23 @@ class DryrunCLI:
                  smoke: bool = False):
         import shutil
         shutil.rmtree(out_dir, ignore_errors=True)
-        self.out_dir, self.runs = out_dir, []
+        self.out_dir, self.runs, self.smoke = out_dir, [], smoke
         env = dict(os.environ, PYTHONPATH=str(SRC))
         self.t0 = time.perf_counter()
-        for archs, shapes_, jobs in passes:
+        for archs, shapes_, mesh, jobs in passes:
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", archs, "--shape", shapes_, "--mesh", "single",
+                   "--arch", archs, "--shape", shapes_, "--mesh", mesh,
                    "--jobs", str(jobs), "--out", str(out_dir)] \
                 + ["--smoke"] * smoke
-            self.runs.append((archs, shapes_, jobs, cmd, subprocess.Popen(
-                cmd, env=env, cwd=HERE, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)))
+            self.runs.append((archs, shapes_, mesh, jobs, cmd,
+                              subprocess.Popen(
+                                  cmd, env=env, cwd=HERE,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)))
 
     def finish(self) -> dict:
         passes = []
-        for archs, shapes_, jobs, cmd, proc in self.runs:
+        for archs, shapes_, _, jobs, cmd, proc in self.runs:
             stdout, stderr = proc.communicate(timeout=DRYRUN_LM_WAIT_S)
             secs = time.perf_counter() - self.t0
             for line in stdout.splitlines():
@@ -5135,15 +5720,17 @@ class DryrunCLI:
                 f"{jobs}: done {secs:.1f} s after it started, on the host")
         recs = [json.loads(p.read_text())
                 for p in sorted(self.out_dir.glob("*.json"))]
-        check(recs and all(r["status"] == "ok" and r["mesh"] == "single"
-                           for r in recs), "dry-run CLI records")
-        return {"passes": passes, "records": {
-            f"{r['arch']}__{r['shape']}": {
+        check(recs and all(r["status"] == "ok" for r in recs),
+              "dry-run CLI records")
+        return {"passes": passes, "raw": recs, "records": {
+            f"{r['arch']}__{r['shape']}__{r['mesh']}": {
                 "program": r["program"], "lower_s": r["lower_s"],
                 "bottleneck_v5e": r["bottleneck"],
                 "bottleneck_h100": r["h100"]["bottleneck"],
                 "hbm_gb": (r["arg_bytes_per_device"]
-                           + r["temp_bytes_per_device"]) / 1e9}
+                           + r["temp_bytes_per_device"]) / 1e9,
+                "arg_bytes_per_device": r["arg_bytes_per_device"],
+                "collective_wire_bytes": r["collective_wire_bytes"]}
             for r in recs}}
 
     def stop(self) -> None:
@@ -5151,6 +5738,27 @@ class DryrunCLI:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
+
+
+def sharded_arg_bytes(port: Port, cfg, shape_name: str,
+                      mesh_name: str) -> int:
+    """One device's argument bytes of a sharded train cell from the
+    plans alone: each parameter's shard (``param_shardings``) in f32
+    three times (the parameter, AdamW's m and v), the optimizer's int32
+    step, and each batch tensor's shard (``batch_shardings``)."""
+    P, st = port.params, port.train_steps
+    mesh = port.mesh.make_production_mesh(multi_pod=mesh_name == "multipod")
+    shape = port.arch_registry.get_shape(shape_name)
+    spec = port.models.param_spec(cfg)
+    total = 4
+    for s, sh in zip(port.tree.leaves(spec),
+                     port.tree.leaves(P.param_shardings(spec, mesh))):
+        total += 3 * 4 * math.prod(sh.shard_shape(s.shape))
+    batch = st.input_specs(cfg, shape)
+    for t, sh in zip(port.tree.leaves(batch), port.tree.leaves(
+            st.batch_shardings(cfg, shape, mesh, batch))):
+        total += t.element_size() * math.prod(sh.shard_shape(t.shape))
+    return total
 
 
 def run_dryrun_lm(port: Port, cells: dict, device, cli: DryrunCLI) -> dict:
@@ -5200,6 +5808,23 @@ def run_dryrun_lm(port: Port, cells: dict, device, cli: DryrunCLI) -> dict:
                      "plan_s": plan.lower_s}
     t_cells = time.perf_counter() - t_phase
     done = cli.finish()
+    for r in done.pop("raw"):
+        if r["mesh"] == "single":
+            continue
+        cfg = port.arch_registry.get_arch(r["arch"])
+        if cli.smoke:
+            cfg = port.arch_registry.smoke_config(r["arch"])
+        want = sharded_arg_bytes(port, cfg, r["shape"], r["mesh"])
+        log(f"[dryrun-lm] {r['arch']} x {r['shape']} x {r['mesh']}: "
+            f"argument bytes a device {r['arg_bytes_per_device']:,} = "
+            f"shards of param_shardings, batch_shardings and the "
+            f"optimizer state {want:,}; collective wire "
+            f"{r['collective_wire_bytes']:.4e} B a device "
+            f"({r['collectives']['counts']}); planned in "
+            f"{r['lower_s']} s on the host")
+        check(r["arg_bytes_per_device"] == want,
+              f"dry-run {r['arch']} x {r['mesh']}: argument bytes "
+              f"{r['arg_bytes_per_device']} != the shards' {want}")
     secs = time.perf_counter() - t_phase
     res = {"cells": out, "cells_s": t_cells, "cli_passes": done["passes"],
            "cli_records": done["records"], "secs": secs}
@@ -5210,7 +5835,8 @@ def run_dryrun_lm(port: Port, cells: dict, device, cli: DryrunCLI) -> dict:
 
 
 def kernels_record(result: dict, llm: dict, trained: dict,
-                   families: dict, train_families: dict) -> dict:
+                   families: dict, train_families: dict,
+                   sharded: dict) -> dict:
     """The contract record of each kernel: spmv_ell at pagerank/bsp's
     ell_in buckets and bfs_pull at bfs/fast's, at the largest parts
     count; flash_attention_fwd at one TinyLlama prefill layer.  A graph
@@ -5252,7 +5878,9 @@ def kernels_record(result: dict, llm: dict, trained: dict,
     cell = llm["flash"]
     flash_paths = {"llm-main": llm["launches"], "train": trained["launches"],
                    "families": families["launches"],
-                   "train-families": train_families["launches"]}
+                   "train-families": train_families["launches"],
+                   "sharded": sharded["launches"],
+                   "sharded-serve": sharded["serve_launches"]}
     rows.append({"name": "flash_attention_fwd", "route": "cuda",
                  "design": "wgmma (bf16 tensor cores, TMA k/v ring)",
                  "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -5260,6 +5888,8 @@ def kernels_record(result: dict, llm: dict, trained: dict,
                  "replaces": FLASH_REPLACES,
                  "launches": sum(flash_paths.values()),
                  "launches_by_path": flash_paths,
+                 "sharded_gloo_launches_by_rank": sharded["by_rank"],
+                 "sharded_serve_launches_by_rank": sharded["serve_by_rank"],
                  "max_abs_err": max(llm["parity_err"],
                                     families["parity_err"],
                                     train_families["parity_err"]),
@@ -5284,10 +5914,19 @@ def main() -> int:
     ap.add_argument("--dist-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-probe", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.dist_rank is not None:
         # a rank of the [dist] phase's gloo run, started by run_dist
         return dist_rank_main(args.dist_rank, Path(args.dist_dir))
+    if args.sharded_rank is not None:
+        # a rank of the [sharded] phase, started by run_sharded
+        return sharded_rank_main(args.sharded_rank, Path(args.sharded_dir))
+    if args.gloo_probe is not None:
+        return gloo_probe_main(args.gloo_probe, Path(args.sharded_dir))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5312,6 +5951,7 @@ def main() -> int:
                 ("families", lambda: run_families(Port(), "cuda")),
                 ("train-families", lambda: run_train_families(Port(),
                                                               "cuda")),
+                ("sharded", lambda: run_sharded(Port(), "cuda")),
                 ("dryrun-lm", dryrun_lm)):
             out[name] = fn()
             dry.update(out[name].pop("dryrun_cells", {}))
@@ -5322,8 +5962,8 @@ def main() -> int:
             c.stop()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels_record(out["graph"], out["llm"], out["train"],
-                                    out["families"],
-                                    out["train-families"])))
+                                    out["families"], out["train-families"],
+                                    out["sharded"])))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,9 @@ from repro_torch import tree
 def quantize_int8(x: torch.Tensor, resid: torch.Tensor):
     """``x + resid`` -> ``(int8 payload, float32 scale, new residual)``."""
     y = x.float() + resid
-    scale = y.abs().max() / 127.0 + 1e-12
+    # a divisor on the tensor's device: CUDA multiplies by the reciprocal
+    # of a Python scalar, which is not always the quotient's bits
+    scale = y.abs().max() / torch.full((), 127.0, device=y.device) + 1e-12
     q = torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
     return q, scale, y - dequantize_int8(q, scale)
 

@@ -58,6 +58,11 @@ def _library() -> ctypes.CDLL:
 
 
 def _check(q, k, v):
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention_fwd takes each rank's own shard "
+                        "(models/layers.py runs it per shard), not a "
+                        "DTensor")
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"q, k, v must be (BH, S, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")

@@ -1,10 +1,12 @@
 """Dry-run: plan every (architecture x input shape) cell of the LM
-registry on one card, or every registered graph program for a
-paper-scale urand graph at production part counts, on meta tensors, and
-write their roofline records.
+registry on one card or on the production meshes, or every registered
+graph program for a paper-scale urand graph at production part counts,
+on meta tensors, and write their roofline records.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
       --shape all --mesh single --out build/dryrun_lm
+  PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+      --arch tinyllama-1.1b --shape all --mesh both --out build/dryrun_lm
   PYTHONPATH=src python -m repro_torch.launch.dryrun --graph urand28 \\
       --mesh both --out artifacts/dryrun
 
@@ -20,9 +22,14 @@ bytes under the keys the reference's ``recost`` gives them
 (``jaxpr_*_total``), which ``roofline/recost.py`` prices.  There is no compile step:
 ``lower_s`` is the planning run's wall time and ``compile_s`` is absent
 (the record's ``timing`` says so).  ``--mesh single`` is
-``launch/mesh.make_local_mesh()``, the one card; the pod meshes wait
-for the sharded plans (ROADMAP.md, LM queue L6b).  ``--smoke`` plans the
-reduced configs.
+``launch/mesh.make_local_mesh()``, the one card; ``pod`` and
+``multipod`` (``both`` plans each) plan one device's step of the
+sharded plan (``lower_cell`` over a fake process group of 256 or 512
+ranks, started and destroyed in the planning process) and write
+``<arch>__<shape>__<mesh>.json`` with the collectives the step issued
+priced by the reference's ring model.  Sharded plans cover the dense
+family; another family's cell fails naming ROADMAP.md's L6b-2.
+``--smoke`` plans the reduced configs.
 
 A graph program (``core/dryrun.py``) writes
 ``graph-<program>__<graph>__<mesh>.json``.  ``--measure P`` also
@@ -57,8 +64,9 @@ def _mesh(mesh_name: str):
 
 def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir, *,
              impl: str = "chunked", cfg=None) -> dict:
-    """Plan one (arch x shape) cell on ``mesh_name`` (``single``; a pod
-    mesh raises the L6b error), print its memory and roofline terms, and
+    """Plan one (arch x shape) cell on ``mesh_name`` (``single``, ``pod``
+    or ``multipod``; at a pod mesh a family other than the dense one
+    raises the L6b-2 error), print its memory and roofline terms, and
     write its record to ``out_dir``.  ``cfg`` overrides the registry's
     configuration of ``arch``."""
     from repro_torch.configs.registry import get_arch, get_shape
@@ -242,17 +250,13 @@ def main() -> None:
     if args.arch is None:
         ap.error("give --arch (an arch or all) or --graph")
     mesh = args.mesh or "single"
-    if mesh != "single":
-        raise NotImplementedError(
-            f"--mesh {mesh}: the LM dry-run plans one card (--mesh single);"
-            " the production meshes need the sharded plans of ROADMAP.md, "
-            "LM queue L6b (param_shardings, cache_shardings, "
-            "batch_shardings, actctx)")
     from repro_torch.configs.registry import ARCHS
     archs = list(ARCHS) if args.arch == "all" else args.arch.split(",")
     shapes = "all" if args.shape == "all" else args.shape.split(",")
-    recs = run_arch_dryrun(archs, shapes, mesh, args.out, impl=args.impl,
-                           smoke=args.smoke, jobs=args.jobs)
+    recs = []
+    for m in (["pod", "multipod"] if mesh == "both" else [mesh]):
+        recs += run_arch_dryrun(archs, shapes, m, args.out, impl=args.impl,
+                                smoke=args.smoke, jobs=args.jobs)
     failures = [r for r in recs if r["status"] != "ok"]
     if failures:
         print(f"\n{len(failures)} FAILURES:")

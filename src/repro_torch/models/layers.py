@@ -15,13 +15,26 @@ Attention has three implementations:
 
 Parameters are dicts of tensors (an ``nn.ParameterDict`` in the model).
 Every function keeps the reference's layouts and its cast points.
+
+Under a sharding policy (``distributed/actctx.py``) the tensors are
+DTensors: ``constrain`` pins q, k, v and the attention output to the
+"heads" layout and the MLP's hidden activations to "ffn", at the
+reference's sites, and attention runs on each rank's own (batch, heads)
+slice (``actctx.per_shard``), which needs no collective: on a card each
+rank launches the kernel on its ``(B/d * H/m, S, D)`` slice.  Where the
+reference lets GSPMD reshard, the port says so: a block's input is
+pinned to the "batch" layout (the sequence whole) before its
+projections.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import actctx as A
 from repro_torch.kernels.flash_attention.ops import flash_attention, \
     flash_attention_kernel
 from repro_torch.models.params import spec
@@ -298,6 +311,29 @@ def flash_attention_train(q, k, v, *, causal, window, softcap,
 
 
 # ---------------------------------------------------------------------------
+# Projections
+# ---------------------------------------------------------------------------
+def contract(eq: str, a, b):
+    """``torch.einsum(eq, a, b)`` for the model's projections, written as
+    a ``matmul`` of explicit reshapes, each merging dims with the split
+    one outermost (torch 2.11's DTensor refuses the views einsum makes
+    when it orders a split dim inner).  Raises on any other equation."""
+    if eq == "bsd,dhe->bshe":
+        d, h, e = b.shape
+        return torch.matmul(a, b.reshape(d, h * e)).reshape(
+            *a.shape[:2], h, e)
+    if eq == "bshe,hed->bsd":
+        h, e, d = b.shape
+        return torch.matmul(a.reshape(*a.shape[:2], h * e),
+                            b.reshape(h * e, d))
+    if eq in ("bsd,df->bsf", "bsf,fd->bsd", "bsd,dv->bsv"):
+        return torch.matmul(a, b)
+    if eq == "bsd,vd->bsv":
+        return torch.matmul(a, b.t())
+    raise ValueError(f"contract: no product for {eq!r}")
+
+
+# ---------------------------------------------------------------------------
 # GQA attention block (projections + rope + core)
 # ---------------------------------------------------------------------------
 def attn_spec(cfg):
@@ -318,9 +354,9 @@ def attn_spec(cfg):
 
 def attn_qkv(p, x, cfg, positions):
     """Project and rope. Returns q (B,S,H,D), k/v (B,S,KH,D) (unrepeated)."""
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhe->bshe", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhe->bshe", x, p["wv"].to(x.dtype))
+    q = contract("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
+    k = contract("bsd,dhe->bshe", x, p["wk"].to(x.dtype))
+    v = contract("bsd,dhe->bshe", x, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -331,15 +367,23 @@ def attn_qkv(p, x, cfg, positions):
 
 
 def repeat_kv(k, groups: int):
-    """(B, S, KH, D) -> (B, S, KH*G, D)."""
+    """(B, S, KH, D) -> (B, S, KH*G, D).  On a DTensor each rank repeats
+    its own heads (an even split of KH is an even split of KH*G, in the
+    same order); an uneven split is gathered first."""
     if groups == 1:
         return k
-    return torch.repeat_interleave(k, groups, dim=2)
+    if A.is_dtensor(k):
+        n = math.prod(k.device_mesh.size(i)
+                      for i, p in enumerate(k.placements) if p.is_shard(2))
+        if k.shape[2] % n:
+            k = A.unsplit(k, 2)
+    return A.per_shard(lambda t: torch.repeat_interleave(t, groups, dim=2),
+                       k)
 
 
 def attn_out(p, o, x_dtype):
     """o: (B, S, H, D) -> (B, S, d_model)."""
-    return torch.einsum("bshe,hed->bsd", o, p["wo"].to(x_dtype))
+    return contract("bshe,hed->bsd", o, p["wo"].to(x_dtype))
 
 
 def attention_block(p, x, cfg, *, positions, causal=True, window=0,
@@ -353,33 +397,42 @@ def attention_block(p, x, cfg, *, positions, causal=True, window=0,
     the decode cache.
     """
     g = cfg.num_heads // cfg.num_kv_heads
+    # the sequence whole on each rank before the projections (Megatron
+    # sequence parallelism's all-gather; DTensor does not do it itself)
+    x = A.constrain(x, "batch")
     if kv is None:
         q, k, v = attn_qkv(p, x, cfg, positions)
         k_pos = positions
     else:
-        q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
-        k = torch.einsum("bsd,dhe->bshe", kv, p["wk"].to(kv.dtype))
-        v = torch.einsum("bsd,dhe->bshe", kv, p["wv"].to(kv.dtype))
+        q = contract("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
+        k = contract("bsd,dhe->bshe", kv, p["wk"].to(kv.dtype))
+        v = contract("bsd,dhe->bshe", kv, p["wv"].to(kv.dtype))
         k_pos = (kv_positions if kv_positions is not None
                  else torch.arange(kv.shape[1], device=kv.device))
         causal, window = False, 0
     train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                          or v.requires_grad)
-    # positions are arange in every full-sequence path
-    if impl == "plain" or (impl == "chunked" and train):
-        # the chunk sizes attention_block gives the reference's VJP
-        o = flash_attention_train(q, repeat_kv(k, g), repeat_kv(v, g),
-                                  causal=causal, window=window,
-                                  softcap=cfg.attn_logit_softcap,
-                                  plain=impl == "plain")
-    elif impl == "chunked":
-        o = flash_attention(q, repeat_kv(k, g), repeat_kv(v, g),
-                            causal=causal, window=window,
-                            softcap=cfg.attn_logit_softcap)
-    else:
-        o = attention_naive(q, repeat_kv(k, g), repeat_kv(v, g),
-                            q_pos=positions, k_pos=k_pos, causal=causal,
-                            window=window, softcap=cfg.attn_logit_softcap)
+
+    def route(q, k, v):
+        # positions are arange in every full-sequence path
+        if impl == "plain" or (impl == "chunked" and train):
+            # the chunk sizes attention_block gives the reference's VJP
+            return flash_attention_train(q, k, v, causal=causal,
+                                         window=window,
+                                         softcap=cfg.attn_logit_softcap,
+                                         plain=impl == "plain")
+        if impl == "chunked":
+            return flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=cfg.attn_logit_softcap)
+        return attention_naive(q, k, v, q_pos=positions, k_pos=k_pos,
+                               causal=causal, window=window,
+                               softcap=cfg.attn_logit_softcap)
+
+    # pin the head-parallel layout: (B,S,H,D) with H over "model"
+    qf = A.constrain(q, "heads")
+    kf = A.constrain(repeat_kv(k, g), "heads")
+    vf = A.constrain(repeat_kv(v, g), "heads")
+    o = A.constrain(A.per_shard(route, qf, kf, vf), "heads")
     return attn_out(p, o, x.dtype), (k, v)
 
 
@@ -409,10 +462,13 @@ def mlp_spec(cfg):
 
 
 def apply_mlp(p, x, cfg):
-    h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
+    x = A.constrain(x, "batch")     # as in attention_block
+    h = A.constrain(contract("bsd,df->bsf", x, p["wi"].to(x.dtype)),
+                    "ffn")
     if cfg.act == "swiglu":
-        g = torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))
+        g = A.constrain(contract("bsd,df->bsf", x,
+                                     p["wg"].to(x.dtype)), "ffn")
         h = silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+    return contract("bsf,fd->bsd", h, p["wo"].to(x.dtype))

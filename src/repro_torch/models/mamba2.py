@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import actctx
 from repro_torch.models.layers import silu
 from repro_torch.models.params import spec
 
@@ -143,7 +144,11 @@ def mamba2_block(p, x, cfg, *, h0=None, conv0=None, return_state=False):
     di, n, g = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups
     nh, hd = cfg.ssm_nheads, cfg.ssm_head_dim
 
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
+    # the reference's "ffn" site; sharded execution of this family is
+    # ROADMAP.md's L6b-2, so it is the identity on every path run today
+    x = actctx.constrain(x, "batch")
+    zxbcdt = actctx.constrain(
+        torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype)), "ffn")
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * g * n, nh], dim=-1)
 
     w, b = p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype)

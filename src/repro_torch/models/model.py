@@ -22,6 +22,14 @@ Three entry points:
                   optimizer see), blocks rematerialised; every family
   forward_prefill full-sequence forward that also builds the KV/SSM cache
   forward_decode  single-token step against the cache
+
+On DTensor parameters (a sharded step, ``launch/steps.py``) each layer
+gathers its weights' data-axis shards at its use (``actctx.gather``:
+inside the remat boundary, so the recompute gathers again), the
+residual stream is pinned to the policy's "resid" layout around every
+layer (outside the remat boundary, as the reference), and a decode step
+writes its new key and value on the rank whose cache shard holds
+``pos``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import actctx as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -219,16 +228,18 @@ class Transformer(nn.Module):
 # Block bodies (full-sequence mode)
 # ---------------------------------------------------------------------------
 def _attn_body(bp, x, cfg, seg: Segment, positions, impl, memory=None):
+    # each sub-block's output pinned to the residual's layout before the
+    # add (on DTensors: its partial sums reduce-scattered there)
     h = L.apply_norm(bp.ln1, x, cfg.norm)
     a, kv = L.attention_block(bp.attn, h, cfg, positions=positions,
                               causal=seg.causal, window=seg.window, impl=impl)
-    x = x + a
+    x = x + A.constrain(a, "resid")
     extras = {"k": kv[0], "v": kv[1]}
     if seg.kind == "xattn":
         h = L.apply_norm(bp.lnx, x, cfg.norm)
         a, xkv = L.attention_block(bp.xattn, h, cfg, positions=positions,
                                    impl=impl, kv=memory)
-        x = x + a
+        x = x + A.constrain(a, "resid")
         extras.update({"xk": xkv[0], "xv": xkv[1]})
     h = L.apply_norm(bp.ln2, x, cfg.norm)
     aux = {}
@@ -236,7 +247,23 @@ def _attn_body(bp, x, cfg, seg: Segment, positions, impl, memory=None):
         m, aux = MOE.apply_moe(bp.moe, h, cfg)
     else:
         m = L.apply_mlp(bp.mlp, h, cfg)
-    return x + m, extras, aux
+    return x + A.constrain(m, "resid"), extras, aux
+
+
+def _gathered(bp):
+    """A block's parameters at their use: ``bp`` itself on plain
+    tensors; on DTensors a namespace of its dicts with each weight's
+    data-axis shards gathered (``actctx.gather``)."""
+    if isinstance(bp, SimpleNamespace):
+        tree = vars(bp)
+        first = next(iter(next(iter(tree.values())).values()))
+    else:
+        first = next(bp.parameters())
+    if not A.is_dtensor(first):
+        return bp
+    if not isinstance(bp, SimpleNamespace):
+        tree = {name: dict(sub.items()) for name, sub in bp.named_children()}
+    return SimpleNamespace(**A.gather_tree(tree))
 
 
 def _mamba_body(bp, x, cfg, return_state=True):
@@ -264,25 +291,34 @@ def _run_segments(params: Transformer, cfg, x, positions, *, impl,
     caches = []
     for seg, blocks in zip(params.plan, params.segments):
         if seg.kind == "shared_attn":
-            x, extras, _ = _attn_body(params.shared, x, cfg, seg,
+            x, extras, _ = _attn_body(_gathered(params.shared), x, cfg, seg,
                                       positions, impl)
             caches.append(extras)
             continue
         per_layer = []
         for bp in blocks:
+            x = A.constrain(x, "resid")
             if seg.kind == "mamba":
-                x, extras = _mamba_body(bp, x, cfg)
+                x, extras = _mamba_body(_gathered(bp), x, cfg)
             else:
-                x, extras, _ = _attn_body(bp, x, cfg, seg, positions,
-                                          impl, memory=memory)
+                x, extras, _ = _attn_body(_gathered(bp), x, cfg, seg,
+                                          positions, impl, memory=memory)
+            x = A.constrain(x, "resid")
             per_layer.append(_clip_cache(extras, seg))
         caches.append({name: torch.stack([e[name] for e in per_layer])
                        for name in per_layer[0]})
     return x, caches
 
 
+def _lookup(w, tokens):
+    """Rows ``tokens`` of the table ``w``: an embedding lookup, which on a
+    DTensor table (its vocab split over "model") each rank does on its
+    own rows and sums, where indexing would gather the whole table."""
+    return torch.nn.functional.embedding(tokens.long(), w)
+
+
 def _embed(params: Transformer, cfg, tokens, extras=None):
-    x = params.embed[tokens].to(torch.bfloat16)
+    x = _lookup(A.gather(params.embed), tokens).to(torch.bfloat16)
     if cfg.family == "dense" and cfg.global_every > 0:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)  # gemma
     if cfg.family == "vlm" and extras is not None and "vis_embeds" in extras:
@@ -305,8 +341,10 @@ def _encode_audio(params: Transformer, cfg, enc_embeds, impl):
 def _logits(params: Transformer, cfg, x):
     x = L.apply_norm(params.final_norm, x, cfg.norm)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params.embed.to(x.dtype))
-    return torch.einsum("bsd,dv->bsv", x, params.lm_head.to(x.dtype))
+        return L.contract("bsd,vd->bsv", x,
+                          A.gather(params.embed).to(x.dtype))
+    return L.contract("bsd,dv->bsv", x,
+                      A.gather(params.lm_head).to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +359,9 @@ def _layer_view(seg_tree: dict, i: int) -> SimpleNamespace:
 
 def _train_block(x, lp, cfg, seg: Segment, positions, impl, memory):
     """One layer of the training forward: its new residual and its aux
-    dict (the MoE's losses, else empty)."""
+    dict (the MoE's losses, else empty).  The layer's weights are
+    gathered here, inside the remat boundary."""
+    lp = _gathered(lp)
     if seg.kind == "mamba":
         return _mamba_body(lp, x, cfg, return_state=False), {}
     x, _, aux = _attn_body(lp, x, cfg, seg, positions, impl, memory=memory)
@@ -357,11 +397,15 @@ def _train_segments(params: dict, cfg, x, positions, *, impl, remat,
         else None
     for seg, seg_tree in zip(build_plan(cfg), params["segments"]):
         if seg.kind == "shared_attn":
-            x = _attn_body(shared, x, cfg, seg, positions, impl)[0]
+            x = _attn_body(_gathered(shared), x, cfg, seg, positions,
+                           impl)[0]
             continue
         for i in range(seg.count):
+            # constraints outside the remat boundary, as the reference's
+            x = A.constrain(x, "resid")
             x, aux = _run_layer(remat, x, _layer_view(seg_tree, i), cfg, seg,
                                 positions, impl, memory)
+            x = A.constrain(x, "resid")
             aux_tot = {k: v + aux.get(k, 0.0) for k, v in aux_tot.items()}
     return x, aux_tot
 
@@ -380,11 +424,13 @@ def _encode_audio_train(params: dict, cfg, enc_embeds, impl, remat):
 
 
 def _ce_chunk(xx, tt, ww, w, tied: bool):
-    """One chunk's summed next-token CE: bf16 logits, f32 log-softmax."""
+    """One chunk's summed next-token CE: bf16 logits, f32 log-softmax
+    (on DTensors over the whole vocab: its shards are gathered first)."""
     if tied:
-        lg = torch.einsum("bsd,vd->bsv", xx, w.to(xx.dtype)).float()
+        lg = L.contract("bsd,vd->bsv", xx, w.to(xx.dtype)).float()
     else:
-        lg = torch.einsum("bsd,dv->bsv", xx, w.to(xx.dtype)).float()
+        lg = L.contract("bsd,dv->bsv", xx, w.to(xx.dtype)).float()
+    lg = A.unsplit(lg, 2)
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, tt[..., None].long())[..., 0]
     return ((logz - gold) * ww).sum()
@@ -397,14 +443,15 @@ def _chunked_ce(params: dict, cfg, x, tokens, vis: int, chunk: int = 512):
     position masked, and each chunk's body recomputed in the backward
     (``torch.utils.checkpoint``, the role of ``jax.checkpoint``) so the
     (B, S, V) f32 logits are never held whole."""
-    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    x = A.constrain(L.apply_norm(params["final_norm"], x, cfg.norm), "batch")
     xt = x[:, vis:, :]
-    tgt = torch.roll(tokens, -1, dims=1)          # last is garbage
+    # last is garbage; a DTensor's rows roll on their own rank
+    tgt = A.per_shard(lambda t: torch.roll(t, -1, dims=1), tokens)
     B, S, _ = xt.shape
     c = L._pick_chunk(S, chunk)
     wc = (torch.arange(S, device=x.device) < S - 1).float()
     tied = cfg.tie_embeddings
-    w = params["embed"] if tied else params["lm_head"]
+    w = A.gather(params["embed"] if tied else params["lm_head"])
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(S // c):
         sl = slice(i * c, (i + 1) * c)
@@ -434,13 +481,14 @@ def forward_train(params: dict, cfg: ModelConfig, batch, *, impl="chunked",
     if cfg.family == "audio":
         memory = _encode_audio_train(params, cfg, batch["enc_embeds"], impl,
                                      remat)
-    x = params["embed"].to(torch.bfloat16)[tokens.long()]
+    x = _lookup(A.gather(params["embed"]).to(torch.bfloat16), tokens.long())
     if cfg.family == "dense" and cfg.global_every > 0:  # gemma scaling
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     vis = 0
     if cfg.family == "vlm":
         x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
         vis = cfg.vision_tokens
+    x = A.constrain(x, "resid")
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _train_segments(params, cfg, x, positions, impl=impl,
                              remat=remat, memory=memory)
@@ -523,6 +571,44 @@ def init_cache(cfg: ModelConfig, batch: int, ctx_len: int,
     return {"segments": segs, "pos": 0}
 
 
+def _row_layout(buf, new):
+    """``new`` (B, 1, KH, D) laid out as the rows of the cache buffer
+    ``buf`` (B, W, KH, D) are, its slot axis unsplit."""
+    return new.to(buf.dtype).redistribute(
+        buf.device_mesh, A.unsplit(buf, 1).placements)
+
+
+def _cache_write(buf, new, pos: int):
+    """Write ``new`` (B, 1, KH, D) into slot ``pos`` of ``buf``.  On a
+    DTensor buffer (its slots split over mesh axes) the rank whose shard
+    holds ``pos`` writes its rows into its own shard."""
+    if not A.is_dtensor(buf):
+        buf[:, pos] = new[:, 0].to(buf.dtype)
+        return
+    local, rows = buf.to_local(), _row_layout(buf, new).to_local()
+    start = 0
+    for i, p in enumerate(buf.placements):
+        if p.is_shard(1):
+            start = start * buf.device_mesh.size(i) \
+                + buf.device_mesh.get_local_rank(i)
+    start *= local.shape[1]
+    if start <= pos < start + local.shape[1]:
+        local[:, pos - start] = rows[:, 0]
+
+
+def _cache_shift(buf, new):
+    """Shift the window buffer ``buf`` one slot left and put ``new`` in
+    its last slot; a DTensor buffer is shifted whole and each rank keeps
+    its own shard of the result."""
+    if not A.is_dtensor(buf):
+        buf.copy_(torch.cat([buf[:, 1:], new.to(buf.dtype)], dim=1))
+        return
+    full = A.unsplit(buf, 1)
+    out = torch.cat([full[:, 1:], _row_layout(buf, new)], dim=1)
+    buf.to_local().copy_(
+        out.redistribute(buf.device_mesh, buf.placements).to_local())
+
+
 def _decode_attn(bp, x, cfg, seg: Segment, pos: int, ck, cv):
     """One decode step of an attention block against its cache.  Writes
     the new k/v into the layer's buffers ``ck``/``cv`` in place."""
@@ -533,19 +619,20 @@ def _decode_attn(bp, x, cfg, seg: Segment, pos: int, ck, cv):
     q, k, v = L.attn_qkv(bp.attn, h, cfg,
                          torch.full((1,), pos, dtype=torch.int32,
                                     device=x.device))
-    q = q.reshape(B, 1, kh, g, cfg.head_dim)
+    # a DTensor's heads whole on each rank: its cache splits the slots
+    q = A.unsplit(q, 2).reshape(B, 1, kh, g, cfg.head_dim)
     W = ck.shape[1]
     if seg.window > 0 and W == seg.window:
         # SWA shift buffer: slot j holds absolute position pos-W+1+j
-        ck.copy_(torch.cat([ck[:, 1:], k.to(ck.dtype)], dim=1))
-        cv.copy_(torch.cat([cv[:, 1:], v.to(cv.dtype)], dim=1))
+        _cache_shift(ck, k)
+        _cache_shift(cv, v)
         k_pos = pos - W + 1 + torch.arange(W, device=x.device)
     else:
         if pos >= W:
             raise ValueError(f"decode position {pos} past the cache's "
                              f"{W} slots")
-        ck[:, pos] = k[:, 0].to(ck.dtype)
-        cv[:, pos] = v[:, 0].to(cv.dtype)
+        _cache_write(ck, k, pos)
+        _cache_write(cv, v, pos)
         k_pos = torch.arange(W, device=x.device)
     valid = (k_pos >= 0) & (k_pos <= pos)
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), ck.float()) \
@@ -566,7 +653,7 @@ def _decode_xattn(bp, x, cfg, xk, xv):
     g = cfg.num_heads // kh
     B = x.shape[0]
     h = L.apply_norm(bp.lnx, x, cfg.norm)
-    q = torch.einsum("bsd,dhe->bshe", h, bp.xattn["wq"].to(h.dtype))
+    q = L.contract("bsd,dhe->bshe", h, bp.xattn["wq"].to(h.dtype))
     q = q.reshape(B, 1, kh, g, cfg.head_dim)
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), xk.float()) \
         * (cfg.head_dim ** -0.5)
@@ -586,17 +673,21 @@ def _decode_mlp(bp, x, cfg, seg: Segment):
 def forward_decode(params: Transformer, cfg: ModelConfig, tokens, cache):
     """One decode step at ``cache["pos"]``. tokens: (B, 1) -> logits
     (B, 1, V), and the cache with ``pos + 1``; its buffers are updated in
-    place."""
+    place.  On DTensor parameters the tokens are a DTensor laid out as
+    prefill's (``batch_shardings``)."""
     pos = cache["pos"]
-    x = _embed(params, cfg, tokens)
+    # a DTensor table's lookup is a masked partial sum, which torch 2.11
+    # can reduce only once: reduced here, onto the batch
+    x = A.scatter_partial(_embed(params, cfg, tokens), 0)
     for seg, blocks, c in zip(params.plan, params.segments,
                               cache["segments"]):
         if seg.kind == "shared_attn":
-            x = _decode_attn(params.shared, x, cfg, seg, pos, c["k"],
-                             c["v"])
-            x = _decode_mlp(params.shared, x, cfg, seg)
+            shared = _gathered(params.shared)
+            x = _decode_attn(shared, x, cfg, seg, pos, c["k"], c["v"])
+            x = _decode_mlp(shared, x, cfg, seg)
             continue
         for li, bp in enumerate(blocks):
+            bp = _gathered(bp)
             if seg.kind == "mamba":
                 h = L.apply_norm(bp.ln, x, "rmsnorm")
                 out, (h_new, conv_new) = M2.mamba2_decode(

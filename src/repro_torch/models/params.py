@@ -8,16 +8,23 @@ stand-ins, which the dry-run plans against.  ``params_from_arrays``
 builds the model from the JAX package's parameter tree, and
 ``params_to_arrays`` gives a model's or a parameter tree's values back
 as that tree, so tests can hold the two against each other on the same
-weights both ways.  The logical axes are kept for the sharding half of
-the reference's ``params.py``, which waits for the multi-card slice
-(ROADMAP.md, L6b).
+weights both ways.
+
+The sharding half resolves the logical axes onto a mesh's axes as the
+reference does (:data:`DEFAULT_RULES`, :func:`resolve_axes`,
+:func:`param_shardings`): each leaf gets a :class:`Sharding`, the
+reference's ``NamedSharding``, which gives its shard shape and the
+DTensor placements of a ``DeviceMesh`` over the same axes.
+:func:`distribute` puts a tree of full tensors (every rank holding the
+same values) onto a ``DeviceMesh`` as DTensors, each rank keeping its
+own shard; on meta tensors it builds a planning run's shards.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -141,3 +148,151 @@ def params_to_arrays(cfg, model):
             "segments": [stacked(blocks) for blocks in enc.segments],
             "final_norm": {k: arr(t) for k, t in enc.final_norm.items()}}
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis -> mesh-axis resolution
+# ---------------------------------------------------------------------------
+
+# The reference's rules for the production 2D/3D mesh: "embed" shards
+# parameters over the data axis (ZeRO-3), the tensor-parallel dims over
+# "model".
+DEFAULT_RULES: dict[str, Optional[str]] = {
+    "embed": "data",        # FSDP axis (ZeRO-3)
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "ffn": "model",
+    "moe_ffn": "data",      # 2-D expert sharding: no weight gathers
+    "experts": "model",     # expert parallelism
+    "ssm_inner": "model",
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "conv": None,
+    "enc_seq": None,
+}
+
+# a dim's entry of a partition spec: unsharded, one mesh axis, or several
+# (major to minor, as ``PartitionSpec(("pod", "data"))``)
+AxisEntry = Union[None, str, tuple]
+
+
+def _entry_axes(entry: AxisEntry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """A tensor's layout on ``mesh`` (``launch/mesh.Mesh``): ``spec`` has
+    one entry per dim, as the reference's ``PartitionSpec`` (trailing
+    dims past its end are unsharded; ``()`` replicates)."""
+
+    mesh: object
+    spec: tuple = ()
+
+    def placements(self) -> list:
+        """DTensor placements over the mesh's axes in order: ``Shard(d)``
+        on each axis that splits dim d, else ``Replicate()``.  An entry of
+        several axes splits its dim by each in turn, major first, as a
+        DTensor does over mesh dims in order."""
+        from torch.distributed.tensor import Replicate, Shard
+        dims = {a: d for d, e in enumerate(self.spec) for a in _entry_axes(e)}
+        return [Shard(dims[a]) if a in dims else Replicate()
+                for a in self.mesh.axis_names]
+
+    def shard_shape(self, shape) -> tuple:
+        """One device's shard of a tensor of ``shape``: each dim over the
+        product of its axes' sizes (which must divide it)."""
+        sizes = self.mesh.shape
+        out = list(shape)
+        for d, e in enumerate(self.spec):
+            n = math.prod(sizes[a] for a in _entry_axes(e))
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                                 f"over {e} ({n})")
+            out[d] //= n
+        return tuple(out)
+
+
+
+def resolve_axes(s: ParamSpec, rules: dict, mesh) -> tuple:
+    """Map logical axes to mesh axes, as the reference does.
+
+    A dim that is not a multiple of its mesh axis's size is replicated
+    (qwen2.5's 40 heads on a 16-wide model axis, say), and a mesh axis
+    appears at most once in the result: a later dim that resolves to it
+    again is replicated."""
+    shape = mesh.shape
+    out = []
+    for dim, name in zip(s.shape, s.axes):
+        mesh_axis = rules.get(name) if name else None
+        if mesh_axis is None or mesh_axis not in shape \
+                or dim % shape[mesh_axis]:
+            out.append(None)
+        else:
+            out.append(mesh_axis)
+    seen: set = set()
+    dedup = []
+    for a in out:
+        dedup.append(None if a in seen else a)
+        if a is not None:
+            seen.add(a)
+    return tuple(dedup)
+
+
+def param_shardings(spec_tree, mesh, rules: Optional[dict] = None):
+    """The :class:`Sharding` tree matching the spec tree."""
+    rules = dict(DEFAULT_RULES if rules is None else rules)
+    return tree_map_specs(
+        lambda s: Sharding(mesh, resolve_axes(s, rules, mesh)), spec_tree)
+
+
+def replicated_sharding(mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def place(t: torch.Tensor, device_mesh, placements):
+    """The full tensor ``t`` (the same on every rank) as a DTensor on
+    ``device_mesh`` with ``placements``: this rank keeps a contiguous
+    copy of its own shard, each mesh dim splitting its tensor dim in
+    turn (major first, as DTensor and the reference's multi-axis
+    entries do); a meta ``t`` gives a meta shard.  Nothing is
+    communicated."""
+    from torch.distributed.tensor import DTensor
+    local = t
+    coords = device_mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            n, d = device_mesh.size(i), p.dim
+            if local.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(t.shape)} does not "
+                                 f"divide over {n} ranks")
+            size = local.shape[d] // n
+            local = local.narrow(d, coords[i] * size, size)
+    # a copy even where the slice is contiguous: a view would keep the
+    # whole tensor's storage alive
+    local = (torch.empty(local.shape, dtype=t.dtype, device="meta")
+             if t.is_meta else local.clone(
+                 memory_format=torch.contiguous_format))
+    return DTensor.from_local(local, device_mesh, list(placements),
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def distribute(tree, shardings, device_mesh):
+    """Each tensor of ``tree`` placed (:func:`place`) on ``device_mesh``
+    by the matching :class:`Sharding` of ``shardings`` (a tree of the
+    same structure, or one Sharding for every leaf).  A non-tensor leaf
+    (a cache's ``pos``) is kept."""
+    from repro_torch.tree import flatten, leaves, unflatten
+    flat, spec = flatten(tree)
+    shs = (leaves(shardings) if not isinstance(shardings, Sharding)
+           else [shardings] * len(flat))
+    if len(shs) != len(flat):
+        raise ValueError(f"{len(shs)} shardings for {len(flat)} leaves")
+    return unflatten(spec, [
+        place(t, device_mesh, sh.placements())
+        if isinstance(t, torch.Tensor) else t for t, sh in zip(flat, shs)])

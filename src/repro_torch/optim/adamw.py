@@ -6,6 +6,9 @@ order and decay mask differ.  The optimizer state is ``(m, v, step)``:
 f32 trees shaped like the parameters and a 0-d int32 step, all on the
 parameters' device.  Every scalar (learning rate, bias corrections,
 norm) stays a device tensor, so a step reads nothing back to the host.
+On DTensor parameters (a sharded step) the update runs on each rank's
+own shards, and the global norm sums each rank's local squares and
+all-reduces them once.
 """
 
 from __future__ import annotations
@@ -47,9 +50,33 @@ def lr_schedule(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
+    flat = leaves(tree)
+    from torch.distributed.tensor import DTensor
+    if flat and isinstance(flat[0], DTensor):
+        return _sharded_norm(flat)
     total = 0
-    for g in leaves(tree):
+    for g in flat:
         total = total + torch.sum(torch.square(g.float()))
+    return torch.sqrt(total)
+
+
+def _sharded_norm(flat) -> torch.Tensor:
+    """The global norm of DTensor leaves: each rank sums the squares of
+    its own shards, a leaf replicated over n ranks weighted 1 / n, and
+    one all-reduce over the whole group adds the ranks' sums.  Returns
+    a plain tensor."""
+    import torch.distributed as dist
+    mesh = flat[0].device_mesh
+    total = 0
+    for g in flat:
+        reps = 1
+        for i, p in enumerate(g.placements):
+            if not p.is_shard():
+                reps *= mesh.size(i)
+        total = total + torch.sum(torch.square(g.to_local().float())) / reps
+    c10d = torch.ops._c10d_functional
+    total = c10d.wait_tensor(c10d.all_reduce(total, "sum",
+                                             dist.group.WORLD.group_name))
     return torch.sqrt(total)
 
 

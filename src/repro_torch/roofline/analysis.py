@@ -11,8 +11,10 @@ The JAX package reads FLOPs and bytes from a compiled XLA artifact and
 parses its HLO for the collectives.  The port has no HLO: FLOPs and
 bytes come from ``jaxpr_cost.count_fn`` (a count of the torch ops a
 planning run issues) and the collectives from the exchange tallies of
-``core/partitioned.py::StackedComm``, priced with the same ring model
-(:func:`collective_stats`).  Each record carries two sets of terms: the
+``core/partitioned.py::StackedComm`` (graph programs) or from the
+counter's tally of the collectives a sharded LM step issued
+(``Cost.collectives``), priced with the same ring model
+(:func:`collective_stats`, :func:`funcol_stats`).  Each record carries two sets of terms: the
 reference's TPU v5e terms under its keys, and the H100's under
 ``h100``.  The H100 prices a graph program's FLOPs at the f32 CUDA-core
 peak (it runs no tensor-core work); an LM cell's counted matmul FLOPs
@@ -81,6 +83,33 @@ def collective_stats(tally: dict, parts: int) -> dict:
         r, w = _ring(op, float(nbytes), parts)
         counts[name] = counts.get(name, 0.0) + float(calls)
         raw[name] = raw.get(name, 0.0) + r
+        wire[name] = wire.get(name, 0.0) + w
+    return {"counts": counts, "raw_bytes": raw, "wire_bytes": wire,
+            "wire_bytes_f32_upper": sum(wire.values()),
+            "act_wire_bytes": 0.0}
+
+
+# DTensor's functional collectives, as the exchange op of the same ring
+# cost (``_ring``: all-gather's result is g times its input,
+# reduce-scatter's a g-th, the others' their input's size)
+_FUNCOL = {"all_gather_into_tensor": "bcast",
+           "reduce_scatter_tensor": "sum",
+           "all_reduce": "psum",
+           "all_to_all_single": "or"}
+
+
+def funcol_stats(tally: dict) -> dict:
+    """The reference's ``collectives`` record from a sharded plan's tally
+    (``Cost.collectives``: ``(op, group size) -> (input bytes of one
+    rank, calls)``), each op priced by the ring model at its own group
+    size.  Payloads travel in their own dtype (bf16 activations as bf16),
+    so ``act_wire_bytes`` is 0 and the total is the priced wire."""
+    counts, raw, wire = {}, {}, {}
+    for (op, g), (nbytes, calls) in tally.items():
+        name = _COLLECTIVE[_FUNCOL[op]]
+        res, w = _ring(_FUNCOL[op], float(nbytes), g)
+        counts[name] = counts.get(name, 0.0) + float(calls)
+        raw[name] = raw.get(name, 0.0) + res
         wire[name] = wire.get(name, 0.0) + w
     return {"counts": counts, "raw_bytes": raw, "wire_bytes": wire,
             "wire_bytes_f32_upper": sum(wire.values()),
@@ -161,15 +190,18 @@ def analyze(cost, *, arch: str, shape_name: str, mesh_name: str,
             temp_bytes: int) -> Roofline:
     """The reference's ``analyze`` for a planned LM cell: a
     :class:`Roofline` from the counted ``cost`` (``jaxpr_cost.Cost``) of
-    one device's step.  Bytes are the reference's fusion estimate of the
-    graph records, a third of the unfused bytes (``roofline/recost.py``
-    replaces them with its analytic model); no collective runs on one
-    card; the peak is the argument bytes plus the planned temp bytes."""
+    one device's step, on one card or on one device of a sharded plan.
+    Bytes are the reference's fusion estimate of the graph records, a
+    third of the unfused bytes (``roofline/recost.py`` replaces them
+    with its analytic model); the collectives are the plan's tally
+    (none on one card) priced by :func:`funcol_stats`; the peak is the
+    argument bytes plus the planned temp bytes."""
+    coll = funcol_stats(cost.collectives)
     r = Roofline(
         arch=arch, shape=shape_name, mesh=mesh_name, devices=devices,
-        flops_per_device=cost.total_flops / devices,
-        bytes_per_device=cost.bytes_touched / devices / 3.0,
-        collective_wire_bytes=0.0, model_flops_total=model_flops_total,
-        peak_hbm_bytes=float(arg_bytes + temp_bytes),
-        collectives=collective_stats({}, devices))
-    return r.finalize(cost.matmul_flops / devices)
+        flops_per_device=cost.total_flops,
+        bytes_per_device=cost.bytes_touched / 3.0,
+        collective_wire_bytes=coll["wire_bytes_f32_upper"],
+        model_flops_total=model_flops_total,
+        peak_hbm_bytes=float(arg_bytes + temp_bytes), collectives=coll)
+    return r.finalize(cost.matmul_flops)

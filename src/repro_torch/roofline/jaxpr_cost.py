@@ -29,7 +29,16 @@ runs them with the caller's dispatch modes), and under
 holds its forward, its remat recompute and its backward.
 Views (``view``, ``slice``, ``permute``, ``expand`` ...) cost nothing.
 On ``device="meta"`` tensors nothing is allocated or computed, so a
-paper-scale program is counted on a host with no card.  A host read of
+paper-scale program is counted on a host with no card.
+
+On DTensors (a sharded step planned over a fake process group) the
+counter lets DTensor turn each op into the local ops of one rank first,
+and counts those at their local shapes (not the global-shape op that
+DTensor's sharding propagation runs on fake tensors the first time it
+meets an op); the collectives DTensor issues
+(``_c10d_functional`` all-gather, reduce-scatter, all-reduce and
+all-to-all) are tallied in ``Cost.collectives`` by op and group size,
+with the bytes one rank sends into each and the calls.  A host read of
 a meta tensor (``.item()``, ``int()``, ``bool()``) has no value: under
 the counter it reads 0 (``False``, ``0.0``), which a ``static_iters``
 run's halt never reads; a branch on it takes its zero side (bfs/fast
@@ -39,7 +48,7 @@ pushes every level, the costlier direction).
 from __future__ import annotations
 
 import weakref
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -61,6 +70,8 @@ class Cost:
     elementwise_flops: float = 0.0
     bytes_touched: float = 0.0
     peak_live_bytes: float = 0.0
+    # (op, group size) -> [input bytes of one rank, calls]
+    collectives: dict = field(default_factory=dict)
 
     @property
     def total_flops(self) -> float:
@@ -132,9 +143,27 @@ class CostCounter(TorchDispatchMode):
         weakref.finalize(st, self._release, key, st.nbytes())
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _has_dtensor(types):
+            return NotImplemented       # DTensor desugars to local ops first
         kwargs = kwargs or {}
+        if _fake(args):
+            # DTensor's sharding propagation infers an op's global output
+            # on fake tensors (once a distinct op): no rank runs it
+            return func(*args, **kwargs)
         if func is aten._local_scalar_dense.default and args[0].is_meta:
             return _zero(args[0].dtype)
+        op = _collective(func)
+        if op == "wait_tensor":
+            return func(*args, **kwargs)
+        if op is not None:
+            key = (op, _group_size(op, args))
+            tally = self.cost.collectives.setdefault(key, [0, 0])
+            tally[0] += _nbytes(args[0])
+            tally[1] += 1
+            out = func(*args, **kwargs)
+            for t in _tensors(out):
+                self._track(t)
+            return out
         view, kind = _func_info(func)
         if view:
             return func(*args, **kwargs)
@@ -171,6 +200,36 @@ class CostCounter(TorchDispatchMode):
 
 
 _FUNC_INFO: dict = {}
+
+# DTensor's collectives (``_c10d_functional``), and where each takes its
+# process group's name
+_COLLECTIVES = {"all_gather_into_tensor": 2, "reduce_scatter_tensor": 3,
+                "all_reduce": 2, "all_to_all_single": 3}
+
+
+def _has_dtensor(types) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _fake(args) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor) for t in _tensors(args))
+
+
+def _collective(func) -> str | None:
+    """A functional collective's name (``wait_tensor`` included), else
+    None."""
+    ns, _, name = func.name().partition("::")
+    if ns == "_c10d_functional" and (name in _COLLECTIVES
+                                     or name == "wait_tensor"):
+        return name
+    return None
+
+
+def _group_size(op: str, args) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(args[_COLLECTIVES[op]]).size()
 
 
 def _func_info(func) -> tuple[bool, str | None]:

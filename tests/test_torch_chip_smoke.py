@@ -92,8 +92,9 @@ def test_train_families_and_dryrun_lm_phases_rehearse(cs, tmp_path):
         "mamba2-1.3b"}
     assert sorted(cells) == sorted(f"train-families {a}" for a in per_step)
     cli = cs.DryrunCLI(passes=(
-        ("mamba2-1.3b,whisper-small", "decode_32k", 2),
-        ("tinyllama-1.1b", "train_4k", 1)), out_dir=tmp_path / "lm",
+        ("mamba2-1.3b,whisper-small", "decode_32k", "single", 2),
+        ("tinyllama-1.1b", "train_4k", "single", 1),
+        ("tinyllama-1.1b", "train_4k", "pod", 1)), out_dir=tmp_path / "lm",
         smoke=True)
     try:
         dr = cs.run_dryrun_lm(port, cells, "cpu", cli)
@@ -104,8 +105,13 @@ def test_train_families_and_dryrun_lm_phases_rehearse(cs, tmp_path):
         assert c["planned_arg_bytes"] > 0 and c["resident_bytes"] is None
         assert c["planned_peak"] > c["planned_arg_bytes"]
     assert sorted(dr["cli_records"]) == [
-        "mamba2-1.3b__decode_32k", "tinyllama-1.1b__train_4k",
-        "whisper-small__decode_32k"]
+        "mamba2-1.3b__decode_32k__single", "tinyllama-1.1b__train_4k__pod",
+        "tinyllama-1.1b__train_4k__single",
+        "whisper-small__decode_32k__single"]
+    pod = dr["cli_records"]["tinyllama-1.1b__train_4k__pod"]
+    assert pod["arg_bytes_per_device"] == cs.sharded_arg_bytes(
+        port, registry.smoke_config("tinyllama-1.1b"), "train_4k", "pod")
+    assert pod["collective_wire_bytes"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -158,9 +164,10 @@ def test_dist_wait_ranks_checks_every_exit_code(cs):
 
 def test_dist_phase_rehearses(cs, tmp_path, monkeypatch, capsys):
     """``run_dist`` on the CPU at urand 1024 (triangles on 512 vertices):
-    one gloo rank at parts 1 and four at parts 4 (rank processes of
-    chip_smoke.py itself) equal to StackedComm, nothing staged, no
-    kernel launched; compression at the smoke config's shapes."""
+    one gloo rank at parts 1 running every program and four at parts 4
+    (rank processes of chip_smoke.py itself) running DIST_PROGRAMS, each
+    with the guarded runs, equal to StackedComm, nothing staged, no
+    kernel launched; compression at one layer's shapes."""
     monkeypatch.setattr(cs, "DIST_DIR", tmp_path / "dist")
     monkeypatch.setattr(cs, "TRI_N", 512)
     port = cs.Port()
@@ -169,9 +176,36 @@ def test_dist_phase_rehearses(cs, tmp_path, monkeypatch, capsys):
     assert out["by_rank"] == [{"spmv_ell": 0, "bfs_pull": 0}] * 4
     text = capsys.readouterr().out
     assert text.count("[dist] gloo world=1 parts=1 ") == 18
-    assert text.count("[dist] gloo world=4 parts=4 ") == 18
+    assert text.count("[dist] gloo world=4 parts=4 ") == \
+        len(cs.DIST_PROGRAMS) + 2
     assert "bfs/fast chaos" in text and "ok=0" in text
     assert "part_sums equals the one-row sums (cpu)" in text
     assert "ops staged through pinned host memory (gloo on CUDA " \
         "tensors): none" in text
+    assert "bit-equal to the CPU's" in text
     assert "[dist done]" in text and not (tmp_path / "dist").exists()
+
+
+def test_sharded_phase_rehearses(cs, tmp_path, monkeypatch, capsys):
+    """``run_sharded`` on the CPU at the smoke config (2 layers, batch
+    4 x 32, 2 steps): four gloo rank processes of chip_smoke.py on a
+    (2, 2) mesh through ``train(mesh=)`` equal to the one-process run,
+    each rank's flash forwards at its (B/2 * H/2, S, D) slice, its
+    shards' bytes equal to lower_cell's plan, the parameters saved from
+    (2, 2) restored onto (4, 1) equal, grad norms and updates held,
+    prefill and decode on the mesh against one process; nothing staged
+    off the card."""
+    monkeypatch.setattr(cs, "SHARDED_DIR", tmp_path / "sharded")
+    out = cs.run_sharded(cs.Port(), "cpu", layers=2, batch=4, seq=32,
+                         steps=2)
+    assert out == {"launches": 0, "by_rank": [0, 0, 0, 0],
+                   "serve_launches": 0, "serve_by_rank": [0, 0, 0, 0]}
+    text = capsys.readouterr().out
+    assert "flash 8 a rank at (4, 32, 16)" in text
+    assert "staged through pinned host memory (by backend and device): " \
+        "none (cpu)" in text
+    assert "restored onto (4, 1) equal" in text
+    assert "grad norms" in text and "of the one-process update" in text
+    assert "2 decode steps on the mesh" in text
+    assert "flash launches by rank [0, 0, 0, 0]" in text
+    assert "[sharded done]" in text and not (tmp_path / "sharded").exists()

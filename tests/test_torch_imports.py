@@ -56,6 +56,7 @@ def test_sources_import_no_jax_or_reference():
              ("distributed", "fault_tolerance.py"),
              ("distributed", "compression.py"),
              ("distributed", "__init__.py"),
+             ("distributed", "actctx.py"),
              ("models", "moe.py"), ("models", "mamba2.py"),
              ("launch", "mesh.py"), ("roofline", "recost.py"),
              ("models", "params.py"), ("models", "model.py"))} <= set(files)

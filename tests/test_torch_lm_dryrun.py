@@ -212,11 +212,24 @@ def test_lower_cell_args_and_autograd_lifetimes():
     assert no_remat.cost.matmul_flops < remat.cost.matmul_flops
 
 
+NON_DENSE = ("phi3.5-moe-42b-a6.6b", "mamba2-1.3b", "zamba2-7b",
+             "whisper-small", "internvl2-1b")
+
+
 def test_lower_cell_refuses_a_larger_mesh():
-    cfg = smoke_config("tinyllama-1.1b")
-    for mesh in (make_production_mesh(), make_local_mesh(2, 1)):
-        with pytest.raises(NotImplementedError, match="L6"):
-            S.lower_cell(cfg, ShapeConfig("x", "decode", 64, 2), mesh)
+    """At a mesh of more than one device the MoE, SSM, hybrid, audio and
+    vlm families raise naming L6b-2 (their sharded execution); a dense
+    arch plans there."""
+    shape = ShapeConfig("x", "decode", 64, 2)
+    for arch in NON_DENSE:
+        for mesh in (make_production_mesh(), make_local_mesh(2, 1)):
+            with pytest.raises(NotImplementedError, match="L6b-2"):
+                S.lower_cell(smoke_config(arch), shape, mesh)
+    plan, meta = S.lower_cell(smoke_config("tinyllama-1.1b"), shape,
+                              make_local_mesh(2, 1))
+    assert meta["program"] == "serve_step(decode)"
+    assert 0 < plan.arg_bytes < S.lower_cell(
+        smoke_config("tinyllama-1.1b"), shape, make_local_mesh())[0].arg_bytes
 
 
 def _ref_record_keys() -> set:
@@ -286,11 +299,27 @@ def test_h100_prices_lm_matmuls_at_bf16_and_graphs_at_f32():
     assert lm.compute_s == g.compute_s
 
 
-def test_cli_arch_with_pod_mesh_raises_l6(monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "tinyllama-1.1b",
-                                      "--mesh", "pod"])
-    with pytest.raises(NotImplementedError, match="L6"):
-        dryrun.main()
+def test_cli_arch_with_pod_mesh_raises_l6(monkeypatch, tmp_path, capsys):
+    """``--mesh pod``: a non-dense arch's cell fails naming L6b-2 (the
+    CLI records it and exits 1), a dense arch's plans 256 devices."""
+    for arch in NON_DENSE:
+        monkeypatch.setattr(sys, "argv", [
+            "dryrun", "--arch", arch, "--shape", "train_4k", "--smoke",
+            "--mesh", "pod", "--out", str(tmp_path)])
+        with pytest.raises(SystemExit):
+            dryrun.main()
+        rec = json.loads((tmp_path / f"{arch}__train_4k__pod.json")
+                         .read_text())
+        assert rec["status"] == "fail" and "L6b-2" in rec["error"]
+    assert "L6b-2" in capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", [
+        "dryrun", "--arch", "tinyllama-1.1b", "--shape", "decode_32k",
+        "--smoke", "--mesh", "pod", "--out", str(tmp_path)])
+    dryrun.main()
+    rec = json.loads((tmp_path / "tinyllama-1.1b__decode_32k__pod.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["devices"] == 256
+    assert rec["collective_wire_bytes"] > 0
 
 
 def test_cli_smoke_cells_in_worker_processes(tmp_path):
