@@ -54,8 +54,8 @@ against its plain-PyTorch version:
   each layer's forward and its remat recompute; the backward is plain
   torch, as the reference's is plain JAX);
 - LM serving of the other families: ``launch/serve.py::serve`` on
-  phi3.5-moe (depth cut to 8 layers), mamba2-1.3b, zamba2-7b,
-  whisper-small and internvl2-1b at full width (kernel
+  phi3.5-moe (depth cut to 4 layers), mamba2-1.3b (12 of 48), zamba2-7b
+  (13 of 81), whisper-small and internvl2-1b at full width (kernel
   ``flash_attention_fwd`` at each of their attention shapes; none in
   mamba2);
 - LM training of the other families: ``launch/train.py::train`` on
@@ -63,11 +63,13 @@ against its plain-PyTorch version:
   layers), whisper-small and internvl2-1b at full width (kernel
   ``flash_attention_fwd`` with its ``lse`` at their training shapes:
   non-causal, Sq != Sk, head dims 64, 112 and 128; none in mamba2);
-- the sharded LM step: ``launch/train.py::train(mesh=)`` on
-  TinyLlama-1.1B at full width (4 of 22 layers) over a (data 2, model 2)
-  mesh of four gloo ranks sharing the card, DTensor shardings and the
-  train policy (kernel ``flash_attention_fwd`` on every rank, on its own
-  heads);
+- the sharded LM steps: ``launch/train.py::train(mesh=)``, prefill and
+  decode of TinyLlama-1.1B (2 of 22 layers), phi3.5-moe, mamba2-1.3b,
+  zamba2-7b, whisper-small and internvl2-1b at full width (depths cut)
+  over a (data 2, model 2) mesh of four gloo ranks sharing the card,
+  DTensor shardings and the train and inference policies (kernel
+  ``flash_attention_fwd`` on every rank, on its own heads; none in
+  mamba2);
 - the LM dry-run: ``launch/steps.py::lower_cell`` plans, on meta
   tensors, the cells the phases above ran on the card, then
   ``launch/dryrun.py --arch`` plans registry cells on the host, one
@@ -388,37 +390,52 @@ prints no result):
            DTensor issues, each in a one-rank gloo group on a CUDA
            tensor (how each ended is printed; every one is staged
            through pinned host memory whatever it did, by backend and
-           device), and ``lower_cell`` of the step at SHARDED_MESH.
-           Then TinyLlama-1.1B at full width, SHARDED_LAYERS layers,
-           batch SHARDED_BATCH x SHARDED_SEQ, trained SHARDED_STEPS
-           steps by ``train()`` in this process through the kernel and
-           through the plain forward (the bf16 floor); then the same
-           steps by ``train(mesh=)`` on SHARDED_MESH, four gloo ranks
-           sharing the card (``chip_smoke.py --sharded-rank``, a file
-           rendezvous, exit codes checked within SHARDED_TIMEOUT_S;
-           started with the phase, they set up while this process runs
-           and wait for its ``go`` file).
-           Each rank: the bytes its parameter, optimizer and batch
-           shards hold (requested bytes around drawing them, and the
+           device).  Then each of SHARDED_RUNS at full width, depth cut:
+           TinyLlama-1.1B (the dense family) and the MoE, SSM, hybrid,
+           audio and vlm families (phi3.5-moe, mamba2-1.3b, zamba2-7b,
+           whisper-small, internvl2-1b), batch SHARDED_BATCH, trained
+           its steps by ``train()`` in this process through the kernel
+           and through the plain forward (the bf16 floor; mamba2 has no
+           attention and no floor), its prefill and decode through the
+           kernel and naive attention; then the same steps by
+           ``train(mesh=)`` on SHARDED_MESH, four gloo ranks sharing the
+           card (``chip_smoke.py --sharded-rank``, one spawn for every
+           run, a file rendezvous, exit codes checked within
+           SHARDED_TIMEOUT_S; started with the phase, they take each
+           arch once this process has run it, and ``lower_cell`` plans
+           each train step at the mesh while they run; cuBLAS with
+           full-precision reductions on both sides, as in the other LM
+           phases).  Each arch: each rank's parameter, optimizer and
+           batch shards (requested bytes around drawing them, and the
            shards' own bytes) equal to the plan's argument bytes; flash
-           launched layers x 2 x steps times at (B/2 * H/2, S, D);
-           its parameters saved from the mesh and restored onto
-           (4, 1), equal.  The losses within 1e-3 of the one-process
-           run and every leaf within rtol 3e-3 / atol 3e-4 (or twice
-           the floor); what the steps did, by relative norms, which
-           do not shrink with the warmup's learning rates: each step's
-           gradient norm within SHARDED_GNORM_TOL and each leaf's
-           update (trained minus initial) within SHARDED_DELTA_TOL of
-           the one-process update (or twice their floors).  Then each rank runs prefill of
-           the prompt and SHARDED_DECODE decode steps on the mesh under
-           the inference policy from the seeded initial weights (the
-           cache laid out by ``cache_shardings``), flash launched once
-           a layer on every rank, the logits within llm-main's bounds
-           of one process's.  ``[sharded]`` lines: the probes and the
-           ops staged, losses, leaf gaps, grad norms, update gaps, ms a
-           step by rank beside the one-process ms, bytes, planned
-           collectives, the serving logits' gaps; ``[sharded done]``
-           the phase's seconds.
+           launched a train step's calls (``train_flash_calls``) on
+           every rank at (B/2 * H/2, S, D); the losses within 1e-3 of
+           the one-process run and every leaf within rtol 3e-3 / atol
+           3e-4 (or twice the floor); what the steps did, by relative
+           norms, which do not shrink with the warmup's learning rates:
+           each step's gradient norm within SHARDED_GNORM_TOL and each
+           leaf's update (trained minus initial) within
+           SHARDED_DELTA_TOL of the one-process update (or twice their
+           floors); phi3.5-moe with the one-process run's routing
+           replayed on each rank's own groups, since a flipped choice
+           moves its tokens by a whole expert.  TinyLlama's parameters
+           are also saved from the mesh (equal to the ranks' shards) and
+           restored onto (4, 1), equal.  Then prefill and
+           SHARDED_DECODE decode steps on the mesh under the inference
+           policy from the seeded initial weights (the cache the mesh's
+           prefill built, gathered, padded and laid out by
+           ``cache_shardings``), flash launched once a layer's
+           attention call on every rank, the logits against one
+           process's: TinyLlama's within llm-main's bounds, the other
+           families' within [families]' (``family_diff`` against the
+           naive floor), phi3.5-moe's own prefill routing flipping at
+           most SHARDED_FLOOR_FACTOR x the naive-vs-kernel share.
+           ``[sharded]`` lines: the probes and the ops staged, and
+           TinyLlama's; ``[sharded-families]`` lines by family: losses,
+           leaf gaps, grad norms, update gaps, ms a step by rank beside
+           the one-process ms, bytes, planned collectives, peak bytes
+           by rank, the serving logits' gaps; ``[sharded done]`` the
+           phase's seconds.
   dryrun-lm (last) ``lower_cell`` plans on meta tensors each cell the
            card ran: llm-main's prefill, train's 8 x 1024 step, the
            train-families steps and the families' prefills, with the
@@ -446,6 +463,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
@@ -647,13 +665,17 @@ FLASH_EDGES = ((2, 1000, 1000, 64, True, 0, 0.0),
 FLASH_WIDTHS = ((64, 1024, 128), (64, 1024, 120))
 # LM serving of the other families at full width, seeded weights, through
 # launch/serve.py: (arch, batch, prompt, gen, layers kept or None for the
-# full depth).  phi3.5-moe is cut to 8 of its 32 layers: at f32 a layer
+# full depth).  phi3.5-moe is cut to 4 of its 32 layers: at f32 a layer
 # holds 16 x 3 x 4096 x 6400 expert weights (5.0 GB), 32 layers would be
-# 166 GB, 8 are 43 GB.  internvl2's prompt is 768 text tokens after its
-# 256 vision tokens.
-FAMILIES = (("phi3.5-moe-42b-a6.6b", 8, 1024, 16, 8),
-            ("mamba2-1.3b", 8, 1024, 16, None),
-            ("zamba2-7b", 4, 1024, 16, None),
+# 166 GB; 8 layers (43 GB) fit.  The run's time cut phi3.5-moe from 8
+# layers, mamba2 from all 48 to 12 (it trains at full depth in
+# train-families) and zamba2 from all 81 mamba layers to 13 (three
+# shared-block calls): at full depth the two took about 87 s more of a
+# run that reached 1,248 s on a slower host (PERF.md).  internvl2's
+# prompt is 768 text tokens after its 256 vision tokens.
+FAMILIES = (("phi3.5-moe-42b-a6.6b", 8, 1024, 16, 4),
+            ("mamba2-1.3b", 8, 1024, 16, 12),
+            ("zamba2-7b", 4, 1024, 16, 13),
             ("whisper-small", 8, 256, 16, None),
             ("internvl2-1b", 8, 768, 16, None))
 # decode against prefill: prefill FAMILY_PREFIX tokens, decode
@@ -662,8 +684,8 @@ FAMILIES = (("phi3.5-moe-42b-a6.6b", 8, 1024, 16, 8),
 # of 256: min(256, S) divides S)
 FAMILY_PREFIX, FAMILY_STEPS = 240, 16
 # The families' logit checks hold the kernel path against impl="plain"
-# and decode against prefill.  At these depths (8 MoE layers with
-# logits up to 7; 48 and 81 mamba layers) two paths that differ only in
+# and decode against prefill.  At these depths (MoE layers with
+# logits up to 7; 12 and 13 mamba layers) two paths that differ only in
 # bf16 rounding points differ by several ulps of the logits, so each
 # bound is the larger of TinyLlama's (LOGIT_MAX_TOL / LOGIT_MEAN_TOL,
 # scaled to the logits' binade: logit_tols) and FAMILY_FLOOR_FACTOR
@@ -713,7 +735,7 @@ DRYRUN_LM_PASSES = (
     ("tinyllama-1.1b", "train_4k", "pod", 1),
     ("tinyllama-1.1b", "train_4k", "multipod", 1))
 DRYRUN_LM_DIR = HERE / "build" / "dryrun_lm"
-# the sharded LM step: TinyLlama-1.1B at full width, depth cut, on a
+# the sharded LM steps: each family at full width, depth cut, on a
 # (data 2, model 2) mesh of gloo ranks sharing the card (NCCL takes a
 # card a rank), DTensor shardings and the train policy; held against the
 # same seeded steps in one process within tests/test_system.py's
@@ -726,19 +748,36 @@ DRYRUN_LM_DIR = HERE / "build" / "dryrun_lm"
 # within tests/test_torch_sharded_train.py's bounds or twice the floor
 SHARDED_DIR = HERE / "build" / "sharded"
 SHARDED_MESH = (2, 2)
-SHARDED_LAYERS = 4       # of TinyLlama's 22
-SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 4, 1024, 3
-SHARDED_TIMEOUT_S = 420  # a rank still running then fails the phase
+SHARDED_TIMEOUT_S = 600  # a rank still running then fails the phase
 SHARDED_PROBE_S = 120
 SHARDED_LOSS_TOL = 1e-3
 SHARDED_RTOL, SHARDED_ATOL = 3e-3, 3e-4
 SHARDED_GNORM_TOL, SHARDED_DELTA_TOL = 5e-4, 0.3
 SHARDED_FLOOR_FACTOR = 2.0
 # then prefill and decode on the mesh under the inference policy: the
-# prompt's last logits and SHARDED_DECODE steps on a cache of SHARDED_SEQ
-# + SHARDED_CTX_PAD positions laid out by cache_shardings, against one
-# process within llm-main's logit bounds
+# prompt's last logits and SHARDED_DECODE steps on a cache of the prompt
+# and SHARDED_CTX_PAD more positions, laid out by cache_shardings
 SHARDED_DECODE, SHARDED_CTX_PAD = 2, 64
+# (arch, layers kept, text tokens, steps) at batch SHARDED_BATCH, one
+# spawn of rank processes for them all.  TinyLlama keeps 2 of its 22
+# layers (cut from 4 for the run's time) and trains 3 steps, its
+# parameters also saved from the mesh and restored onto (4, 1).  The
+# other families ([sharded-families] lines) take 2 steps of one layer of
+# each kind, by time: a rank's step is mostly DTensor's dispatch and
+# staged collectives, a few seconds a layer and step at full width
+# (PERF.md): phi3.5-moe 1 of 32 (its one-process state is 44 GB, so the
+# ranks draw theirs after it is freed), mamba2 1 of 48, zamba2 1 of 81
+# mamba layers after one shared-block call, whisper 1 + 1 of 12 + 12,
+# internvl2 1 of 24 after its 256 vision tokens.  The ranks take each
+# arch as soon as this process has run it (go_<arch>), the smallest
+# first, so that they work while this process runs the MoE
+SHARDED_RUNS = (("tinyllama-1.1b", 2, 1024, 3),
+                ("whisper-small", 1, 256, 2),
+                ("phi3.5-moe-42b-a6.6b", 1, 1024, 2),
+                ("mamba2-1.3b", 1, 1024, 2),
+                ("zamba2-7b", 1, 1024, 2),
+                ("internvl2-1b", 1, 768, 2))
+SHARDED_BATCH = 4
 DRYRUN_LM_WAIT_S = 300   # a CLI pass still running then fails the phase
 
 
@@ -5181,7 +5220,7 @@ def run_train_families(port: Port, device, families=TRAIN_FAMILIES,
 
 
 # ---------------------------------------------------------------------------
-# the sharded LM step: DTensor plans over gloo ranks sharing the card
+# the sharded LM steps: DTensor plans over gloo ranks sharing the card
 # ---------------------------------------------------------------------------
 
 def gloo_probe_main(op: str, d: Path) -> int:
@@ -5236,116 +5275,6 @@ def gloo_probe_results(procs: dict) -> dict:
     return out
 
 
-def sharded_rank_main(rank: int, d: Path) -> int:
-    """One rank of the [sharded] phase (``chip_smoke.py --sharded-rank
-    R``), set up and then waiting for the parent's ``go`` file: the
-    parameter, optimizer and batch bytes this rank holds once
-    ``build_state`` and the batch's shard are drawn (requested bytes of
-    the caching allocator around them, and the local shards' bytes);
-    then ``launch/train.py::train`` on the job's mesh, the flash
-    wrapper's calls recorded by shape; then the trained parameters saved
-    from this mesh and restored onto (world, 1), each leaf compared with
-    the saved one; then prefill and decode on the mesh from the seeded
-    initial weights (:func:`sharded_serve`), launches counted around
-    them.  Writes ``rank{R}.json``, and rank 0 the logits to
-    ``serve.pt``."""
-    port = Port()
-    torch, st, tr, P = port.torch, port.train_steps, port.trainer, \
-        port.params
-    import torch.distributed as dist
-    job = json.loads((d / "job.json").read_text())
-    device = torch.device(job["device"])
-    cfg = port.ModelConfig(**job["cfg"])
-    mesh = port.mesh.make_local_mesh(*job["mesh"])
-    world = mesh.size
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dist.init_process_group("gloo", init_method=f"file://{d}/rdzv",
-                            rank=rank, world_size=world)
-    try:
-        while not (d / "go").exists():   # the parent's own runs come first
-            time.sleep(0.05)
-        tc = port.TrainConfig(**job["tc"])
-        spec = port.models.param_spec(cfg)
-        dm = port.mesh.device_mesh(mesh, device.type)
-        sh = P.param_shardings(spec, mesh)
-        shape = port.ShapeConfig("sharded", "train", job["seq"],
-                                 job["batch"])
-        before = requested_bytes(torch, device)
-        params, opt = tr.build_state(cfg, tc, device, sh, dm)
-        full = tr.next_batch(port.TokenStream(
-            global_batch=job["batch"], seq_len=job["seq"],
-            vocab_size=cfg.vocab_size, seed=tc.seed), cfg, tc, device)
-        b = P.distribute(full, st.batch_shardings(cfg, shape, mesh, full), dm)
-        del full
-        resident = None if before is None \
-            else requested_bytes(torch, device) - before
-        local = sum(st.tree_bytes(t) for t in (params, opt, b))
-        del params, opt, b
-
-        # each flash forward's (B*H, S, D): the wrapper's calls on the
-        # card, the plain forward FlashAttention runs on CPU tensors
-        shapes = []
-        mod, name = (port.flash_ops, "flash_attention_fwd") \
-            if device.type == "cuda" else (port.model_layers,
-                                           "_flash_fwd_impl")
-        orig = getattr(mod, name)
-
-        def record(q, k, v, **kw):
-            shapes.append(tuple(q.shape) if q.dim() == 3 else
-                          (q.shape[0] * q.shape[2], q.shape[1], q.shape[3]))
-            return orig(q, k, v, **kw)
-
-        setattr(mod, name, record)
-        port.reset_launches()
-        hist = []
-        t0 = time.perf_counter()
-        try:
-            params, opt, _ = tr.train(
-                cfg, tc, batch=job["batch"], seq=job["seq"],
-                steps=job["steps"], device=device, mesh=mesh, resume=False,
-                log_every=job["steps"], history=hist)
-        finally:
-            setattr(mod, name, orig)
-        train_s = time.perf_counter() - t0
-        launches = port.launches()
-        del opt
-
-        # elastic: saved from this mesh, restored onto (world, 1)
-        staged = port.actctx.staged_backend("gloo", device.type)
-        with port.actctx.StagedCollectives() if staged \
-                else contextlib.nullcontext():
-            t0 = time.perf_counter()
-            port.checkpoint.save(d / "ckpt", job["steps"], params)
-            save_s = time.perf_counter() - t0
-            other = port.mesh.make_local_mesh(world, 1)
-            t0 = time.perf_counter()
-            back = port.checkpoint.restore(d / "ckpt", job["steps"], params,
-                                           P.param_shardings(spec, other))
-            restore_s = time.perf_counter() - t0
-            equal = True
-            for a, r in zip(port.tree.leaves(params), port.tree.leaves(back)):
-                equal &= bool(torch.equal(a.full_tensor(), r.full_tensor()))
-            layout = [str(x.placements) for x in port.tree.leaves(back)[:2]]
-        del params, back
-        serve = sharded_serve(port, cfg, tc, mesh, dm, shape, device, staged)
-        logits = serve.pop("logits")
-        if rank == 0:
-            torch.save(logits, d / "serve.pt")
-        out = {"rank": rank, "resident": resident, "local_bytes": local,
-               "launches": launches, "flash_shapes": sorted(set(shapes)),
-               "flash_calls": len(shapes),
-               "steps": [h for h in hist if "step" in h],
-               "staged": next((h["staged"] for h in hist if "staged" in h),
-                              {}),
-               "train_s": train_s, "save_s": save_s,
-               "restore_s": restore_s, "restored_equal": equal,
-               "restored_layout": layout, "serve": serve}
-        (d / f"rank{rank}.json").write_text(json.dumps(out))
-    finally:
-        dist.destroy_process_group()
-    return 0
-
-
 def sharded_prompt(port: Port, cfg, batch: int, seq: int, device):
     """The [sharded] phase's (batch, seq + SHARDED_DECODE) tokens: a
     prompt of ``seq`` and the tokens its decode steps take."""
@@ -5367,147 +5296,690 @@ def decode_logits(port: Port, cfg, model, prompt, seq: int, cache,
     return out
 
 
-def one_process_serve(port: Port, cfg, params, prompt, seq: int) -> tuple:
-    """Prefill of ``prompt[:, :seq]`` on plain ``params`` in this
-    process: its last logits, and its cache padded to the decode
-    buffers of SHARDED_CTX_PAD more positions."""
-    models = port.models
-    with port.torch.no_grad():
-        lg, cache = models.forward_prefill(models.Transformer(cfg, params),
-                                           cfg, {"tokens": prompt[:, :seq]})
-        return lg, port.lm_serve.pad_cache_for_decode(
-            cfg, cache, seq + SHARDED_CTX_PAD, prompt.shape[0])
+def family_cfg(port: Port, arch: str, layers: int):
+    """``arch`` at full width with ``layers`` layers (the audio
+    family's encoder cut to as many)."""
+    cfg = port.arch_registry.get_arch(arch)
+    cut = {"num_layers": layers}
+    if cfg.family == "audio":
+        cut["encoder_layers"] = layers
+    return dataclasses.replace(cfg, **cut)
 
 
-def sharded_serve(port: Port, cfg, tc, mesh, dm, shape, device,
-                  staged: bool) -> dict:
-    """One rank's prefill and decode on ``mesh`` under the inference
-    policy, from the seeded initial weights (``build_state``): the
-    prompt's tokens laid out by ``batch_shardings``, the decode cache
-    built by a one-process prefill on this rank and laid out by
-    ``cache_shardings``.  The launch counts and seconds are those of the
-    sharded calls alone; ``logits`` holds the prefill's last logits and
-    each decode step's, gathered."""
+def family_inputs(port: Port, cfg, batch: int, seq: int, device) -> dict:
+    """The [sharded] prompt of ``seq`` text tokens and the two
+    decode steps' (``sharded_prompt``), and the stub frontends'
+    embeddings (``launch/serve.py::frontend_embeds``)."""
+    return {"prompt": sharded_prompt(port, cfg, batch, seq, device),
+            **port.lm_serve.frontend_embeds(cfg, batch, device)}
+
+
+def family_ctx(cfg, seq: int) -> int:
+    """The decode cache's positions: the prompt (the vlm's vision tokens
+    included) and SHARDED_CTX_PAD more."""
+    return seq + SHARDED_CTX_PAD + (cfg.vision_tokens if cfg.family == "vlm"
+                                    else 0)
+
+
+def moe_groups(kind: str, rank: int, batch: int, seq: int,
+               group_size: int = 256) -> list:
+    """The one-process routing groups (``moe.group_tokens``' order: a
+    row's groups in turn) that rank ``rank`` of a (2, 2) mesh routes in
+    a sharded ``kind`` step, in its order (``models/moe.py::
+    _apply_moe_sharded``).  Train: where half a row holds whole groups,
+    rank (i, j) routes the j-th half of each of data rank i's rows, else
+    the rows are whole and the model ranks share the data rank's groups
+    out; prefill and decode (one token a group): the latter."""
+    i, j = divmod(rank, 2)
+    gs = min(group_size, 1 if kind == "decode" else seq)
+    per_row, rows = (1 if kind == "decode" else seq // gs), batch // 2
+    if kind == "train" and (seq // 2) % gs == 0:
+        half = per_row // 2
+        return [(i * rows + a) * per_row + j * half + c
+                for a in range(rows) for c in range(half)]
+    n = rows * per_row // 2
+    return [i * rows * per_row + j * n + k for k in range(n)]
+
+
+def sharded_rank_main(rank: int, d: Path) -> int:
+    """One rank of the [sharded] phase (``chip_smoke.py --sharded-rank
+    R``), started with the phase; for each run of the job in turn, once
+    the parent's ``go_<arch>`` file is there (its one-process runs of
+    the arch done): the bytes this rank holds once ``build_state`` and
+    the batch's shard are drawn (requested bytes of the caching
+    allocator around them, and the local shards' bytes);
+    ``launch/train.py::train`` on the mesh (the MoE with the
+    one-process run's routing replayed on its own groups), the flash
+    wrapper's calls recorded by shape and its launches counted; this
+    rank's shards of the trained parameters written to
+    ``shards_<arch>_{R}.pt``; for an ``elastic`` run, the trained
+    parameters saved from the mesh and restored onto (world, 1), each
+    leaf compared with the saved one; then prefill and two decode steps
+    on the mesh from the seeded initial weights under the inference
+    policy, the decode cache the prefill's own (gathered, padded, laid
+    out by ``cache_shardings``; the MoE first prefills with its own
+    routing, recorded, then with the one-process routing replayed),
+    launches counted around them; the run's peak device bytes.  Writes
+    its record of each run to ``rank{R}_<arch>.json`` once the run is
+    done (the parent checks it while the ranks go on), rank 0 the logits
+    to ``serve_<arch>.pt``, each rank its MoE routing to
+    ``routes_<arch>_{R}.pt``.
+
+    cuBLAS runs with full-precision reductions, as this script's
+    one-process LM runs do: with bf16 reductions allowed, a GEMM's
+    split-K can depend on its rows, and internvl2's final-norm gradient
+    (its odd vocab's logits) moved by 17% between a whole batch and a
+    data rank's half of it."""
     from torch.distributed.tensor.experimental import implicit_replication
+    port = Port()
     torch, st, tr, P = port.torch, port.train_steps, port.trainer, \
         port.params
-    batch, seq = shape.global_batch, shape.seq_len
-    prompt = sharded_prompt(port, cfg, batch, seq, device)
-    one, _ = tr.build_state(cfg, tc, device)
-    _, cache = one_process_serve(port, cfg, one, prompt, seq)
-    del one
-    params, _ = tr.build_state(cfg, tc, device,
-                               P.param_shardings(port.models.param_spec(cfg),
-                                                 mesh), dm)
-    def lay(t):     # a batch's tokens split over the data axes
-        return P.distribute({"tokens": t}, st.batch_shardings(
-            cfg, shape, mesh, {"tokens": t}), dm)["tokens"]
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    job = json.loads((d / "job.json").read_text())
+    device = torch.device(job["device"])
+    on_card = device.type == "cuda"
+    mesh = port.mesh.make_local_mesh(*job["mesh"])
+    world = mesh.size
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"file://{d}/rdzv",
+                            rank=rank, world_size=world)
+    staged = port.actctx.staged_backend("gloo", device.type)
 
-    infer = port.actctx.make_infer_policy(
-        mesh, batch_axes=port.mesh.batch_axes(mesh, batch))
-    staging = port.actctx.StagedCollectives() if staged \
-        else contextlib.nullcontext()
-    port.reset_launches()
-    t0 = time.perf_counter()
-    with staging as sc, port.actctx.policy(infer), torch.no_grad(), \
-            implicit_replication():
-        model = port.models.Transformer(cfg, params)
-        lg, _ = port.models.forward_prefill(
-            model, cfg, {"tokens": lay(prompt[:, :seq])})
-        cache = P.distribute(cache, st.cache_shardings(
-            cfg, mesh, batch, seq + SHARDED_CTX_PAD), dm)
-        logits = [lg] + decode_logits(port, cfg, model, prompt, seq, cache,
-                                      lay)
-        layout = [str(t.placements) for t in
-                  port.tree.leaves(cache["segments"])[:1]]
-        logits = [x.full_tensor().float().cpu() for x in logits]
-    return {"logits": logits, "launches": port.launches(),
-            "s": time.perf_counter() - t0, "cache_layout": layout,
-            "staged": dict(sc.staged) if staged else {}}
+    def staging():
+        return port.actctx.StagedCollectives() if staged \
+            else contextlib.nullcontext()
+
+    try:
+        # a rank still running near the parent's deadline writes its
+        # stacks into its log and exits (a hung collective shows where)
+        faulthandler.dump_traceback_later(SHARDED_TIMEOUT_S - 20, exit=True)
+        dm = port.mesh.device_mesh(mesh, device.type)
+        for run in job["runs"]:
+            cfg = port.ModelConfig(**run["cfg"])
+            tc = port.TrainConfig(**run["tc"])
+            arch, batch, seq, steps = cfg.name, run["batch"], run["seq"], \
+                run["steps"]
+            # the parent's own runs of the arch come first
+            while not (d / f"go_{arch}").exists():
+                time.sleep(0.05)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            moe = cfg.family == "moe"
+            tape = torch.load(d / f"routes_{arch}.pt") if moe else None
+            spec = port.models.param_spec(cfg)
+            sh = P.param_shardings(spec, mesh)
+            shape = port.ShapeConfig("sharded", "train", seq, batch)
+            before = requested_bytes(torch, device)
+            params, opt = tr.build_state(cfg, tc, device, sh, dm)
+            full = tr.next_batch(port.TokenStream(
+                global_batch=batch, seq_len=seq, vocab_size=cfg.vocab_size,
+                seed=tc.seed), cfg, tc, device)
+            b = P.distribute(full, st.batch_shardings(cfg, shape, mesh,
+                                                      full), dm)
+            del full
+            resident = None if before is None \
+                else requested_bytes(torch, device) - before
+            local = sum(st.tree_bytes(t) for t in (params, opt, b))
+            del params, opt, b
+
+            # each flash forward's (B*H, S, D): the wrapper's calls on the
+            # card, the plain forward FlashAttention runs on CPU tensors
+            calls = []
+            mod, name = (port.flash_ops, "flash_attention_fwd") \
+                if on_card else (port.model_layers, "_flash_fwd_impl")
+            orig = getattr(mod, name)
+
+            def record(q, k, v, **kw):
+                calls.append(tuple(q.shape) if q.dim() == 3 else
+                             (q.shape[0] * q.shape[2], q.shape[1],
+                              q.shape[3]))
+                return orig(q, k, v, **kw)
+
+            pick = moe_groups("train", rank, batch, seq)
+            replay = RouteTape(port, [c[pick].to(device)
+                                      for c in tape["train"]]) \
+                if moe else contextlib.nullcontext()
+            setattr(mod, name, record)
+            port.reset_launches()
+            hist = []
+            t0 = time.perf_counter()
+            try:
+                with replay:
+                    params, _, _ = tr.train(
+                        cfg, tc, batch=batch, seq=seq, steps=steps,
+                        device=device, mesh=mesh, resume=False,
+                        log_every=steps, history=hist)
+            finally:
+                setattr(mod, name, orig)
+            rec = {"resident": resident, "local_bytes": local,
+                   "launches": port.launches()["flash_attention_fwd"],
+                   "flash_shapes": sorted(set(calls)),
+                   "flash_calls": len(calls),
+                   "steps": [h for h in hist if "step" in h],
+                   "staged": next((h["staged"] for h in hist
+                                   if "staged" in h), {}),
+                   "train_s": time.perf_counter() - t0}
+            # this rank's own shards of the trained leaves, as they lie
+            t0 = time.perf_counter()
+            torch.save([t.to_local().cpu() for t in port.tree.leaves(params)],
+                       d / f"shards_{arch}_{rank}.pt")
+            rec["shards_s"] = time.perf_counter() - t0
+            if run["elastic"]:
+                # saved from this mesh, restored onto (world, 1)
+                with staging():
+                    t0 = time.perf_counter()
+                    port.checkpoint.save(d / f"ckpt_{arch}", steps, params)
+                    rec["save_s"] = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    back = port.checkpoint.restore(
+                        d / f"ckpt_{arch}", steps, params,
+                        P.param_shardings(spec, port.mesh.make_local_mesh(
+                            world, 1)))
+                    rec["restore_s"] = time.perf_counter() - t0
+                    rec["restored_equal"] = all(
+                        bool(torch.equal(a.full_tensor(), r.full_tensor()))
+                        for a, r in zip(port.tree.leaves(params),
+                                        port.tree.leaves(back)))
+                    rec["restored_layout"] = str(
+                        port.tree.leaves(back)[0].placements)
+                del back
+            del params
+
+            # prefill and decode on the mesh from the initial weights
+            params, _ = tr.build_state(cfg, tc, device, sh, dm)
+            pshape = port.ShapeConfig("sharded", "prefill", seq, batch)
+            inp = family_inputs(port, cfg, batch, seq, device)
+            prompt = inp.pop("prompt")
+
+            def lay(bt):
+                return P.distribute(bt, st.batch_shardings(
+                    cfg, pshape, mesh, bt), dm)
+
+            infer = port.actctx.make_infer_policy(
+                mesh, batch_axes=port.mesh.batch_axes(mesh, batch))
+            ctx = family_ctx(cfg, seq)
+            port.reset_launches()
+            own = RouteTape(port) if moe else contextlib.nullcontext()
+            first = {"tokens": prompt[:, :seq], **inp}
+            t0 = time.perf_counter()
+            with staging() as sc, port.actctx.policy(infer), \
+                    torch.no_grad(), implicit_replication():
+                model = port.models.Transformer(cfg, params)
+                with own:                # the MoE's own routing, recorded
+                    lg, cache = port.models.forward_prefill(model, cfg,
+                                                            lay(first))
+                rec["prefill_launches"] = \
+                    port.launches()["flash_attention_fwd"]
+                if moe:
+                    torch.save([c.cpu() for c in own.calls],
+                               d / f"routes_{arch}_{rank}.pt")
+                    # the first num_layers calls are the prefill's
+                    L = cfg.num_layers
+                    ppick = moe_groups("prefill", rank, batch, seq)
+                    dpick = moe_groups("decode", rank, batch, seq)
+                    with RouteTape(port, [
+                            c[ppick if n < L else dpick].to(device)
+                            for n, c in enumerate(tape["serve"])]):
+                        lg, cache = port.models.forward_prefill(
+                            model, cfg, lay(first))
+                        logits = family_decode(port, cfg, model, lg, cache,
+                                               prompt, seq, ctx, mesh, dm,
+                                               lay)
+                else:
+                    logits = family_decode(port, cfg, model, lg, cache,
+                                           prompt, seq, ctx, mesh, dm, lay)
+                rec["serve_staged"] = dict(sc.staged) if staged else {}
+            rec["serve_s"] = time.perf_counter() - t0
+            rec["serve_launches"] = port.launches()["flash_attention_fwd"]
+            del params, model, cache
+            if rank == 0:
+                torch.save(logits, d / f"serve_{arch}.pt")
+            rec["peak"] = torch.cuda.max_memory_allocated(device) \
+                if on_card else None
+            tmp = d / f".rank{rank}_{arch}.json"
+            tmp.write_text(json.dumps(rec))
+            tmp.rename(d / f"rank{rank}_{arch}.json")
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        dist.destroy_process_group()
+    return 0
 
 
-def run_sharded(port: Port, device, arch: str = LLM_ARCH,
-                layers: int = SHARDED_LAYERS, batch: int = SHARDED_BATCH,
-                seq: int = SHARDED_SEQ, steps: int = SHARDED_STEPS) -> dict:
-    """The [sharded] phase (see the module docstring): ``layers`` of
-    ``arch`` at full width trained ``steps`` steps on a SHARDED_MESH of
-    gloo ranks sharing the card (``launch/train.py::train(mesh=)``:
-    DTensor shardings, the train policy, explicit ZeRO-3 gathers, flash
-    on each rank's own heads) against the same seeded steps in one
-    process through the kernel, within the reference test's tolerances
-    or twice the bf16 floor (the one-process kernel run against the
-    plain one), and each step's gradient norm and each leaf's update
-    within SHARDED_GNORM_TOL and SHARDED_DELTA_TOL (relative) or twice
-    their floors; each rank's resident bytes against ``lower_cell``'s
-    plan at the same mesh; the parameters saved from the mesh restored
-    onto (world, 1) equal; prefill and decode on the mesh against one
-    process within llm-main's logit bounds, flash launched on every
-    rank."""
+def assemble(torch, shards: list, i: int, sharding, mesh_shape) -> object:
+    """Leaf ``i`` whole from every rank's own shard of it (``shards[r][i]``,
+    rank r at row-major position r of ``mesh_shape``), as
+    ``models/params.py::place`` split it: each mesh dim in turn splits
+    the dim its placement names."""
+    pl = sharding.placements()
+    coords = [np.unravel_index(r, mesh_shape) for r in range(len(shards))]
+    # the ranks that differ only on mesh dims that replicate the leaf hold
+    # the same shard: keep the first, then join along each split dim,
+    # innermost mesh dim first
+    keep = {tuple(c[m] if pl[m].is_shard() else 0
+                  for m in range(len(mesh_shape))): shards[r][i]
+            for r, c in reversed(list(enumerate(coords)))}
+    for m in reversed(range(len(mesh_shape))):
+        if not pl[m].is_shard():
+            continue
+        joined = {}
+        for c in sorted(keep):
+            if c[m] == 0:
+                parts = [keep[c[:m] + (j,) + c[m + 1:]]
+                         for j in range(mesh_shape[m])]
+                joined[c] = torch.cat(parts, dim=pl[m].dim)
+        keep = joined
+    (whole,) = keep.values()
+    return whole.float()
+
+
+def family_decode(port: Port, cfg, model, lg, cache, prompt, seq: int,
+                  ctx: int, mesh, dm, lay) -> list:
+    """The prefill's last logits and SHARDED_DECODE decode steps' on the
+    mesh, gathered: the prefill's cache gathered, padded to ``ctx``
+    positions and laid out by ``cache_shardings``, each step's token
+    laid out by ``lay``."""
+    st, P = port.train_steps, port.params
+    batch = prompt.shape[0]
+    full = port.tree.tree_map(
+        lambda t: t.full_tensor() if port.actctx.is_dtensor(t) else t,
+        cache)
+    cache = P.distribute(port.lm_serve.pad_cache_for_decode(
+        cfg, full, ctx, batch), st.cache_shardings(cfg, mesh, batch, ctx),
+        dm)
+    del full
+    out = [lg] + decode_logits(port, cfg, model, prompt, seq, cache,
+                               lambda t: lay({"tokens": t})["tokens"])
+    return [x.full_tensor().float().cpu() for x in out]
+
+
+def family_serve_one(port: Port, cfg, params, inp: dict, seq: int,
+                     impl: str) -> list:
+    """One process's prefill of ``inp``'s prompt and SHARDED_DECODE
+    decode steps through ``impl``'s attention: the prefill's last
+    logits and each step's, on the CPU."""
+    torch, models = port.torch, port.models
+    prompt = inp["prompt"]
+    extras = {k: v for k, v in inp.items() if k != "prompt"}
+    model = models.Transformer(cfg, params)
+    with torch.no_grad():
+        lg, cache = models.forward_prefill(
+            model, cfg, {"tokens": prompt[:, :seq], **extras}, impl=impl)
+        cache = port.lm_serve.pad_cache_for_decode(
+            cfg, cache, family_ctx(cfg, seq), prompt.shape[0])
+        out = [lg] + decode_logits(port, cfg, model, prompt, seq, cache)
+    return [x.float().cpu() for x in out]
+
+
+def route_flips(calls, other) -> float:
+    """The share of (layer, token, k) top-k choices that two runs'
+    routing records (``RouteTape.calls``) do not share."""
+    n = sum(c.numel() for c in calls)
+    return sum(int((a != b).sum()) for a, b in zip(calls, other)) / max(n, 1)
+
+
+def wait_run(procs, d: Path, arch: str, deadline: float) -> list:
+    """Every rank's record of ``arch`` (``rank{r}_<arch>.json``) once
+    each rank has written it; fails the phase when a rank exits with an
+    error first, or at ``deadline`` (``time.monotonic``)."""
+    paths = [d / f"rank{r}_{arch}.json" for r in range(len(procs))]
+    while not all(p.exists() for p in paths):
+        bad = [(r, p.returncode) for r, p in enumerate(procs) if p.poll()]
+        check(not bad, f"ranks failed (rank, exit code) before {arch} was "
+                       f"done: {bad}")
+        check(time.monotonic() < deadline, f"{arch}: ranks still running "
+                                           f"after {SHARDED_TIMEOUT_S} s")
+        time.sleep(0.05)
+    return [json.loads(p.read_text()) for p in paths]
+
+
+def run_sharded(port: Port, device, runs=SHARDED_RUNS,
+                batch: int = SHARDED_BATCH) -> dict:
+    """The [sharded] phase (see the module docstring): each of ``runs``
+    (arch, layers, text tokens, steps) at full width trained on a
+    SHARDED_MESH of gloo ranks sharing the card
+    (``launch/train.py::train(mesh=)``: DTensor shardings, the train
+    policy, explicit ZeRO-3 gathers, flash on each rank's own heads)
+    against the same seeded steps in one process through the kernel,
+    within the reference test's tolerances or twice the floor (the
+    one-process kernel run against the plain one; the MoE with the
+    one-process routing replayed, its own routing's flips within twice
+    the naive-vs-kernel floor), each step's gradient norm and each
+    leaf's update within SHARDED_GNORM_TOL and SHARDED_DELTA_TOL
+    (relative) or twice their floors; each rank's shards and resident
+    bytes against ``lower_cell``'s plan at the same mesh; the dense
+    run's parameters saved from the mesh restored onto (world, 1) equal
+    and equal to the assembled shards; then prefill and two decode
+    steps on the mesh against one process (TinyLlama within llm-main's
+    logit bounds, the other families within [families]' bounds against
+    the naive floor).  One spawn of rank processes for every run."""
     import shutil
     torch, st, tr = port.torch, port.train_steps, port.trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_phase = time.perf_counter()
     on_card = torch.device(device).type == "cuda"
     card = card_line() if on_card else "cpu"
-    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
-    SHARDED_DIR.mkdir(parents=True)
-    probes = start_gloo_probes(port, SHARDED_DIR) if on_card else {}
-    cfg = dataclasses.replace(port.arch_registry.get_arch(arch),
-                              num_layers=layers)
-    tc = dataclasses.replace(st.default_train_config(cfg),
-                             checkpoint_every=0,
-                             checkpoint_dir=str(SHARDED_DIR / "one"))
+    d = SHARDED_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    probes = start_gloo_probes(port, d) if on_card else {}
     mesh = port.mesh.make_local_mesh(*SHARDED_MESH)
     world = mesh.size
-
-    # -- the ranks start (and wait for "go" once set up) ------------------
-    (SHARDED_DIR / "job.json").write_text(json.dumps({
-        "device": str(device), "cfg": dataclasses.asdict(cfg),
-        "tc": dataclasses.asdict(tc), "mesh": list(SHARDED_MESH),
-        "batch": batch, "seq": seq, "steps": steps}))
+    jobs = []
+    for arch, layers, seq, steps in runs:
+        cfg = family_cfg(port, arch, layers)
+        tc = dataclasses.replace(st.default_train_config(cfg),
+                                 checkpoint_every=0,
+                                 checkpoint_dir=str(d / "one"))
+        jobs.append((cfg, tc, seq, steps))
+    (d / "job.json").write_text(json.dumps({
+        "device": str(device), "mesh": list(SHARDED_MESH),
+        "runs": [{"cfg": dataclasses.asdict(cfg),
+                  "tc": dataclasses.asdict(tc), "batch": batch, "seq": seq,
+                  "steps": steps, "elastic": cfg.family == "dense"}
+                 for cfg, tc, seq, steps in jobs]}))
     t0 = time.perf_counter()
     procs = []
     for r in range(world):
-        with open(SHARDED_DIR / f"rank{r}.log", "w") as f:
+        with open(d / f"rank{r}.log", "w") as f:
             procs.append(subprocess.Popen(
                 [sys.executable, str(HERE / "chip_smoke.py"),
-                 "--sharded-rank", str(r), "--sharded-dir",
-                 str(SHARDED_DIR)], cwd=HERE, stdout=f,
-                stderr=subprocess.STDOUT))
+                 "--sharded-rank", str(r), "--sharded-dir", str(d)],
+                cwd=HERE, stdout=f, stderr=subprocess.STDOUT))
+    ref = {}
     try:
-        # -- the plan, and one process through the kernel and the plain
-        # route, while the ranks start ---------------------------------
-        shape = port.ShapeConfig("sharded", "train", seq, batch)
-        plan, _ = st.lower_cell(cfg, shape, mesh, tc)
-        coll = {f"{op}/{g}": calls
-                for (op, g), (_, calls) in plan.cost.collectives.items()}
-        ref = {}
-        for impl in ("chunked", "plain"):
-            hist = []
-            p, _, _ = tr.train(cfg, tc, batch=batch, seq=seq, steps=steps,
-                               device=device, resume=False, log_every=steps,
-                               impl=impl, history=hist)
-            ref[impl] = ([h["loss"] for h in hist if "step" in h],
-                         [t.float().cpu() for t in port.tree.leaves(p)],
-                         [h["s"] * 1e3 for h in hist if "step" in h],
-                         [h["grad_norm"] for h in hist if "step" in h])
-            del p
-        # the initial weights (each update's start), and prefill and
-        # decode on them in this process
-        p0, _ = tr.build_state(cfg, tc, device)
-        leaves_0 = [t.float().cpu() for t in port.tree.leaves(p0)]
-        prompt = sharded_prompt(port, cfg, batch, seq, device)
-        lg, cache = one_process_serve(port, cfg, p0, prompt, seq)
-        with torch.no_grad():
-            serve_ref = [x.float().cpu() for x in [lg] + decode_logits(
-                port, cfg, port.models.Transformer(cfg, p0), prompt, seq,
-                cache)]
-        del p0, lg, cache
-        probed = gloo_probe_results(probes)
-        if on_card:
-            torch.cuda.empty_cache()
-        (SHARDED_DIR / "go").write_text("")
+        # -- one process's runs of each arch, the ranks taking it after
+        for cfg, tc, seq, steps in jobs:
+            arch, moe = cfg.name, cfg.family == "moe"
+            one = {}
+            tape = RouteTape(port) if moe else contextlib.nullcontext()
+            # the kernel run, then the floor: the plain forward (mamba2 has
+            # no attention, so no floor), its gaps to the kernel run by
+            # leaf taken on the card: (|plain - k|, its largest element)
+            one["leaf_floor"] = None
+            for impl in ("chunked", "plain") if cfg.num_heads \
+                    else ("chunked",):
+                hist = []
+                with tape if impl == "chunked" else RouteTape(
+                        port, tape.calls if moe else None):
+                    p, _, _ = tr.train(cfg, tc, batch=batch, seq=seq,
+                                       steps=steps, device=device,
+                                       resume=False, log_every=steps,
+                                       impl=impl, history=hist)
+                one[impl] = ([h["loss"] for h in hist if "step" in h],
+                             [h["s"] * 1e3 for h in hist if "step" in h],
+                             [h["grad_norm"] for h in hist if "step" in h])
+                if impl == "chunked":
+                    one["leaves"] = [t.float().cpu()
+                                     for t in port.tree.leaves(p)]
+                else:
+                    one["leaf_floor"] = [
+                        (float((a.float() - k.to(a.device)).norm()),
+                         float((a.float() - k.to(a.device)).abs().max()))
+                        for a, k in zip(port.tree.leaves(p), one["leaves"])]
+                del p
+            p0, _ = tr.build_state(cfg, tc, device)
+            inp = family_inputs(port, cfg, batch, seq, device)
+            stape = RouteTape(port) if moe else contextlib.nullcontext()
+            with stape:
+                one["serve"] = family_serve_one(port, cfg, p0, inp, seq,
+                                                "chunked")
+            # TinyLlama's logits are held at llm-main's bounds, the other
+            # families' at [families]' against naive attention's floor
+            one["serve_floor"] = None
+            if cfg.family != "dense":
+                with RouteTape(port, stape.calls if moe else None):
+                    one["serve_floor"] = family_serve_one(
+                        port, cfg, p0, inp, seq, "naive")
+            if moe:
+                torch.save({"train": [c.cpu() for c in tape.calls],
+                            "serve": [c.cpu() for c in stape.calls]},
+                           d / f"routes_{arch}.pt")
+                L = cfg.num_layers      # the prefill's calls come first
+                one["prefill_routes"] = [c.cpu() for c in stape.calls[:L]]
+                with RouteTape(port) as naive:
+                    family_serve_one(port, cfg, p0, inp, seq, "naive")
+                one["flip_floor"] = route_flips(naive.calls[:L],
+                                                stape.calls[:L])
+            del p0, inp
+            if on_card:
+                torch.cuda.empty_cache()
+            ref[arch] = one
+            # the ranks take the arch while this process goes on to the
+            # next (the MoE's one-process state is freed by then)
+            (d / f"go_{arch}").write_text("")
         t_go = time.perf_counter()
-        wait_ranks(procs, SHARDED_TIMEOUT_S)
+        # each train step's plan, while the ranks run
+        for cfg, tc, seq, _ in jobs:
+            plan, _ = st.lower_cell(cfg, port.ShapeConfig(
+                "sharded", "train", seq, batch), mesh, tc)
+            ref[cfg.name]["plan_bytes"] = plan.arg_bytes
+            ref[cfg.name]["collectives"] = {
+                f"{op}/{g}": calls
+                for (op, g), (_, calls) in plan.cost.collectives.items()}
+        probed = gloo_probe_results(probes)
+
+        # -- checks, an arch at a time, each as soon as every rank has run
+        # it (the ranks go on with the next) ---------------------------
+        rec, staged = {}, {}
+        by_rank = {"dense": [0] * world, "dense_serve": [0] * world,
+                   "families": [0] * world}
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S - (
+            time.perf_counter() - t0)
+        for cfg, tc, seq, steps in jobs:
+            arch, one, moe = cfg.name, ref[cfg.name], cfg.family == "moe"
+            dense = cfg.family == "dense"
+            got = wait_run(procs, d, arch, deadline)
+            for k, v in got[0]["staged"].items():
+                staged[k] = staged.get(k, 0) + v
+            tag = ("[sharded] " if dense else "[sharded-families] ") + arch
+            loss_k, ms_k, gnorm_k = one["chunked"]
+            loss_p, _, gnorm_p = one.get("plain", one["chunked"])
+            losses = [s["loss"] for s in got[0]["steps"]]
+            check(len(losses) == steps and all(np.isfinite(losses))
+                  and all([s["loss"] for s in g["steps"]] == losses
+                          for g in got), f"{tag} losses {losses}")
+            loss_floor = max(abs(a - b) for a, b in zip(loss_k, loss_p))
+            loss_gap = max(abs(a - b) for a, b in zip(losses, loss_k))
+            check(loss_gap <= max(SHARDED_LOSS_TOL,
+                                  SHARDED_FLOOR_FACTOR * loss_floor),
+                  f"{tag} loss gap {loss_gap} (floor {loss_floor})")
+            gnorms = [s["grad_norm"] for s in got[0]["steps"]]
+            gnorm_floor = max(abs(a / b - 1) for a, b in zip(gnorm_p, gnorm_k))
+            gnorm_gap = max(abs(a / b - 1) for a, b in zip(gnorms, gnorm_k))
+            check(gnorm_gap <= max(SHARDED_GNORM_TOL,
+                                   SHARDED_FLOOR_FACTOR * gnorm_floor),
+                  f"{tag} grad norms {gnorms} against {gnorm_k}: relative gap "
+                  f"{gnorm_gap} (floor {gnorm_floor})")
+            worst = worst_floor = delta_worst = delta_floor = 0.0
+            bad = []
+            shards = [torch.load(d / f"shards_{arch}_{r}.pt")
+                      for r in range(world)]
+            shardings = port.tree.leaves(port.params.param_shardings(
+                port.models.param_spec(cfg), mesh))
+            saved = d / f"ckpt_{arch}" / f"step_{steps}"
+            # the initial weights drawn again (build_state is seeded), and on
+            # the card each leaf's update against the one-process update:
+            # (g - p0) - (k - p0) is g - k
+            p0s, _ = tr.build_state(cfg, tc, device)
+            floors = one["leaf_floor"] or [(0.0, 0.0)] * len(one["leaves"])
+            for i, (k, p0, (f_norm, f_max)) in enumerate(zip(
+                    one["leaves"], port.tree.leaves(p0s), floors)):
+                k = k.to(device)
+                g = assemble(torch, shards, i, shardings[i],
+                             SHARDED_MESH).to(device)
+                if dense and not torch.equal(torch.from_numpy(np.load(
+                        saved / f"arr_{i}.npy")).float(), g.cpu()):
+                    bad.append(f"leaf {i}: the checkpoint saved from the mesh "
+                               "differs from the ranks' shards")
+                norm = float((k - p0.float()).norm())
+                if norm > 0:
+                    rel = float((g - k).norm()) / norm
+                    rel_floor = f_norm / norm
+                    delta_worst = max(delta_worst, rel)
+                    delta_floor = max(delta_floor, rel_floor)
+                    if rel > max(SHARDED_DELTA_TOL,
+                                 SHARDED_FLOOR_FACTOR * rel_floor):
+                        bad.append(f"leaf {i} {tuple(k.shape)}: its update is "
+                                   f"{rel:.3e} of the one-process update away "
+                                   f"from it (floor {rel_floor:.3e})")
+                floor = f_max
+                excess = float(((g - k).abs() - SHARDED_ATOL
+                                - SHARDED_RTOL * k.abs()).max())
+                gap = float((g - k).abs().max())
+                worst, worst_floor = max(worst, gap), max(worst_floor, floor)
+                if excess > 0 and gap > SHARDED_FLOOR_FACTOR * floor:
+                    bad.append(f"leaf {i} {tuple(k.shape)}: gap {gap} past "
+                               f"rtol {SHARDED_RTOL} / atol {SHARDED_ATOL} "
+                               f"and {SHARDED_FLOOR_FACTOR} x the floor "
+                               f"{floor}")
+            del p0s, shards
+            check(not bad, f"{tag} " + "; ".join(bad))
+            per_rank = train_flash_calls(port, cfg) * steps
+            bh = batch // SHARDED_MESH[0] * cfg.num_heads // SHARDED_MESH[1]
+            # each flash forward at (B/2 * H/2, S, D): S the text and vision
+            # tokens, and the audio encoder's frames
+            want = sorted({(bh, seq + (cfg.vision_tokens if cfg.family == "vlm"
+                                       else 0), cfg.head_dim)}
+                          | ({(bh, cfg.encoder_seq, cfg.head_dim)}
+                             if cfg.family == "audio" else set())) \
+                if cfg.num_heads else []
+            for r, g in enumerate(got):
+                check(g["flash_calls"] == per_rank
+                      and [tuple(s) for s in g["flash_shapes"]] == want,
+                      f"{tag} rank {r}: flash calls {g['flash_calls']} at "
+                      f"{g['flash_shapes']}, want {per_rank} at {want}")
+                check(not on_card or g["launches"] == per_rank,
+                      f"{tag} rank {r} launched flash {g['launches']} times, "
+                      f"want {per_rank}")
+                check(g["local_bytes"] == one["plan_bytes"],
+                      f"{tag} rank {r}: shards hold {g['local_bytes']} B, the "
+                      f"plan {one['plan_bytes']}")
+                check(g["resident"] is None
+                      or g["resident"] == one["plan_bytes"],
+                      f"{tag} rank {r}: resident {g['resident']} B, the plan "
+                      f"{one['plan_bytes']}")
+                want_serve = flash_calls(port, cfg)
+                check(not on_card or g["prefill_launches"] == want_serve,
+                      f"{tag} rank {r}: prefill launched flash "
+                      f"{g['prefill_launches']} times, want {want_serve}")
+                check(not dense or g["restored_equal"],
+                      f"{tag} rank {r}: restore onto the other mesh differs")
+                if dense:
+                    by_rank["dense"][r] += g["launches"]
+                    by_rank["dense_serve"][r] += g["serve_launches"]
+                else:
+                    by_rank["families"][r] += g["launches"] \
+                        + g["serve_launches"]
+            flips = flip_floor = None
+            if moe:
+                back = [c.clone() for c in one["prefill_routes"]]
+                for r in range(world):
+                    for b, loc in zip(back, torch.load(
+                            d / f"routes_{arch}_{r}.pt")):
+                        b[moe_groups("prefill", r, batch, seq)] = loc
+                flips = route_flips(back, one["prefill_routes"])
+                flip_floor = one["flip_floor"]
+                check(flips <= SHARDED_FLOOR_FACTOR * flip_floor,
+                      f"{tag} its own routing flips {flips:.4f} of the "
+                      f"prefill's choices, past {SHARDED_FLOOR_FACTOR} x the "
+                      f"floor {flip_floor:.4f}")
+            serve_got = torch.load(d / f"serve_{arch}.pt")
+            serve_err = {}
+            for i, (a, b) in enumerate(zip(serve_got, one["serve"])):
+                what = "prefill" if i == 0 else f"decode step {i}"
+                if dense:
+                    e = logit_diff(torch, a, b)
+                    e["bounds"] = (LOGIT_MAX_TOL, LOGIT_MEAN_TOL)
+                else:
+                    e = family_diff(torch, a, b, logit_diff(
+                        torch, one["serve_floor"][i], b))
+                serve_err[what] = e
+                check(a.shape == b.shape and e["finite"]
+                      and e["max"] <= e["bounds"][0]
+                      and e["mean"] <= e["bounds"][1]
+                      and e["argmax_other"] == 0,
+                      f"{tag} {what} logits on the mesh against one process: "
+                      f"max {e['max']}, mean {e['mean']}, bounds "
+                      f"{e['bounds']}, argmax {e['argmax_other']}")
+            check(len(serve_got) == 1 + SHARDED_DECODE, f"{tag} serve logits")
+            step_ms = [[round(s["s"] * 1e3, 1) for s in g["steps"]]
+                       for g in got]
+            peaks = [g["peak"] for g in got]
+            g0 = got[0]
+            log(f"{tag} {cfg.num_layers} layers"
+                + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers
+                   else "") + f" at full width, batch {batch} x {seq}, "
+                f"{steps} steps, mesh {mesh.shape} of gloo ranks: losses "
+                f"{[round(x, 6) for x in losses]} vs one process "
+                f"{[round(x, 6) for x in loss_k]} (gap {loss_gap:.3e}; floor "
+                f"{loss_floor:.3e}); grad norms "
+                f"{[round(x, 6) for x in gnorms]}"
+                f" (relative gap {gnorm_gap:.3e}, floor {gnorm_floor:.3e}); "
+                f"leaves' worst gap {worst:.3e} (floor {worst_floor:.3e}); "
+                f"each leaf's update within {delta_worst:.3e} of the "
+                f"one-process update (floor {delta_floor:.3e})"
+                + (f"; routing replayed, its own prefill routing flips "
+                   f"{flips:.4f} (floor {flip_floor:.4f})" if moe else "")
+                + f"; ms a step by rank {step_ms} (one process "
+                f"{[round(x, 1) for x in ms_k]}); flash {per_rank} a rank, "
+                f"launches by rank {[g['launches'] for g in got]} at "
+                f"{g0['flash_shapes']}; bytes a rank held "
+                f"{g0['local_bytes']:,} = planned {one['plan_bytes']:,} "
+                f"(resident {nbytes(g0['resident'])}); planned collectives "
+                f"{one['collectives']}; staged a rank "
+                + (", ".join(f"{k} x{v}" for k, v in g0["staged"].items())
+                   or "none")
+                + f"; peak by rank "
+                + (", ".join(f"{p / 1e9:.2f} GB" for p in peaks)
+                   if on_card else "not measured")
+                + f"; train {g0['train_s']:.1f} s, shards written "
+                f"{g0['shards_s']:.1f} s"
+                + (f"; restored onto {(world, 1)} equal "
+                   f"({g0['restored_layout']}), save {g0['save_s']:.1f} s, "
+                   f"restore {g0['restore_s']:.1f} s" if dense else "")
+                + f" ({card})")
+            log(f"{tag} prefill of {batch} x {seq} and {SHARDED_DECODE} "
+                f"decode steps on the mesh: logits against one process "
+                + "; ".join(f"{k} max {v['max']:.3e} mean {v['mean']:.3e} "
+                            f"(bounds {v['bounds'][0]:.3e} / "
+                            f"{v['bounds'][1]:.3e})"
+                            for k, v in serve_err.items())
+                + f"; flash launches by rank "
+                f"{[g['serve_launches'] for g in got]}; {g0['serve_s']:.1f}"
+                f" s on rank 0, staged "
+                + (", ".join(f"{k} x{v}"
+                             for k, v in g0["serve_staged"].items())
+                   or "none") + f" ({card})")
+            rec[arch] = {
+                "family": cfg.family, "layers": cfg.num_layers, "batch": batch,
+                "seq": seq, "steps": steps,
+                "losses": losses, "one_process_losses": loss_k,
+                "loss_gap": loss_gap, "loss_floor": loss_floor,
+                "grad_norms": gnorms, "one_process_grad_norms": gnorm_k,
+                "grad_norm_gap": gnorm_gap, "grad_norm_floor": gnorm_floor,
+                "worst_leaf_gap": worst, "worst_leaf_floor": worst_floor,
+                "update_gap": delta_worst, "update_floor": delta_floor,
+                "flips": flips, "flip_floor": flip_floor,
+                "serve_logits": {k: {"max": v["max"], "mean": v["mean"],
+                                     "bounds": v["bounds"]}
+                                 for k, v in serve_err.items()},
+                "step_ms_by_rank": step_ms, "one_process_step_ms": ms_k,
+                "flash_shapes": want,
+                "launches_by_rank": [g["launches"] for g in got],
+                "serve_launches_by_rank": [g["serve_launches"] for g in got],
+                "planned_arg_bytes": one["plan_bytes"],
+                "planned_collectives": one["collectives"],
+                "resident_by_rank": [g["resident"] for g in got],
+                "peak_by_rank": peaks, "staged": g0["staged"],
+                "serve_staged": g0["serve_staged"],
+                "train_s_by_rank": [g["train_s"] for g in got],
+                "serve_s": g0["serve_s"]}
+        wait_ranks(procs, max(deadline - time.monotonic(), 0.01))
     except BaseException:
         for p in procs:
             if p.poll() is None:
@@ -5515,162 +5987,30 @@ def run_sharded(port: Port, device, arch: str = LLM_ARCH,
                 p.wait()
         for r in range(world):
             log(f"[sharded] rank {r} log tail:\n"
-                + (SHARDED_DIR / f"rank{r}.log").read_text()[-3000:])
+                + (d / f"rank{r}.log").read_text()[-3000:])
         raise
     ranks_s, go_s = time.perf_counter() - t0, time.perf_counter() - t_go
-    ranks = [json.loads((SHARDED_DIR / f"rank{r}.json").read_text())
-             for r in range(world)]
-
-    # -- checks ---------------------------------------------------------
-    loss_k, leaves_k, ms_k, gnorm_k = ref["chunked"]
-    loss_p, leaves_p, _, gnorm_p = ref["plain"]
-    losses = [s["loss"] for s in ranks[0]["steps"]]
-    step_ms = [[round(s["s"] * 1e3, 1) for s in r["steps"]] for r in ranks]
-    loss_floor = max(abs(a - b) for a, b in zip(loss_k, loss_p))
-    loss_gap = max(abs(a - b) for a, b in zip(losses, loss_k))
-    check(len(losses) == steps and all(np.isfinite(losses)),
-          f"[sharded] losses {losses}")
-    check(all([s["loss"] for s in r["steps"]] == losses for r in ranks),
-          "[sharded] ranks disagree on the losses")
-    check(loss_gap <= max(SHARDED_LOSS_TOL, SHARDED_FLOOR_FACTOR
-                          * loss_floor),
-          f"[sharded] loss gap {loss_gap} to the one-process run (floor "
-          f"{loss_floor})")
-    gnorms = [s["grad_norm"] for s in ranks[0]["steps"]]
-    gnorm_floor = max(abs(a / b - 1) for a, b in zip(gnorm_p, gnorm_k))
-    gnorm_gap = max(abs(a / b - 1) for a, b in zip(gnorms, gnorm_k))
-    check(gnorm_gap <= max(SHARDED_GNORM_TOL, SHARDED_FLOOR_FACTOR
-                           * gnorm_floor),
-          f"[sharded] grad norms {gnorms} against the one-process run's "
-          f"{gnorm_k}: relative gap {gnorm_gap} (floor {gnorm_floor})")
-    saved = SHARDED_DIR / "ckpt" / f"step_{steps}"
-    worst, worst_floor = 0.0, 0.0
-    delta_worst, delta_floor = 0.0, 0.0
-    for i, (k, pl, p0) in enumerate(zip(leaves_k, leaves_p, leaves_0)):
-        got = torch.from_numpy(np.load(saved / f"arr_{i}.npy")).float()
-        # the update, by relative norm against the one-process update
-        want = k - p0
-        rel = float((got - p0 - want).norm() / want.norm())
-        rel_floor = float((pl - p0 - want).norm() / want.norm())
-        delta_worst = max(delta_worst, rel)
-        delta_floor = max(delta_floor, rel_floor)
-        check(rel <= max(SHARDED_DELTA_TOL,
-                         SHARDED_FLOOR_FACTOR * rel_floor),
-              f"[sharded] leaf {i}: its update is {rel:.3e} of the "
-              f"one-process update away from it (floor {rel_floor:.3e})")
-        floor = float((k - pl).abs().max())
-        excess = float(((got - k).abs() - SHARDED_ATOL
-                        - SHARDED_RTOL * k.abs()).max())
-        gap = float((got - k).abs().max())
-        worst = max(worst, gap)
-        worst_floor = max(worst_floor, floor)
-        check(excess <= 0 or gap <= SHARDED_FLOOR_FACTOR * floor,
-              f"[sharded] leaf {i}: gap {gap} to the one-process run past "
-              f"rtol {SHARDED_RTOL} / atol {SHARDED_ATOL} and "
-              f"{SHARDED_FLOOR_FACTOR} x the floor {floor}")
-    per_rank = layers * 2 * steps       # each layer's forward and recompute
-    want_shape = (batch // SHARDED_MESH[0] * cfg.num_heads
-                  // SHARDED_MESH[1], seq, cfg.head_dim)
-    for r in ranks:
-        n = r["launches"]["flash_attention_fwd"]
-        check(not on_card or n == per_rank,
-              f"[sharded] rank {r['rank']} launched flash {n} times, want "
-              f"{per_rank}")
-        check(r["flash_calls"] == per_rank
-              and [tuple(x) for x in r["flash_shapes"]] == [want_shape],
-              f"[sharded] rank {r['rank']} flash calls {r['flash_calls']} "
-              f"at {r['flash_shapes']}, want {per_rank} at {want_shape}")
-        check(r["local_bytes"] == plan.arg_bytes,
-              f"[sharded] rank {r['rank']}: shards hold {r['local_bytes']} "
-              f"B, the plan {plan.arg_bytes}")
-        check(r["resident"] is None or r["resident"] == plan.arg_bytes,
-              f"[sharded] rank {r['rank']}: resident {r['resident']} B, "
-              f"the plan {plan.arg_bytes}")
-        check(r["restored_equal"], f"[sharded] rank {r['rank']}: restore "
-              "onto the other mesh differs")
-        n = r["serve"]["launches"]["flash_attention_fwd"]
-        check(not on_card or n == layers,
-              f"[sharded] rank {r['rank']}: prefill launched flash {n} "
-              f"times, want {layers}")
-    serve_got = torch.load(SHARDED_DIR / "serve.pt")
-    serve_err = {}
-    for i, (a, b) in enumerate(zip(serve_got, serve_ref)):
-        what = "prefill" if i == 0 else f"decode step {i}"
-        serve_err[what] = e = logit_diff(torch, a, b)
-        check(a.shape == b.shape and e["finite"]
-              and e["max"] <= LOGIT_MAX_TOL and e["mean"] <= LOGIT_MEAN_TOL
-              and e["argmax_other"] == 0,
-              f"[sharded] {what} logits on the mesh against one process: "
-              f"{e} beyond max {LOGIT_MAX_TOL}, mean {LOGIT_MEAN_TOL} or "
-              "argmax")
-    check(len(serve_got) == 1 + SHARDED_DECODE, "[sharded] serve logits")
-    staged = ranks[0]["staged"]
     check(bool(staged) == on_card and set(staged)
           <= set(port.actctx.FUNCOL_OPS), f"[sharded] staged {staged}")
-    launches = sum(r["launches"]["flash_attention_fwd"] for r in ranks)
-    secs = time.perf_counter() - t_phase
     log(f"[sharded] gloo on CUDA tensors under torch {torch.__version__}, "
         f"one op a one-rank group: "
         + (", ".join(f"{k} {v}" for k, v in probed.items()) or "not run")
-        + "; staged through pinned host memory (by backend and device): "
+        + "; staged through pinned host memory (by backend and device), "
+        "rank 0's train steps: "
         + (", ".join(f"{k} x{v}" for k, v in staged.items()) or "none")
         + f" ({card})")
-    log(f"[sharded] {arch} {layers} of its layers at full width, batch "
-        f"{batch} x {seq}, mesh {mesh.shape} of gloo ranks: losses "
-        f"{[round(x, 6) for x in losses]} vs one process {loss_k} (gap "
-        f"{loss_gap:.3e}; kernel vs plain floor {loss_floor:.3e}); "
-        f"parameter leaves' worst gap {worst:.3e} (floor {worst_floor:.3e})"
-        f"; ms a step by rank {step_ms} (one process "
-        f"{[round(x, 1) for x in ms_k]}); grad norms "
-        f"{[round(x, 6) for x in gnorms]} vs {[round(x, 6) for x in gnorm_k]}"
-        f" (relative gap {gnorm_gap:.3e}, floor {gnorm_floor:.3e}); each "
-        f"leaf's update within {delta_worst:.3e} of the one-process update "
-        f"by relative norm (floor {delta_floor:.3e}); flash {per_rank} a "
-        f"rank at {want_shape}, launches by rank "
-        f"{[r['launches']['flash_attention_fwd'] for r in ranks]}; "
-        f"bytes a rank held {ranks[0]['local_bytes']:,} = planned "
-        f"{plan.arg_bytes:,} (resident "
-        f"{nbytes(ranks[0]['resident'])}); planned collectives "
-        f"{coll}; restored onto {(world, 1)} equal "
-        f"({ranks[0]['restored_layout'][0]}), save {ranks[0]['save_s']:.1f}"
-        f" s, restore {ranks[0]['restore_s']:.1f} s; ranks {ranks_s:.1f} s"
-        f" ({go_s:.1f} s after go) ({card})")
-    sv = ranks[0]["serve"]
-    log(f"[sharded] prefill of {batch} x {seq} and {SHARDED_DECODE} decode "
-        f"steps on the mesh, inference policy, cache "
-        f"{sv['cache_layout'][0]}: logits against one process "
-        + "; ".join(f"{k} max {v['max']:.3e} mean {v['mean']:.3e}"
-                    for k, v in serve_err.items())
-        + f"; flash launches by rank "
-        f"{[r['serve']['launches']['flash_attention_fwd'] for r in ranks]}"
-        f"; {sv['s']:.1f} s on rank 0, staged "
-        + (", ".join(f"{k} x{v}" for k, v in sv["staged"].items())
-           or "none") + f" ({card})")
-    out = {"arch": arch, "layers": layers, "batch": batch, "seq": seq,
-           "mesh": list(SHARDED_MESH), "losses": losses,
-           "one_process_losses": loss_k, "loss_gap": loss_gap,
-           "loss_floor": loss_floor, "worst_leaf_gap": worst,
-           "worst_leaf_floor": worst_floor, "grad_norms": gnorms,
-           "one_process_grad_norms": gnorm_k, "grad_norm_gap": gnorm_gap,
-           "grad_norm_floor": gnorm_floor, "update_gap": delta_worst,
-           "update_floor": delta_floor,
-           "serve_logits": serve_err, "serve_s": sv["s"], "step_ms_by_rank": step_ms,
-           "one_process_step_ms": ms_k, "flash_shape": want_shape,
-           "launches_by_rank": [r["launches"]["flash_attention_fwd"]
-                                for r in ranks],
-           "planned_arg_bytes": plan.arg_bytes,
-           "resident_by_rank": [r["resident"] for r in ranks],
-           "planned_collectives": coll, "staged": staged,
-           "gloo_probe": probed, "ranks_s": ranks_s, "after_go_s": go_s,
-           "train_s_by_rank": [r["train_s"] for r in ranks], "secs": secs}
-    log("[sharded] " + json.dumps(out))
+    secs = time.perf_counter() - t_phase
+    log("[sharded] " + json.dumps(
+        {"mesh": list(SHARDED_MESH), "runs": rec, "gloo_probe": probed,
+         "staged": staged, "ranks_s": ranks_s, "after_go_s": go_s,
+         "secs": secs}))
     log(f"[sharded done] {secs:.1f} s ({card})")
-    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
-    serve_by_rank = [r["serve"]["launches"]["flash_attention_fwd"]
-                     for r in ranks]
-    return {"launches": launches, "by_rank": out["launches_by_rank"],
-            "serve_launches": sum(serve_by_rank),
-            "serve_by_rank": serve_by_rank}
+    shutil.rmtree(d, ignore_errors=True)
+    return {"launches": sum(by_rank["dense"]), "by_rank": by_rank["dense"],
+            "serve_launches": sum(by_rank["dense_serve"]),
+            "serve_by_rank": by_rank["dense_serve"],
+            "families_launches": sum(by_rank["families"]),
+            "families_by_rank": by_rank["families"]}
 
 
 # ---------------------------------------------------------------------------
@@ -5880,7 +6220,8 @@ def kernels_record(result: dict, llm: dict, trained: dict,
                    "families": families["launches"],
                    "train-families": train_families["launches"],
                    "sharded": sharded["launches"],
-                   "sharded-serve": sharded["serve_launches"]}
+                   "sharded-serve": sharded["serve_launches"],
+                   "sharded-families": sharded["families_launches"]}
     rows.append({"name": "flash_attention_fwd", "route": "cuda",
                  "design": "wgmma (bf16 tensor cores, TMA k/v ring)",
                  "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -5890,6 +6231,8 @@ def kernels_record(result: dict, llm: dict, trained: dict,
                  "launches_by_path": flash_paths,
                  "sharded_gloo_launches_by_rank": sharded["by_rank"],
                  "sharded_serve_launches_by_rank": sharded["serve_by_rank"],
+                 "sharded_families_launches_by_rank":
+                     sharded["families_by_rank"],
                  "max_abs_err": max(llm["parity_err"],
                                     families["parity_err"],
                                     train_families["parity_err"]),

@@ -27,6 +27,18 @@ once); :func:`sharded_ctx` lets plain tensors (positions, masks, schedule
 scalars) meet DTensors as replicated values; :class:`StagedCollectives`
 moves the collectives a DTensor issues on CUDA tensors through pinned
 host memory where the backend moves host memory only (gloo).
+
+The MoE and the SSM run their bodies on each rank's own tokens, as
+plain tensors (``models/moe.py``, ``models/mamba2.py``):
+:func:`token_layout` keeps a tensor's batch (and sequence) shards,
+:func:`spread` shares rows that several ranks hold out among them,
+:func:`local_tokens` and :func:`from_tokens` go to and from the plain
+tensor, :func:`whole` gives a weight whole on every rank with its
+gradient summed over the ranks whose tokens differ, and
+:func:`token_sum` adds up per-rank sums.  :func:`relayout` (which
+``constrain`` uses too) moves a split from one tensor dim to another by
+an all-to-all, or by a gather and a slice where the backend has no
+all-to-all for a DTensor (:func:`all_to_all_route`).
 """
 
 from __future__ import annotations
@@ -82,10 +94,7 @@ def constrain(x, kind: str):
     sh = layout(x, kind)
     if sh is None:
         return x
-    placements = tuple(sh.placements())
-    if tuple(x.placements) == placements:
-        return x
-    return x.redistribute(x.device_mesh, placements)
+    return relayout(x, sh.placements())
 
 
 def _heads_rule(mesh, batch_axes):
@@ -186,11 +195,168 @@ def scatter_partial(x, dim: int):
     return x.redistribute(x.device_mesh, pl)
 
 
-def gather_tree(tree: dict) -> dict:
-    """:func:`gather` over a dict of dicts of parameters (a layer's)."""
-    return {name: {k: gather(t) for k, t in sub.items()}
+def reduce_partial(x):
+    """The DTensor ``x`` with its partial sums all-reduced (replicated),
+    its other placements kept; a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    if pl == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def gather_tree(tree: dict, keep: dict | None = None) -> dict:
+    """:func:`gather` over a dict of dicts of parameters (a layer's),
+    but for the leaves ``keep`` names (``{sub-dict: keys}``), which stay
+    as they are."""
+    keep = keep or {}
+    return {name: {k: t if k in keep.get(name, ()) else gather(t)
+                   for k, t in sub.items()}
             if isinstance(sub, dict) else gather(sub)
             for name, sub in tree.items()}
+
+
+def token_layout(x, dims=(0,)) -> tuple:
+    """Placements of the DTensor ``x`` that keep its shards of the dims
+    ``dims`` (its token dims: the batch, and the sequence where a
+    caller can split it) where they split evenly, and make the rest
+    whole: a partial sum reduced, any other shards gathered (a decode
+    batch split more ways than it has rows included)."""
+    from torch.distributed.tensor import Replicate
+    sizes, out = list(x.shape), []
+    for i, p in enumerate(x.placements):
+        n = x.device_mesh.size(i)
+        if p.is_shard() and p.dim in dims and sizes[p.dim] % n == 0:
+            sizes[p.dim] //= n
+            out.append(p)
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def splits(layout, mesh, dim: int) -> int:
+    """How many ways the placements ``layout`` on ``mesh`` split dim
+    ``dim``."""
+    import math
+    return math.prod(mesh.size(i) for i, q in enumerate(layout)
+                     if q.is_shard(dim))
+
+
+def spread(layout, mesh, rows: int, dim: int = 0) -> tuple:
+    """``layout`` with dim ``dim`` also split over each mesh dim that it
+    replicates, in order, wherever the ``rows`` of that dim a rank holds
+    (under ``layout``) divide: the ranks that held the same tokens then
+    share them out, so no work is repeated across them."""
+    from torch.distributed.tensor import Shard
+    out = []
+    for i, q in enumerate(layout):
+        if q.is_replicate() and rows % mesh.size(i) == 0:
+            q = Shard(dim)
+            rows //= mesh.size(i)
+        out.append(q)
+    return tuple(out)
+
+
+def all_to_all_route(mesh) -> bool:
+    """Whether :func:`relayout` moves a split on ``mesh`` by an
+    all-to-all: everywhere but where the collectives are staged through
+    host memory (:func:`staged_backend`: gloo on CUDA tensors, where
+    DTensor's own all-to-all is not a functional collective to stage and
+    hung a probe under torch 2.11), which gathers and slices."""
+    import torch.distributed as dist
+    return not staged_backend(str(dist.get_backend()), mesh.device_type)
+
+
+def relayout(x, placements):
+    """``x.redistribute`` to ``placements``, a mesh dim whose split moves
+    from one tensor dim to another moved by :func:`_move_split`: the
+    other mesh dims change first, then each move in turn.  Gradients go
+    back the same way."""
+    pl, cur = tuple(placements), tuple(x.placements)
+    if pl == cur:
+        return x
+    moves = [i for i, (c, t) in enumerate(zip(cur, pl))
+             if c.is_shard() and t.is_shard() and c != t]
+    mid = tuple(c if i in moves else t for i, (c, t) in enumerate(zip(cur,
+                                                                      pl)))
+    if mid != cur:
+        x = x.redistribute(x.device_mesh, mid)
+    for i in moves:
+        x = _move_split(x, i, pl[i])
+    return x
+
+
+def _move_split(x, i: int, dst):
+    """The DTensor ``x`` with mesh dim ``i``'s split moved to ``dst``'s
+    tensor dim.  By an all-to-all of each rank's local shard where
+    :func:`all_to_all_route` says so, no other mesh dim splits either
+    tensor dim and both divide evenly; else by a gather on mesh dim
+    ``i`` and a local slice (DTensor on a CPU mesh, the planner's,
+    falls back to that for an all-to-all of its own)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    import torch.distributed._functional_collectives as funcol
+    mesh, pl = x.device_mesh, list(x.placements)
+    src, n = pl[i].dim, mesh.size(i)
+    others = pl[:i] + pl[i + 1:]
+    if not all_to_all_route(mesh) \
+            or any(q.is_shard(src) or q.is_shard(dst.dim) for q in others) \
+            or x.shape[src] % n or x.shape[dst.dim] % n:
+        pl[i] = Replicate()
+        x = x.redistribute(mesh, pl)
+        pl[i] = dst
+        return x.redistribute(mesh, pl)
+    # piece r of this rank's dst dim goes to rank r; what comes back
+    # from rank r is its src block r of this rank's dst piece
+    send = torch.stack(x.to_local().chunk(n, dim=dst.dim))
+    got = funcol.all_to_all_single_autograd(send, None, None,
+                                            (mesh, i))
+    y = torch.cat(list(got.unbind(0)), dim=src)
+    pl[i] = dst
+    return DTensor.from_local(y, mesh, pl, run_check=False)
+
+
+def local_tokens(x, layout, grad_placements=None):
+    """This rank's own tokens of the DTensor ``x`` laid out by
+    ``layout`` (:func:`token_layout`), as a plain tensor; gradients pass
+    back through it, laid out as ``grad_placements`` say (by default as
+    ``layout``: a ``Partial`` where each rank's gradient is a share of
+    the sum)."""
+    return relayout(x, layout).to_local(grad_placements=grad_placements)
+
+
+def from_tokens(t, like, layout):
+    """The plain tensor ``t`` (this rank's tokens) as a DTensor laid out
+    by ``layout`` on ``like``'s mesh: the inverse of
+    :func:`local_tokens`."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, like.device_mesh, layout, run_check=False)
+
+
+def whole(w, layout):
+    """The DTensor parameter ``w`` whole on every rank, as a plain tensor
+    used against tokens laid out by ``layout``: its gradient goes back
+    as a partial sum over the mesh dims that split the tokens (each rank
+    saw its own share) and replicated over the others (every rank saw
+    the same).  A plain tensor as it is."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Partial, Replicate
+    full = w.redistribute(w.device_mesh,
+                          [Replicate()] * w.device_mesh.ndim)
+    return full.to_local(grad_placements=[
+        Partial() if p.is_shard() else Replicate() for p in layout])
+
+
+def token_sum(t, like, layout):
+    """The sums ``t`` of this rank's tokens (laid out by ``layout`` on
+    ``like``'s mesh) added up over every rank's tokens: a DTensor whose
+    value, replicated, is the sum over the whole batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    pl = [Partial() if p.is_shard() else Replicate() for p in layout]
+    return DTensor.from_local(t, like.device_mesh, pl, run_check=False) \
+        .redistribute(like.device_mesh, [Replicate()] * len(pl))
 
 
 def per_shard(fn, *xs):

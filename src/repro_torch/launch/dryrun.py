@@ -27,8 +27,8 @@ bytes under the keys the reference's ``recost`` gives them
 sharded plan (``lower_cell`` over a fake process group of 256 or 512
 ranks, started and destroyed in the planning process) and write
 ``<arch>__<shape>__<mesh>.json`` with the collectives the step issued
-priced by the reference's ring model.  Sharded plans cover the dense
-family; another family's cell fails naming ROADMAP.md's L6b-2.
+priced by the reference's ring model.  Sharded plans cover every
+family of ``launch/steps.py::SHARDED_FAMILIES`` (all six).
 ``--smoke`` plans the reduced configs.
 
 A graph program (``core/dryrun.py``) writes
@@ -65,8 +65,8 @@ def _mesh(mesh_name: str):
 def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir, *,
              impl: str = "chunked", cfg=None) -> dict:
     """Plan one (arch x shape) cell on ``mesh_name`` (``single``, ``pod``
-    or ``multipod``; at a pod mesh a family other than the dense one
-    raises the L6b-2 error), print its memory and roofline terms, and
+    or ``multipod``; at a pod mesh every family plans one device's
+    sharded step), print its memory and roofline terms, and
     write its record to ``out_dir``.  ``cfg`` overrides the registry's
     configuration of ``arch``."""
     from repro_torch.configs.registry import get_arch, get_shape

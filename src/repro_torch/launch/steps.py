@@ -19,9 +19,13 @@ under the counter of ``roofline/jaxpr_cost.py``: on one device, or at a
 larger mesh on DTensors of meta shards over a fake process group of the
 mesh's size (``launch/mesh.py::planning_mesh``), which counts one
 device's ops and tallies the collectives.  Nothing is allocated and no
-card is needed.  Sharded plans cover the dense family; the MoE, SSM,
-hybrid, audio and vlm families' sharded execution is ROADMAP.md's
-L6b-2.
+card is needed.  Every family of :data:`SHARDED_FAMILIES` (all six)
+runs and plans its sharded steps: the MoE routes each rank's own
+token groups and keeps its expert weights where they rest
+(``models/moe.py``), the SSM runs each rank's batch rows whole
+(``models/mamba2.py``), the hybrid and audio families compose those
+with attention, and the vlm reduces its embedding before prepending
+the vision tokens (``models/model.py``).
 """
 
 from __future__ import annotations
@@ -41,9 +45,20 @@ from repro_torch.optim import adamw_update, init_opt_state
 from repro_torch.roofline.jaxpr_cost import Cost, CostCounter
 from repro_torch.tree import flatten, leaves, tree_map, unflatten
 
-# the families whose sharded step runs (ROADMAP.md: L6b); the others
-# have their plans, and their sharded execution is L6b-2
-SHARDED_FAMILIES = ("dense",)
+# the families whose sharded steps run (ROADMAP.md: L6b and L6b-2);
+# ``lower_cell`` and ``launch/train.py::train`` refuse any other at a
+# mesh of more than one device
+SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+
+
+def check_sharded(cfg: ModelConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` for a family outside
+    :data:`SHARDED_FAMILIES` at a mesh of more than one device."""
+    if mesh.size > 1 and cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"sharded execution of the {cfg.family} family at a mesh of "
+            f"{mesh.size} devices ({mesh.shape}): it is not among "
+            f"SHARDED_FAMILIES {SHARDED_FAMILIES}")
 
 
 def value_and_grad(cfg: ModelConfig, params, batch, *, impl="chunked",
@@ -275,16 +290,12 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     planning_mesh`, under the policy the reference picks for the cell
     (train: ``make_train_policy``; prefill and decode:
     ``make_infer_policy``), and the counter counts one device's ops.
-    That covers the dense family; another family raises naming L6b-2."""
+    A family outside :data:`SHARDED_FAMILIES` raises there
+    (:func:`check_sharded`)."""
     tc = tc or default_train_config(cfg)
     if mesh.size == 1:
         return _plan(cfg, shape, tc, impl, None, None)
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"lower_cell at a mesh of {mesh.size} devices ({mesh.shape}): "
-            f"sharded execution of the {cfg.family} family is ROADMAP.md's "
-            "LM item L6b-2 (its plans are param_shardings, batch_shardings "
-            "and cache_shardings)")
+    check_sharded(cfg, mesh)
     ba = batch_axes(mesh, shape.global_batch)
     policy = actctx.make_train_policy(mesh, batch_axes=ba) \
         if shape.kind == "train" else \

@@ -43,7 +43,8 @@ from repro_torch.distributed import actctx
 from repro_torch.distributed.fault_tolerance import StepWatchdog, plan_remesh
 from repro_torch.launch.mesh import batch_axes, device_mesh, make_local_mesh
 from repro_torch.launch.serve import frontend_embeds
-from repro_torch.launch.steps import batch_shardings, make_train_step
+from repro_torch.launch.steps import batch_shardings, check_sharded, \
+    make_train_step
 from repro_torch.models import init_params, param_spec
 from repro_torch.models.params import distribute, param_shardings
 from repro_torch.optim import init_opt_state
@@ -115,9 +116,12 @@ def train(cfg, tc: TrainConfig, *, batch: int, seq: int, steps: int,
     ``mesh`` (``launch/mesh.Mesh``; :func:`default_mesh` when None) of
     more than one device needs a ``torch.distributed`` group of
     ``mesh.size`` ranks: each rank runs this with the same arguments and
-    holds its shards, and the returned trees are DTensors."""
+    holds its shards, and the returned trees are DTensors; a family
+    outside ``steps.SHARDED_FAMILIES`` raises ``NotImplementedError``
+    there, before any state is built."""
     device = _device(device)
     mesh = mesh or default_mesh()
+    check_sharded(cfg, mesh)
     dmesh = device_mesh(mesh, device.type) if mesh.size > 1 else None
     shardings = param_shardings(param_spec(cfg), mesh) if dmesh else None
     params, opt = build_state(cfg, tc, device, shardings, dmesh)

@@ -404,6 +404,7 @@ def attention_block(p, x, cfg, *, positions, causal=True, window=0,
         q, k, v = attn_qkv(p, x, cfg, positions)
         k_pos = positions
     else:
+        kv = A.constrain(kv, "batch")         # the memory whole, as x
         q = contract("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
         k = contract("bsd,dhe->bshe", kv, p["wk"].to(kv.dtype))
         v = contract("bsd,dhe->bshe", kv, p["wv"].to(kv.dtype))

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import actctx
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import contract, silu
 from repro_torch.models.params import spec
 
 
@@ -134,24 +134,17 @@ def ssd_chunked(x, dt, A, Bc, Cc, D, *, chunk: int, h0=None):
     return y.to(x.dtype), h
 
 
-def mamba2_block(p, x, cfg, *, h0=None, conv0=None, return_state=False):
-    """Full Mamba2 block (no outer norm/residual).
-
-    x: (B, S, d_model) -> (B, S, d_model); with ``return_state`` also
-    (h_last f32 (B, H, P, N), conv state (B, ssm_conv - 1, conv_dim)).
-    """
-    B, S, d = x.shape
+def _ssm(p, zxbcdt, cfg, h0=None, conv0=None):
+    """The block between its projections, on plain tensors: the causal
+    conv over the in-projection's ``x B C`` channels, the SSD scan and
+    the gated norm.  Returns y (B, S, d_inner) and the new state
+    (h_last f32 (B, H, P, N), conv (B, ssm_conv - 1, conv_dim))."""
+    B, S, _ = zxbcdt.shape
     di, n, g = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups
     nh, hd = cfg.ssm_nheads, cfg.ssm_head_dim
-
-    # the reference's "ffn" site; sharded execution of this family is
-    # ROADMAP.md's L6b-2, so it is the identity on every path run today
-    x = actctx.constrain(x, "batch")
-    zxbcdt = actctx.constrain(
-        torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype)), "ffn")
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * g * n, nh], dim=-1)
 
-    w, b = p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype)
+    w, b = p["conv_w"].to(zxbcdt.dtype), p["conv_b"].to(zxbcdt.dtype)
     if conv0 is not None:
         # decode path stitches conv state; prefill uses zero left-context
         xbc_ext = torch.cat([conv0.to(xbc.dtype), xbc], dim=1)
@@ -179,9 +172,57 @@ def mamba2_block(p, x, cfg, *, h0=None, conv0=None, return_state=False):
     y = y * silu(z)
     yf = y.float()
     var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
-    y = (yf * torch.rsqrt(var + 1e-6) * p["norm_scale"].float()).to(x.dtype)
+    y = (yf * torch.rsqrt(var + 1e-6) * p["norm_scale"].float()).to(
+        zxbcdt.dtype)
+    return y, (h_last, new_conv)
 
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
+
+# the block's weights that :func:`_ssm` reads
+SSM_LEAVES = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "norm_scale")
+
+
+def _ssm_sharded(p, zxbcdt, cfg, h0, conv0):
+    """:func:`_ssm` on DTensors: each rank runs its own batch rows with
+    every channel and head, since the in-projection's pieces (z, x, B,
+    C, dt) do not fall on its shards and the conv and the scan need
+    whole sequences; ranks that held the same rows share them out
+    (``actctx.spread``), so no row is computed twice.  Its weights, its
+    state and its output are laid out accordingly (the state's heads and
+    channels gathered going in, each rank keeping its shard of the new
+    state coming out).  y comes back with every channel on each of the
+    ranks that shared the rows out."""
+    rows = actctx.token_layout(zxbcdt)
+    mesh = zxbcdt.device_mesh
+    layout = actctx.spread(rows, mesh, zxbcdt.shape[0]
+                           // actctx.splits(rows, mesh, 0))
+    w = {k: actctx.whole(p[k], layout) for k in SSM_LEAVES}
+    loc = [None if t is None else actctx.local_tokens(t, layout)
+           for t in (h0, conv0)]
+    y, (h, conv) = _ssm(w, actctx.local_tokens(zxbcdt, layout), cfg, *loc)
+    y = actctx.relayout(actctx.from_tokens(y, zxbcdt, layout), rows)
+    return (y,) + tuple(actctx.from_tokens(t, zxbcdt, layout)
+                        for t in (h, conv))
+
+
+def mamba2_block(p, x, cfg, *, h0=None, conv0=None, return_state=False):
+    """Full Mamba2 block (no outer norm/residual).
+
+    x: (B, S, d_model) -> (B, S, d_model); with ``return_state`` also
+    (h_last f32 (B, H, P, N), conv state (B, ssm_conv - 1, conv_dim)).
+    On DTensors the sequence is whole on each rank, the in-projection's
+    output laid out as the reference's "ffn" site lays it (its channels
+    over "model"), then :func:`_ssm_sharded`; the out-projection
+    contracts the channels split over "model" again, as the MLP's does.
+    """
+    x = actctx.constrain(x, "batch")
+    zxbcdt = actctx.constrain(
+        contract("bsd,df->bsf", x, p["in_proj"].to(x.dtype)), "ffn")
+    if actctx.is_dtensor(zxbcdt):
+        y, h_last, new_conv = _ssm_sharded(p, zxbcdt, cfg, h0, conv0)
+        y = actctx.constrain(y, "ffn")
+    else:
+        y, (h_last, new_conv) = _ssm(p, zxbcdt, cfg, h0, conv0)
+    out = contract("bsf,fd->bsd", y, p["out_proj"].to(x.dtype))
     if return_state:
         return out, (h_last, new_conv)
     return out

@@ -253,7 +253,8 @@ def _attn_body(bp, x, cfg, seg: Segment, positions, impl, memory=None):
 def _gathered(bp):
     """A block's parameters at their use: ``bp`` itself on plain
     tensors; on DTensors a namespace of its dicts with each weight's
-    data-axis shards gathered (``actctx.gather``)."""
+    data-axis shards gathered (``actctx.gather``), but for a MoE block's
+    expert weights."""
     if isinstance(bp, SimpleNamespace):
         tree = vars(bp)
         first = next(iter(next(iter(tree.values())).values()))
@@ -263,16 +264,20 @@ def _gathered(bp):
         return bp
     if not isinstance(bp, SimpleNamespace):
         tree = {name: dict(sub.items()) for name, sub in bp.named_children()}
-    return SimpleNamespace(**A.gather_tree(tree))
+    # a MoE block's experts stay as they rest (models/moe.py)
+    return SimpleNamespace(**A.gather_tree(
+        tree, keep={"moe": MOE.EXPERT_LEAVES}))
 
 
 def _mamba_body(bp, x, cfg, return_state=True):
+    # the block's output pinned to the residual's layout before the add,
+    # as _attn_body's
     h = L.apply_norm(bp.ln, x, "rmsnorm")
     if not return_state:
-        return x + M2.mamba2_block(bp.mixer, h, cfg)
+        return x + A.constrain(M2.mamba2_block(bp.mixer, h, cfg), "resid")
     out, (h_last, conv) = M2.mamba2_block(bp.mixer, h, cfg,
                                           return_state=True)
-    return x + out, {"h": h_last, "conv": conv}
+    return x + A.constrain(out, "resid"), {"h": h_last, "conv": conv}
 
 
 def _clip_cache(extras, seg: Segment):
@@ -291,6 +296,7 @@ def _run_segments(params: Transformer, cfg, x, positions, *, impl,
     caches = []
     for seg, blocks in zip(params.plan, params.segments):
         if seg.kind == "shared_attn":
+            x = A.constrain(x, "resid")
             x, extras, _ = _attn_body(_gathered(params.shared), x, cfg, seg,
                                       positions, impl)
             caches.append(extras)
@@ -317,12 +323,21 @@ def _lookup(w, tokens):
     return torch.nn.functional.embedding(tokens.long(), w)
 
 
+def _prepend_vision(vis, x):
+    """The vision tokens ``vis`` (B, V, d) before the token embeddings
+    ``x`` (B, S, d), in x's dtype.  On DTensors x, a DTensor table's
+    masked partial sum, is reduced first (a partial sum cannot meet the
+    plain values of ``vis``, and torch 2.11 reduces a masked one only
+    once)."""
+    return torch.cat([vis.to(x.dtype), A.reduce_partial(x)], dim=1)
+
+
 def _embed(params: Transformer, cfg, tokens, extras=None):
     x = _lookup(A.gather(params.embed), tokens).to(torch.bfloat16)
     if cfg.family == "dense" and cfg.global_every > 0:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)  # gemma
     if cfg.family == "vlm" and extras is not None and "vis_embeds" in extras:
-        x = torch.cat([extras["vis_embeds"].to(x.dtype), x], dim=1)
+        x = _prepend_vision(extras["vis_embeds"], x)
     return x
 
 
@@ -334,7 +349,7 @@ def _encode_audio(params: Transformer, cfg, enc_embeds, impl):
     seg = Segment("enc_attn", cfg.encoder_layers, causal=False)
     for blocks in params.encoder.segments:
         for bp in blocks:
-            x = _attn_body(bp, x, cfg, seg, pos, impl)[0]
+            x = _attn_body(_gathered(bp), x, cfg, seg, pos, impl)[0]
     return L.apply_norm(params.encoder.final_norm, x, cfg.norm)
 
 
@@ -397,6 +412,7 @@ def _train_segments(params: dict, cfg, x, positions, *, impl, remat,
         else None
     for seg, seg_tree in zip(build_plan(cfg), params["segments"]):
         if seg.kind == "shared_attn":
+            x = A.constrain(x, "resid")
             x = _attn_body(_gathered(shared), x, cfg, seg, positions,
                            impl)[0]
             continue
@@ -486,7 +502,7 @@ def forward_train(params: dict, cfg: ModelConfig, batch, *, impl="chunked",
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     vis = 0
     if cfg.family == "vlm":
-        x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
+        x = _prepend_vision(batch["vis_embeds"], x)
         vis = cfg.vision_tokens
     x = A.constrain(x, "resid")
     positions = torch.arange(x.shape[1], device=x.device)
@@ -609,6 +625,18 @@ def _cache_shift(buf, new):
         out.redistribute(buf.device_mesh, buf.placements).to_local())
 
 
+def _state_write(buf, li: int, new):
+    """Layer ``li`` of the stacked state ``buf`` set to ``new``; on a
+    DTensor buffer each rank writes its own shard of ``new`` laid out
+    as the buffer's layer is."""
+    if not A.is_dtensor(buf):
+        buf[li] = new
+        return
+    from torch.distributed.tensor import Shard
+    pl = [Shard(p.dim - 1) if p.is_shard() else p for p in buf.placements]
+    buf.to_local()[li].copy_(A.relayout(new, pl).to_local())
+
+
 def _decode_attn(bp, x, cfg, seg: Segment, pos: int, ck, cv):
     """One decode step of an attention block against its cache.  Writes
     the new k/v into the layer's buffers ``ck``/``cv`` in place."""
@@ -654,7 +682,8 @@ def _decode_xattn(bp, x, cfg, xk, xv):
     B = x.shape[0]
     h = L.apply_norm(bp.lnx, x, cfg.norm)
     q = L.contract("bsd,dhe->bshe", h, bp.xattn["wq"].to(h.dtype))
-    q = q.reshape(B, 1, kh, g, cfg.head_dim)
+    # heads whole on each rank, as in _decode_attn
+    q = A.unsplit(q, 2).reshape(B, 1, kh, g, cfg.head_dim)
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), xk.float()) \
         * (cfg.head_dim ** -0.5)
     p = torch.softmax(s, dim=-1)
@@ -692,8 +721,8 @@ def forward_decode(params: Transformer, cfg: ModelConfig, tokens, cache):
                 h = L.apply_norm(bp.ln, x, "rmsnorm")
                 out, (h_new, conv_new) = M2.mamba2_decode(
                     bp.mixer, h, cfg, (c["h"][li], c["conv"][li]))
-                c["h"][li] = h_new
-                c["conv"][li] = conv_new
+                _state_write(c["h"], li, h_new)
+                _state_write(c["conv"], li, conv_new)
                 x = x + out
                 continue
             x = _decode_attn(bp, x, cfg, seg, pos, c["k"][li], c["v"][li])

@@ -38,7 +38,8 @@ DTensor's sharding propagation runs on fake tensors the first time it
 meets an op); the collectives DTensor issues
 (``_c10d_functional`` all-gather, reduce-scatter, all-reduce and
 all-to-all) are tallied in ``Cost.collectives`` by op and group size,
-with the bytes one rank sends into each and the calls.  A host read of
+with the bytes one rank sends into each and the calls, and each
+all-gather's input shape in ``Cost.gathered``.  A host read of
 a meta tensor (``.item()``, ``int()``, ``bool()``) has no value: under
 the counter it reads 0 (``False``, ``0.0``), which a ``static_iters``
 run's halt never reads; a branch on it takes its zero side (bfs/fast
@@ -72,6 +73,9 @@ class Cost:
     peak_live_bytes: float = 0.0
     # (op, group size) -> [input bytes of one rank, calls]
     collectives: dict = field(default_factory=dict)
+    # (shape, dtype) of each all-gather's input (one rank's shard) ->
+    # calls: what was gathered, e.g. that no MoE expert weight was
+    gathered: dict = field(default_factory=dict)
 
     @property
     def total_flops(self) -> float:
@@ -160,6 +164,9 @@ class CostCounter(TorchDispatchMode):
             tally = self.cost.collectives.setdefault(key, [0, 0])
             tally[0] += _nbytes(args[0])
             tally[1] += 1
+            if op == "all_gather_into_tensor":
+                g = (tuple(args[0].shape), str(args[0].dtype))
+                self.cost.gathered[g] = self.cost.gathered.get(g, 0) + 1
             out = func(*args, **kwargs)
             for t in _tensors(out):
                 self._track(t)

@@ -187,25 +187,70 @@ def test_dist_phase_rehearses(cs, tmp_path, monkeypatch, capsys):
 
 
 def test_sharded_phase_rehearses(cs, tmp_path, monkeypatch, capsys):
-    """``run_sharded`` on the CPU at the smoke config (2 layers, batch
-    4 x 32, 2 steps): four gloo rank processes of chip_smoke.py on a
-    (2, 2) mesh through ``train(mesh=)`` equal to the one-process run,
-    each rank's flash forwards at its (B/2 * H/2, S, D) slice, its
-    shards' bytes equal to lower_cell's plan, the parameters saved from
-    (2, 2) restored onto (4, 1) equal, grad norms and updates held,
-    prefill and decode on the mesh against one process; nothing staged
-    off the card."""
+    """``run_sharded`` on the CPU with TinyLlama at the smoke config (2
+    layers, batch 4 x 32, 2 steps): four gloo rank processes of
+    chip_smoke.py on a (2, 2) mesh through ``train(mesh=)`` equal to
+    the one-process run, each rank's flash forwards at its (B/2 * H/2,
+    S, D) slice, its shards' bytes equal to lower_cell's plan, the
+    parameters saved from (2, 2) equal to the shards and restored onto
+    (4, 1) equal, grad norms and updates held, prefill and decode on
+    the mesh against one process; nothing staged off the card."""
     monkeypatch.setattr(cs, "SHARDED_DIR", tmp_path / "sharded")
-    out = cs.run_sharded(cs.Port(), "cpu", layers=2, batch=4, seq=32,
-                         steps=2)
+    out = cs.run_sharded(cs.Port(), "cpu",
+                         runs=(("tinyllama-1.1b", 2, 32, 2),), batch=4)
     assert out == {"launches": 0, "by_rank": [0, 0, 0, 0],
-                   "serve_launches": 0, "serve_by_rank": [0, 0, 0, 0]}
+                   "serve_launches": 0, "serve_by_rank": [0, 0, 0, 0],
+                   "families_launches": 0, "families_by_rank": [0, 0, 0, 0]}
     text = capsys.readouterr().out
-    assert "flash 8 a rank at (4, 32, 16)" in text
-    assert "staged through pinned host memory (by backend and device): " \
-        "none (cpu)" in text
+    assert "flash 8 a rank, launches by rank [0, 0, 0, 0] at " \
+        "[[4, 32, 16]]" in text
+    assert "staged through pinned host memory (by backend and device), " \
+        "rank 0's train steps: none (cpu)" in text
     assert "restored onto (4, 1) equal" in text
     assert "grad norms" in text and "of the one-process update" in text
-    assert "2 decode steps on the mesh" in text
+    assert "[sharded] tinyllama-1.1b prefill of 4 x 32 and 2 decode steps " \
+        "on the mesh" in text
     assert "flash launches by rank [0, 0, 0, 0]" in text
+    assert "peak by rank not measured" in text
     assert "[sharded done]" in text and not (tmp_path / "sharded").exists()
+
+
+def test_sharded_families_phase_rehearses(cs, tmp_path, monkeypatch,
+                                          capsys):
+    """``run_sharded`` on the CPU with the other families at the smoke
+    configs (batch 4, 2 steps): four gloo rank processes of
+    chip_smoke.py on a (2, 2) mesh train each family through
+    ``train(mesh=)`` equal to the one-process run (the MoE at sequence
+    512, each rank routing the half rows it holds, with the one-process
+    routing replayed on its own groups), each rank's shards equal to
+    lower_cell's plan, then prefill and two decode steps on the mesh
+    against one process; the MoE's own prefill routing put back in the
+    one-process order; nothing staged off the card."""
+    monkeypatch.setattr(cs, "SHARDED_DIR", tmp_path / "sf")
+    runs = (("phi3.5-moe-42b-a6.6b", 1, 512, 2), ("mamba2-1.3b", 2, 64, 2),
+            ("zamba2-7b", 3, 64, 2), ("whisper-small", 1, 32, 2),
+            ("internvl2-1b", 2, 24, 2))
+    out = cs.run_sharded(cs.Port(), "cpu", runs=runs)
+    assert out == {"launches": 0, "by_rank": [0, 0, 0, 0],
+                   "serve_launches": 0, "serve_by_rank": [0, 0, 0, 0],
+                   "families_launches": 0, "families_by_rank": [0, 0, 0, 0]}
+    text = capsys.readouterr().out
+    for arch, _, seq, _ in runs:
+        assert f"[sharded-families] {arch}" in text
+        assert f"prefill of 4 x {seq} and 2 decode steps on the mesh" in text
+    assert "routing replayed, its own prefill routing flips" in text
+    assert "staged a rank none;" in text
+    assert "[sharded done]" in text
+    assert not (tmp_path / "sf").exists()
+
+
+def test_moe_groups_cover_the_one_process_groups(cs):
+    """The groups the four ranks route, put together, are each
+    one-process group once, for every kind of step."""
+    for kind, seq in (("train", 1024), ("train", 512), ("train", 64),
+                      ("prefill", 1024), ("prefill", 24), ("decode", 1)):
+        got = sorted(g for r in range(4)
+                     for g in cs.moe_groups(kind, r, 4, seq))
+        gs = min(256, 1 if kind == "decode" else seq)
+        assert got == list(range(4 * (1 if kind == "decode" else
+                                      seq // gs))), (kind, seq)

@@ -216,20 +216,31 @@ NON_DENSE = ("phi3.5-moe-42b-a6.6b", "mamba2-1.3b", "zamba2-7b",
              "whisper-small", "internvl2-1b")
 
 
-def test_lower_cell_refuses_a_larger_mesh():
-    """At a mesh of more than one device the MoE, SSM, hybrid, audio and
-    vlm families raise naming L6b-2 (their sharded execution); a dense
-    arch plans there."""
+def test_lower_cell_plans_every_family_at_a_mesh():
+    """Every family plans at a mesh of more than one device: the MoE,
+    SSM, hybrid, audio and vlm archs (and a dense one) at (2, 1) and
+    pod, each device's argument bytes under the one card's."""
     shape = ShapeConfig("x", "decode", 64, 2)
-    for arch in NON_DENSE:
+    for arch in NON_DENSE + ("tinyllama-1.1b",):
+        cfg = smoke_config(arch)
+        one = S.lower_cell(cfg, shape, make_local_mesh())[0]
         for mesh in (make_production_mesh(), make_local_mesh(2, 1)):
-            with pytest.raises(NotImplementedError, match="L6b-2"):
-                S.lower_cell(smoke_config(arch), shape, mesh)
-    plan, meta = S.lower_cell(smoke_config("tinyllama-1.1b"), shape,
-                              make_local_mesh(2, 1))
-    assert meta["program"] == "serve_step(decode)"
-    assert 0 < plan.arg_bytes < S.lower_cell(
-        smoke_config("tinyllama-1.1b"), shape, make_local_mesh())[0].arg_bytes
+            plan, meta = S.lower_cell(cfg, shape, mesh)
+            assert meta["program"] == "serve_step(decode)"
+            assert 0 < plan.arg_bytes < one.arg_bytes, (arch, mesh)
+
+
+def test_lower_cell_refuses_a_larger_mesh(monkeypatch):
+    """A family taken out of ``SHARDED_FAMILIES`` is refused at a mesh
+    of more than one device (``NotImplementedError``) and still plans
+    on one device."""
+    shape = ShapeConfig("x", "decode", 64, 2)
+    monkeypatch.setattr(S, "SHARDED_FAMILIES", ("dense",))
+    for arch in NON_DENSE:
+        with pytest.raises(NotImplementedError, match="SHARDED_FAMILIES"):
+            S.lower_cell(smoke_config(arch), shape, make_local_mesh(2, 1))
+        assert S.lower_cell(smoke_config(arch), shape,
+                            make_local_mesh())[0].arg_bytes > 0
 
 
 def _ref_record_keys() -> set:
@@ -299,27 +310,37 @@ def test_h100_prices_lm_matmuls_at_bf16_and_graphs_at_f32():
     assert lm.compute_s == g.compute_s
 
 
-def test_cli_arch_with_pod_mesh_raises_l6(monkeypatch, tmp_path, capsys):
-    """``--mesh pod``: a non-dense arch's cell fails naming L6b-2 (the
-    CLI records it and exits 1), a dense arch's plans 256 devices."""
-    for arch in NON_DENSE:
-        monkeypatch.setattr(sys, "argv", [
-            "dryrun", "--arch", arch, "--shape", "train_4k", "--smoke",
-            "--mesh", "pod", "--out", str(tmp_path)])
-        with pytest.raises(SystemExit):
-            dryrun.main()
-        rec = json.loads((tmp_path / f"{arch}__train_4k__pod.json")
-                         .read_text())
-        assert rec["status"] == "fail" and "L6b-2" in rec["error"]
-    assert "L6b-2" in capsys.readouterr().out
+def _cli_pod(monkeypatch, tmp_path, arch, shape):
+    """``dryrun --arch arch --shape shape --smoke --mesh pod``'s record."""
     monkeypatch.setattr(sys, "argv", [
-        "dryrun", "--arch", "tinyllama-1.1b", "--shape", "decode_32k",
-        "--smoke", "--mesh", "pod", "--out", str(tmp_path)])
+        "dryrun", "--arch", arch, "--shape", shape, "--smoke",
+        "--mesh", "pod", "--out", str(tmp_path)])
     dryrun.main()
-    rec = json.loads((tmp_path / "tinyllama-1.1b__decode_32k__pod.json")
-                     .read_text())
+    return json.loads((tmp_path / f"{arch}__{shape}__pod.json").read_text())
+
+
+def test_cli_arch_plans_every_family_at_pod(monkeypatch, tmp_path):
+    """``--mesh pod``: every family's cell plans 256 devices (the dense
+    arch's and the MoE, SSM, hybrid, audio and vlm archs')."""
+    for arch in NON_DENSE:
+        rec = _cli_pod(monkeypatch, tmp_path, arch, "train_4k")
+        assert rec["status"] == "ok" and rec["devices"] == 256, arch
+        assert rec["collective_wire_bytes"] > 0, arch
+    rec = _cli_pod(monkeypatch, tmp_path, "tinyllama-1.1b", "decode_32k")
     assert rec["status"] == "ok" and rec["devices"] == 256
     assert rec["collective_wire_bytes"] > 0
+
+
+def test_cli_arch_with_pod_mesh_raises_l6(monkeypatch, tmp_path, capsys):
+    """``--mesh pod`` with a family taken out of ``SHARDED_FAMILIES``:
+    the CLI records the error and exits 1."""
+    monkeypatch.setattr(S, "SHARDED_FAMILIES", ("dense",))
+    with pytest.raises(SystemExit):
+        _cli_pod(monkeypatch, tmp_path, NON_DENSE[0], "train_4k")
+    rec = json.loads((tmp_path / f"{NON_DENSE[0]}__train_4k__pod.json")
+                     .read_text())
+    assert rec["status"] == "fail" and "SHARDED_FAMILIES" in rec["error"]
+    assert "SHARDED_FAMILIES" in capsys.readouterr().out
 
 
 def test_cli_smoke_cells_in_worker_processes(tmp_path):
