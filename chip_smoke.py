@@ -168,8 +168,9 @@ prints no result):
            around each run.  One rank over NCCL at parts 1 in this
            process, all sixteen programs (triangles on the TRI_N-vertex
            graph): outputs bit for bit, rounds, guard verdicts, wire by
-           (phase, op) and launches equal, each program timed (median of
-           3) through both comms.  Then DIST_PROGRAMS (the programs that
+           (phase, op) and launches equal, each program's one checked
+           run timed through both comms (after a warm-up of
+           DIST_WARMUP).  Then DIST_PROGRAMS (the programs that
            launch a kernel or use the async exchange) on DIST_WORLD gloo
            ranks at parts DIST_WORLD, all on the one card (NCCL takes a
            card a rank):
@@ -181,7 +182,24 @@ prints no result):
            of them, rounds, verdicts, wire and launches equal
            StackedComm's at parts DIST_WORLD, spmv_ell and bfs_pull
            launch on every rank, and the ops gloo staged through pinned
-           host memory are printed.  Then ``compress_tree`` over a seeded
+           host memory are printed.  The same ranks then run, each
+           against the stacked run at parts DIST_WORLD computed here
+           first: DIST_RECOVERY through ``CheckpointRunner`` at
+           CHAOS_EVERY under the chaos phase's schedule (outputs,
+           rounds, detections, recoveries, checkpoints equal; bfs/fast
+           resumed from each rank's middle checkpoint; bfs/async's
+           checkpoints hold its exchange in flight), ``[dist-recovery]``
+           lines; a rank server (rank 0 leads) serving DIST_SERVED at
+           the first two rungs of SERVE_ROOTS and a pagerank/fast
+           refresh (rank 0's answers equal, the others return none),
+           ``[dist-serve]`` lines; and a durable rank server on
+           DIST_DURABLE_GRAPH's parts (MUTATE_DURABLE's batches sampled
+           on the ranks, then a rebuilding batch), closed and recovered
+           with ``GraphServer.recover(mesh=)`` (the WAL's bytes, every
+           rank's mirrors and planner before and after recovery equal
+           the stacked server's part), ``[dist-durable]`` line.  Each
+           line gives ms or s a rank and a rank snapshot's bytes.  Then
+           ``compress_tree`` over a seeded
            tree of the shapes of one TinyLlama layer and its embeddings,
            with a seeded carried residual: payloads, scales and
            residuals on the card bit-equal to the CPU's.  ``[dist]``
@@ -572,6 +590,16 @@ DIST_PROGRAMS = (("bfs", "fast"), ("pagerank", "bsp"),
                       ("bfs", "async"), ("sssp", "async"), ("cc", "async"),
                       ("pagerank", "async"))
 DIST_SPLIT_DRAWS = 4     # seeded fields part_sum_split reduces both ways
+# the same rank spawn then runs [chaos]'s schedule (clipped to each run's
+# rounds) through CheckpointRunner on three programs, bfs/async with an
+# exchange in flight at every checkpoint; a rank server (rank 0 leads)
+# over the serve phase's first two rungs and a pagerank/fast refresh;
+# and a durable rank server on MUTATE_REBUILD_GRAPH's parts
+# (MUTATE_DURABLE, then a rebuilding batch), recovered on the ranks
+DIST_RECOVERY = (("bfs", "fast"), ("pagerank", "bsp"), ("bfs", "async"))
+DIST_SERVED = ("bfs/fast", "sssp", "cc")
+DIST_SERVE_BUCKETS = (1, 8)
+DIST_DURABLE_GRAPH = MUTATE_REBUILD_GRAPH
 ASYNC_SIBLING = {"bfs/async": "bfs/fast", "sssp/async": "sssp",
                  "cc/async": "cc", "pagerank/async": "pagerank/fast",
                  "cc/incremental": "cc", "kcore/incremental": "kcore",
@@ -2613,6 +2641,190 @@ def dist_same(tag: str, got: dict, want: dict, fields: bool = True) -> None:
               f"{tag}: outputs differ from stacked")
 
 
+def chaos_schedule(rounds: int) -> str:
+    """The chaos phase's schedule, its events clipped to a run of
+    ``rounds`` rounds."""
+    r_top = max(rounds, 1) - 1
+    return (f"drop@r{min(1, r_top)}p0 corrupt@r{min(2, r_top)}p1 "
+            f"stall@r{min(3, r_top)}p0x2 seed=7")
+
+
+def host_fields(port: Port, eng, program, outs) -> dict:
+    """A run's outputs on the host: vertex fields gathered (to every
+    part), tensor scalars as numpy."""
+    torch = port.torch
+    return {nm: (eng.gather_vertex_field(o) if isv
+                 else o.cpu().numpy() if isinstance(o, torch.Tensor) else o)
+            for nm, o, isv in zip(program.output_names, outs,
+                                  program.output_is_vertex)}
+
+
+def dist_recovery(port: Port, eng, garr, schedules: dict) -> dict:
+    """DIST_RECOVERY through ``CheckpointRunner`` at CHAOS_EVERY under
+    ``schedules`` (key -> schedule), launch counters zeroed just before
+    and read just after each run: the outputs' digest, rounds,
+    detections, recoveries, checkpoints, ms, and each snapshot's ms and
+    bytes; bfs/fast also resumed from its middle checkpoint.  The same
+    code on a rank and stacked."""
+    torch = port.torch
+    out = {}
+    for algo, variant in DIST_RECOVERY:
+        key = f"{algo}/{variant}"
+        runner = port.CheckpointRunner(
+            eng, algo, variant, checkpoint_every=CHAOS_EVERY,
+            faults=schedules[key], keep_history=key == "bfs/fast",
+            **dist_params(algo, variant))
+        snaps, _ = timed_snapshots(port, runner, eng.device)
+        _sync(torch, eng.device)
+        port.reset_launches()
+        t0 = time.perf_counter()
+        rep = runner.run(garr, ROOT)
+        _sync(torch, eng.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = port.launches()
+        cell = {"digest": fields_digest(host_fields(
+                    port, eng, runner.program, rep.outputs)),
+                "rounds": rep.rounds, "detections": list(rep.detections),
+                "recoveries": rep.recoveries,
+                "checkpoints": rep.checkpoints, "ms": ms,
+                "snap_ms": float(np.median([c[0] for c in snaps])),
+                "snap_bytes": max(c[1] for c in snaps),
+                "launches": {k: launches[k]
+                             for k in ("spmv_ell", "bfs_pull")}}
+        if rep.history:
+            mid = rep.history[len(rep.history) // 2]
+            t0 = time.perf_counter()
+            rep2 = runner.run(garr, ROOT, resume_from=mid)
+            _sync(torch, eng.device)
+            cell.update(resumed_from=mid.rounds, resume_ms=(
+                time.perf_counter() - t0) * 1e3, resumed=fields_digest(
+                    host_fields(port, eng, runner.program, rep2.outputs)))
+            del rep2, mid
+        out[key] = cell
+        del rep, runner
+    return out
+
+
+def dist_serve(port: Port, eng) -> dict:
+    """A ``GraphServer`` over ``eng`` (over ranks rank 0 leads and the
+    others follow) warmed for DIST_SERVED and pagerank/fast, then each
+    served the first two rungs of SERVE_ROOTS (a refresh its queries
+    sharing one launch) and one pagerank/fast refresh, launch counters
+    zeroed around the serving: per call its ms and (rank 0, stacked) each
+    answer's status, rounds, bucket and fields' digest."""
+    torch, gs = port.torch, port.graph_server
+    server = gs.GraphServer(eng, buckets=DIST_SERVE_BUCKETS, depth=2)
+    t0 = time.perf_counter()
+    server.warmup([*DIST_SERVED, "pagerank/fast"])
+    warm_s = time.perf_counter() - t0
+    port.reset_launches()
+    calls = []
+    for name, roots in [(n, r) for n in DIST_SERVED
+                        for r in SERVE_ROOTS[:2]] + [("pagerank/fast", (0,))]:
+        key = gs.make_key(name)
+        _sync(torch, eng.device)
+        t0 = time.perf_counter()
+        res = server.serve([gs.Query(key, r if key.rooted else None)
+                            for r in roots])
+        _sync(torch, eng.device)
+        calls.append({"name": name, "n": len(roots),
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "answers": [(r.status, r.rounds, r.bucket,
+                                   fields_digest(r.fields)) for r in res]})
+    launches = port.launches()
+    server.close()
+    return {"calls": calls, "warm_s": warm_s,
+            "launches": {k: launches[k] for k in ("spmv_ell", "bfs_pull")}}
+
+
+def part_digests(g, dyn) -> list:
+    """One digest a held part: its COO and ELL mirrors and its planner
+    state (occupancy, free stacks, the touched keys' position lists)."""
+    import hashlib
+    st = dyn.planner_state()
+    out = []
+    for lp in range(g.out_degree.shape[0]):
+        h = hashlib.sha256()
+        for k in ("out_src_local", "out_dst_global", "in_src_global",
+                  "in_dst_local", "out_degree", "in_degree"):
+            h.update(getattr(g, k)[lp].tobytes())
+        for k in sorted(g.ell_arrays):
+            h.update(k.encode() + g.ell_arrays[k][lp].tobytes())
+        for name in sorted(st["occ"]):
+            h.update(st["occ"][name][lp].tobytes())
+        h.update(repr([st[k][lp] for k in ("free_out", "free_in",
+                                           "pos_out", "pos_in")]).encode())
+        out.append(h.hexdigest())
+    return out
+
+
+def dist_durable(port: Port, eng, pdir: Path) -> dict:
+    """A durable ``GraphServer`` over ``eng`` in the empty ``pdir``:
+    MUTATE_DURABLE's batches (deletes, then inserts, sampled from one
+    generator), then copies of the first live edge just past the free
+    pools (a rebuild); closed and recovered (over ranks every rank loads
+    its part).  Each held part's digest after the batches and after the
+    recovery, the sampled batches' digests, the WAL's and the
+    snapshot files' bytes, and the times.  The same code on a rank and
+    stacked."""
+    torch, gs, persist = port.torch, port.graph_server, port.persist
+    d = MUTATE_DURABLE
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    server = gs.GraphServer(eng, buckets=DIST_SERVE_BUCKETS, persistence=(
+        gs.Persistence(dir=str(pdir), snapshot_every=d["snapshot_every"])))
+    create_s = time.perf_counter() - t0
+    dyn = server.dynamic_graph()
+    sampled, batch_ms = [], []
+    for i in range(d["batches"]):
+        kind = "deletes" if i % 2 == 0 else "inserts"
+        batch = dyn.sample_deletable(d["size"], rng) if i % 2 == 0 \
+            else dyn.sample_insertable(d["size"], rng)
+        sampled.append(fields_digest({kind: batch}))
+        _sync(torch, eng.device)
+        t0 = time.perf_counter()
+        server.mutate(**{kind: batch})
+        _sync(torch, eng.device)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    u, v = (int(x) for x in dyn.current_edges()[0])
+    k = 1                                      # just past the free pools
+    while not dyn.plan(np.tile([[u, v]], (k, 1)))[2]:
+        k += 1
+    t0 = time.perf_counter()
+    stats = server.mutate(inserts=np.tile([[u, v]], (k, 1)))
+    rebuild_s = time.perf_counter() - t0
+    check(stats.rebuild, f"[dist-durable] {k} copies of ({u}, {v}) did not "
+                         "rebuild")
+    digests = part_digests(eng.g, dyn)
+    on_device = mirrors_on_device(torch, eng.g, server.garr)
+    epoch = server.epoch
+    server.close()
+    mine = f"rank{eng.comm.first_part:03d}-" if eng.distributed \
+        else "snapshot-"
+    snap_bytes = max(os.path.getsize(pdir / f) for f in os.listdir(pdir)
+                     if f.startswith(mine) and f.endswith(".bin"))
+    t0 = time.perf_counter()
+    rec = gs.GraphServer.recover(str(pdir), mesh=eng.mesh,
+                                 device=eng.device,
+                                 buckets=DIST_SERVE_BUCKETS)
+    recover_s = time.perf_counter() - t0
+    rep = rec.recovery_report
+    out = {"digests": digests, "on_device": on_device, "epoch": epoch,
+           "sampled": sampled, "copies": k, "create_s": create_s,
+           "batch_ms": batch_ms, "rebuild_s": rebuild_s,
+           "snap_bytes": snap_bytes,
+           "recovered": part_digests(rec.engine.g, rec.dynamic),
+           "recovered_on_device": mirrors_on_device(torch, rec.engine.g,
+                                                    rec.garr),
+           "recovered_epoch": rec.epoch,
+           "report": (rep.snapshot_epoch, rep.replayed, rep.rebuilds),
+           "recover_s": recover_s,
+           "wal": (persist.wal_path(str(pdir)) if os.path.exists(
+               persist.wal_path(str(pdir))) else None)}
+    rec.close()
+    return out
+
+
 def dist_rank_main(rank: int, d: Path) -> int:
     """One rank of the [dist] phase's gloo run (``chip_smoke.py
     --dist-rank R``): load this rank's part of the graph, build the
@@ -2650,11 +2862,111 @@ def dist_rank_main(rank: int, d: Path) -> int:
             if rank == 0:
                 cell["fields"] = r["fields"]
             out["runs"][key] = cell
+        del res
+        out["recovery"] = dist_recovery(port, eng, garr, job["schedules"])
+        out["serve"] = dist_serve(port, eng)
+        del garr, eng
+        out["durable"] = dist_durable(port, port.GraphEngine(
+            load_part(d / f"durable{rank}.pkl"), device=device, mesh=mesh),
+            d / "durable")
         with open(d / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f, protocol=5)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def dist_rank_checks(ranks: list, want: dict, rec_want: dict,
+                     serve_want: dict, dur_want: dict, by_rank: list,
+                     card: str, on_card: bool) -> dict:
+    """Hold the ranks' checkpointed runs, served answers and durable
+    server to the stacked ones, print the [dist-recovery], [dist-serve]
+    and [dist-durable] lines, and add the ranks' launches to
+    ``by_rank``; the ms each part took a rank."""
+    world = len(ranks)
+    for key, w in rec_want.items():
+        check(w["digest"] == fields_digest(want[key]["fields"])
+              and w["rounds"] == want[key]["rounds"] and w["recoveries"],
+              f"[dist-recovery] stacked {key}: not detected, or the "
+              "recovered outputs differ from the uninterrupted run")
+        for r, res in enumerate(ranks):
+            got = res["recovery"][key]
+            for k in ("digest", "rounds", "detections", "recoveries",
+                      "checkpoints", "resumed", "resumed_from"):
+                check(got.get(k) == w.get(k),
+                      f"[dist-recovery] rank {r} {key}: {k} {got.get(k)} "
+                      f"vs stacked {w.get(k)}")
+        cells = [res["recovery"][key] for res in ranks]
+        resumed = (f"; each rank resumed from its round-{w['resumed_from']} "
+                   f"checkpoint bit-equal (ms a rank "
+                   f"{[round(c['resume_ms'], 1) for c in cells]})"
+                   if "resumed" in w else "")
+        log(f"[dist-recovery] gloo world={world} {key:14s} rounds="
+            f"{w['rounds']} detections={w['detections']} recoveries="
+            f"{w['recoveries']} checkpoints={w['checkpoints']}: ms a rank "
+            f"{[round(c['ms'], 1) for c in cells]} (stacked "
+            f"{w['ms']:.1f} ms); a snapshot {cells[0]['snap_bytes'] / 2**20:.1f}"
+            f" MiB a rank, median ms a rank "
+            f"{[round(c['snap_ms'], 2) for c in cells]}; outputs bit-equal "
+            f"to the stacked runner's{resumed}; launches a rank "
+            f"{[c['launches'] for c in cells]}  ({card})")
+    lead = ranks[0]["serve"]
+    for i, w in enumerate(serve_want["calls"]):
+        got = lead["calls"][i]
+        check(got["answers"] == w["answers"]
+              and all(a[0] == "ok" for a in w["answers"])
+              and len(w["answers"]) == w["n"],
+              f"[dist-serve] {w['name']} x{w['n']}: rank 0's answers "
+              f"{got['answers']} vs stacked {w['answers']}")
+        check(all(res["serve"]["calls"][i]["answers"] == []
+                  for res in ranks[1:]),
+              f"[dist-serve] {w['name']}: a follower returned results")
+        log(f"[dist-serve] gloo world={world} {w['name']:14s} x{w['n']} "
+            f"bucket={w['answers'][0][2]} rounds="
+            f"{sorted({a[1] for a in w['answers']})}: served ms a rank "
+            f"{[round(res['serve']['calls'][i]['ms'], 1) for res in ranks]}"
+            f" (stacked {w['ms']:.1f} ms); answers bit-equal  ({card})")
+    wal = Path(ranks[0]["durable"]["wal"]).read_bytes()
+    check(wal == Path(dur_want["wal"]).read_bytes(),
+          "[dist-durable] rank 0's WAL differs from the stacked server's")
+    for r, res in enumerate(ranks):
+        dd = res["durable"]
+        for k in ("sampled", "copies", "epoch", "report"):
+            check(dd[k] == dur_want[k],
+                  f"[dist-durable] rank {r}: {k} {dd[k]} vs stacked "
+                  f"{dur_want[k]}")
+        check(dd["digests"] == dd["recovered"] == [dur_want["digests"][r]]
+              and dd["recovered_epoch"] == dur_want["epoch"]
+              and dd["on_device"] and dd["recovered_on_device"],
+              f"[dist-durable] rank {r}: mirrors after the batches or "
+              "after recovery differ from the stacked server's part")
+    d = [res["durable"] for res in ranks]
+    log(f"[dist-durable] gloo world={world} {DIST_DURABLE_GRAPH}: "
+        f"{MUTATE_DURABLE['batches']} batches of {MUTATE_DURABLE['size']} "
+        f"(ms a rank {[[round(x, 1) for x in c['batch_ms']] for c in d]}), "
+        f"{dur_want['copies']} copies rebuilt (s a rank "
+        f"{[round(c['rebuild_s'], 2) for c in d]}); created in s a rank "
+        f"{[round(c['create_s'], 2) for c in d]}; a rank snapshot "
+        f"{max(c['snap_bytes'] for c in d) / 2**20:.1f} MiB (stacked "
+        f"{dur_want['snap_bytes'] / 2**20:.1f} MiB); recovered (snapshot "
+        f"{dur_want['report'][0]} + {dur_want['report'][1]} WAL record) in "
+        f"s a rank {[round(c['recover_s'], 2) for c in d]} (stacked "
+        f"{dur_want['recover_s']:.2f} s); WAL ({len(wal)} bytes), every "
+        f"rank's mirrors and planner before and after recovery equal to "
+        f"the stacked server's  ({card})")
+    for r, res in enumerate(ranks):
+        counts = by_rank[r]
+        for cell in list(res["recovery"].values()) + [res["serve"]]:
+            for name in counts:
+                counts[name] += cell["launches"][name]
+        check(not on_card or all(counts.values()),
+              f"[dist] gloo rank {r}: a kernel never launched {counts}")
+    return {"recovery_ms": [sum(c["ms"] for c in res["recovery"].values())
+                            for res in ranks],
+            "serve_ms": [sum(c["ms"] for c in res["serve"]["calls"])
+                         for res in ranks],
+            "durable_s": [c["create_s"] + c["rebuild_s"] + c["recover_s"]
+                          + sum(c["batch_ms"]) / 1e3 for c in d]}
 
 
 def run_dist_compression(port: Port, device) -> dict:
@@ -2728,7 +3040,8 @@ def run_dist(port: Port, engines: dict, device) -> dict:
     1. One rank at parts 1 over NCCL on the card (gloo off it): every
        program (triangles on a TRI_N-vertex graph) through both comms
        in this process, outputs, rounds, wire and launches equal, each
-       timed (median of 3) beside the other.
+       timed (one synchronized run each, after a warm-up of
+       DIST_WARMUP over the comm) beside the other.
     2. DIST_WORLD gloo ranks at parts DIST_WORLD, all on the one card
        (NCCL takes a card a rank): this process hands each rank its
        part as a file, runs the
@@ -2777,21 +3090,20 @@ def run_dist(port: Port, engines: dict, device) -> dict:
         garr_d = eng_d.device_graph()
         eng_dt = port.GraphEngine(g_t, device=device, mesh=mesh)
         tri_d = (eng_dt, eng_dt.device_graph())
+        # the communicator's first collectives, untimed and uncounted
+        dist_programs(port, eng_d, garr_d, DIST_WARMUP)
         got = dist_programs(port, eng_d, garr_d, programs, tri_d)
         for key, w in want.items():
             r = got[key]
             dist_same(f"[dist] {backend} parts=1 {key}", r, w)
             for name in launches:
                 launches[name] += r["launches"][name]
-            ms_d = median_ms(torch, device,
-                             lambda r=r: r["prog"](*r["args"]))
-            ms_s = median_ms(torch, device,
-                             lambda w=w: w["prog"](*w["args"]))
-            one[key] = {"rounds": r["rounds"], "ok": r["ok"], "ms": ms_d,
-                        "stacked_ms": ms_s, "launches": r["launches"]}
+            one[key] = {"rounds": r["rounds"], "ok": r["ok"], "ms": r["ms"],
+                        "stacked_ms": w["ms"], "launches": r["launches"]}
             log(f"[dist] {backend} world=1 parts=1 {key:24s} rounds="
-                f"{r['rounds']:3d} DistComm {ms_d:9.2f} ms  StackedComm "
-                f"{ms_s:9.2f} ms  launches {r['launches']}  ({card})")
+                f"{r['rounds']:3d} DistComm {r['ms']:9.2f} ms  StackedComm "
+                f"{w['ms']:9.2f} ms (one run each)  launches "
+                f"{r['launches']}  ({card})")
         del garr_d, tri_d, got
     finally:
         dist.destroy_process_group()
@@ -2802,14 +3114,34 @@ def run_dist(port: Port, engines: dict, device) -> dict:
     programs = DIST_PROGRAMS
     g, eng_s, garr_s = engines[DIST_WORLD]
     want = dist_programs(port, eng_s, garr_s, programs)
+    # the stacked references of the checkpointed runs, the served
+    # queries and the durable server, at parts DIST_WORLD
+    t0 = time.perf_counter()
+    schedules = {f"{a}/{v}": chaos_schedule(want[f"{a}/{v}"]["rounds"])
+                 for a, v in DIST_RECOVERY}
+    rec_want = dist_recovery(port, eng_s, garr_s, schedules)
+    serve_want = dist_serve(port, eng_s)
+    gcfg = port.graph_workloads.ALL[DIST_DURABLE_GRAPH]
+    g_d = port.partition_graph(port.generate_edges(gcfg, SEED),
+                               gcfg.num_vertices, DIST_WORLD)
+    handed_d = sum(hand_off(g_d.take_part(p), DIST_DIR / f"durable{p}.pkl")
+                   for p in range(DIST_WORLD))
+    dur_want = dist_durable(port, port.GraphEngine(g_d, device=device),
+                            DIST_DIR / "durable-stacked")
+    del g_d
+    stacked_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     handed = sum(hand_off(g.take_part(p), DIST_DIR / f"part{p}.pkl")
                  for p in range(DIST_WORLD))
     log(f"[dist] handed {DIST_WORLD} parts to the ranks: "
         f"{handed / 2 ** 30:.2f} GiB of files in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s, and {DIST_DURABLE_GRAPH}'s "
+        f"{DIST_WORLD} parts ({handed_d / 2 ** 20:.1f} MiB); the stacked "
+        f"checkpointed runs, served queries and durable server took "
+        f"{stacked_s:.1f} s")
     (DIST_DIR / "job.json").write_text(json.dumps(
-        {"programs": programs, "device": str(device)}))
+        {"programs": programs, "device": str(device),
+         "schedules": schedules}))
     t0 = time.perf_counter()
     procs = []
     for r in range(DIST_WORLD):
@@ -2867,6 +3199,8 @@ def run_dist(port: Port, engines: dict, device) -> dict:
         f"at parts {DIST_WORLD}; launches by rank {by_rank}; ops staged "
         f"through pinned host memory (gloo on CUDA tensors): "
         f"{', '.join(staged) or 'none'}")
+    rank_s = dist_rank_checks(ranks, want, rec_want, serve_want, dur_want,
+                              by_rank, card, on_card)
     for c in by_rank:
         for name in launches:
             launches[name] += c[name]
@@ -2885,7 +3219,8 @@ def run_dist(port: Port, engines: dict, device) -> dict:
                                                       "launches")}
                                 for k, v in ranks[0]["runs"].items()},
            "gloo_s": gloo_s, "staged": staged, "by_rank": by_rank,
-           "part_sums": split, "compression": comp, "secs": secs}
+           "part_sums": split, "compression": comp, "secs": secs,
+           "rank_phases": rank_s}
     log("[dist] " + json.dumps(out, default=str))
     log(f"[dist done] {secs:.1f} s")
     return {"launches": launches, "by_rank": by_rank}
@@ -2896,12 +3231,15 @@ def run_dist(port: Port, engines: dict, device) -> dict:
 # ---------------------------------------------------------------------------
 
 def _tensors(torch, tree):
-    """The tensors of a (snapshot's) carry."""
+    """The tensors of a (snapshot's) carry (a ``DistComm`` exchange's
+    received rows, when it holds one)."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, (tuple, list)):
         for x in tree:
             yield from _tensors(torch, x)
+    elif type(tree).__name__ == "Pending":
+        yield tree.recv
 
 
 def carry_bytes(torch, tree) -> int:
@@ -3051,9 +3389,7 @@ def run_chaos(port: Port, engines: dict, main: dict, bsp: dict,
         del rep, runner
 
         # chaos: detect, roll back, replay clean, same bits
-        r_top = max(rounds, 1) - 1
-        sched = (f"drop@r{min(1, r_top)}p0 corrupt@r{min(2, r_top)}p1 "
-                 f"stall@r{min(3, r_top)}p0x2 seed=7")
+        sched = chaos_schedule(rounds)
         with port.localops.using("auto"):
             chaos = port.CheckpointRunner(eng, algo, variant,
                                           checkpoint_every=CHAOS_EVERY,

@@ -44,7 +44,11 @@ Control-plane reductions are not exchanges and are never tapped:
 ``sum_parts`` (a global sum left on the device, for the guards),
 ``all_parts`` (the guarded round's verdict, AND over every part) and
 ``max_scalar``.  ``gather_parts`` collects a vertex field for the
-caller, outside any program.
+caller, outside any program.  ``agree``, ``gather_objects`` and
+``broadcast_object`` move host verdicts and objects between the
+processes of a group (the checkpoint runner's resume check, the rank
+server's messages, the mutation planner's capacity outcome); under
+``DistComm`` they run over a gloo control group (:func:`control_group`).
 
 Bitmaps are int32 words (bit ``i & 31`` of word ``i >> 5``), read as
 the same 32 bits as the JAX package's uint32 words: PyTorch's CPU
@@ -262,6 +266,30 @@ class StackedComm:
         collects a result (not an exchange: untapped)."""
         return x
 
+    # -- control plane: host objects and decisions, never tapped -----------
+    #
+    # One process holds every part here, so each is the identity; under
+    # ``DistComm`` they are collectives over the control group, which
+    # every rank must call in the same order.
+
+    @property
+    def leader(self) -> bool:
+        """True on the process that decides for the group (rank 0)."""
+        return self.first_part == 0
+
+    def agree(self, ok: bool) -> bool:
+        """A host verdict -> True when every process's holds."""
+        return bool(ok)
+
+    def gather_objects(self, obj) -> list:
+        """A host object -> every process's, in part order (one here,
+        standing for all P parts)."""
+        return [obj]
+
+    def broadcast_object(self, obj):
+        """The leader's host object on every process."""
+        return obj
+
     # -- double-buffered exchange: start / finish pairs ---------------------
     #
     # A start ships only the payload and returns the handle; its finish is
@@ -355,6 +383,16 @@ class Pending:
             self.device_recv.copy_(self.recv)
             self.recv, self.device_recv = self.device_recv, None
         return self.recv
+
+    @classmethod
+    def finished(cls, rows: torch.Tensor, device) -> "Pending":
+        """A finished handle whose :meth:`wait` returns a copy of
+        ``rows`` on ``device``: nothing in flight, ``work`` None.  A
+        checkpoint finishes a live handle into host rows with
+        ``Pending.finished(handle.wait(), "cpu")`` (a staged handle's
+        device copy runs inside that ``wait``) and a restore rebuilds
+        it on the exchange's device the same way."""
+        return cls(None, rows.to(device, copy=True), None)
 
 
 class DistComm(StackedComm):
@@ -524,6 +562,18 @@ class DistComm(StackedComm):
     def gather_parts(self, x: torch.Tensor) -> torch.Tensor:
         return self._gather("gather", x)
 
+    def agree(self, ok: bool) -> bool:
+        import torch.distributed as dist
+        flag = torch.tensor([1 if ok else 0], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=control_group())
+        return bool(flag.item())
+
+    def gather_objects(self, obj) -> list:
+        return gather_objects(obj)
+
+    def broadcast_object(self, obj):
+        return broadcast_object(obj)
+
     # -- double-buffered exchange ---------------------------------------------
 
     # A start's handle is the Pending all_to_all of its (1, P_dst, w + 1)
@@ -552,6 +602,45 @@ class DistComm(StackedComm):
 
     def exchange_or_finish(self, handle: Pending, n_local: int):
         return super().exchange_or_finish(handle.wait()[:, None], n_local)
+
+
+# ---------------------------------------------------------------------------
+# The control plane of a group of ranks: host objects, never exchanges.
+# ---------------------------------------------------------------------------
+
+_CONTROL: list = []     # [(default group, its gloo control group)]
+
+
+def control_group():
+    """The process group that carries host objects between the ranks:
+    the default group when it is gloo, else one gloo group over the
+    same ranks, made once for the default group (every rank reaches its
+    first control call at the same point, so every rank makes it in
+    the same order).  Objects then move through host memory whatever
+    backend moves the data."""
+    import torch.distributed as dist
+    world = dist.group.WORLD
+    if str(dist.get_backend()) == "gloo":
+        return None
+    if not _CONTROL or _CONTROL[0][0] is not world:
+        _CONTROL[:] = [(world, dist.new_group(backend="gloo"))]
+    return _CONTROL[0][1]
+
+
+def gather_objects(obj) -> list:
+    """Every rank's picklable ``obj``, in rank order, on every rank."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj, group=control_group())
+    return out
+
+
+def broadcast_object(obj, src: int = 0):
+    """Rank ``src``'s picklable ``obj`` on every rank."""
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=control_group())
+    return box[0]
 
 
 @dataclass(frozen=True)

@@ -18,6 +18,18 @@ turns it into fault tolerance:
     :class:`RecoveryError`;
   * ``run(..., resume_from=checkpoint)`` restarts from any snapshot.
 
+Over ``DistComm`` (one part a rank) every rank runs the same loop on
+its own part: it snapshots and restores its part's carry, and the
+verdict that drives detection and rollback is the one every rank
+already agrees on (``superstep._round_ok`` ANDs over the ranks, and a
+transport stamp depends only on the schedule and the round).  An async
+program's carry holds the exchange in flight, a ``Pending``: a
+snapshot finishes it into host rows and a restore rebuilds it as a
+finished handle on the device, so a replay never reads a handle that
+was already waited on.  A resume checks over the control plane that
+every rank resumes the same ``(phase, rounds)`` from its own part's
+checkpoint.
+
 Chunking does not change a round's arithmetic, and the host copies are
 exact, so a checkpointed, resumed or recovered run gives the bits of an
 uninterrupted one.
@@ -43,6 +55,7 @@ import torch
 
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import localops, registry
+from repro_torch.core.partitioned import Pending
 from repro_torch.core.superstep import PhasedProgram, carry_outputs, \
     init_carry, run_chunk
 from repro_torch.obs import telemetry as obs_telemetry
@@ -57,9 +70,12 @@ def _copy(tree, device):
     """Every tensor of ``tree`` copied to ``device`` and every host array
     copied (never aliased: on a CPU engine ``.to("cpu")`` would return
     the live tensor, and the loop writes the telemetry series in
-    place)."""
+    place).  An exchange in flight is finished first, and copied as a
+    finished handle holding its received rows."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device, copy=True)
+    if isinstance(tree, Pending):
+        return Pending.finished(tree.wait(), device)
     if isinstance(tree, np.ndarray):
         return tree.copy()
     if isinstance(tree, (tuple, list)):
@@ -71,11 +87,14 @@ def _copy(tree, device):
 class Checkpoint:
     """A host-memory snapshot of one phase's loop carry: every tensor
     copied to the CPU, host numbers as they are.  Restoring copies the
-    tensors back to the engine's device, bit for bit."""
+    tensors back to the engine's device, bit for bit.  ``part`` is the
+    first part the carry holds: 0 for every part stacked, the rank's
+    part over ``DistComm``."""
 
     phase: int
     rounds: int
     carry: Any
+    part: int = 0
 
 
 @dataclass
@@ -83,8 +102,9 @@ class RunReport:
     """What a checkpointed run did, beyond its outputs.
 
     ``outputs`` are what a direct call returns: vertex fields as
-    ``(P, n_local)`` tensors on the engine's device
-    (``engine.gather_vertex_field`` applies), scalars as host numbers.
+    ``(P, n_local)`` tensors on the engine's device, ``(1, n_local)``
+    on a rank (``engine.gather_vertex_field`` applies), scalars as host
+    numbers.
     ``detections`` lists the round counter at each detection (the first
     tainted round + 1, or 0 for an init); ``recoveries`` counts the
     rollback replays that cleared one.  ``telemetry`` is the
@@ -126,11 +146,6 @@ class CheckpointRunner:
         if checkpoint_every < 1:
             raise ValueError(
                 f"checkpoint_every must be >= 1, got {checkpoint_every}")
-        if engine.distributed:
-            raise ValueError(
-                "CheckpointRunner snapshots one process's carry; per-rank "
-                "snapshots of a DistComm engine (in-flight handles "
-                "finished first) are ROADMAP.md item L6c")
         self.engine = engine
         self.spec = registry.get_spec(algo, variant)
         self.schedule = faults_mod.as_schedule(faults)
@@ -150,10 +165,24 @@ class CheckpointRunner:
 
     def _snapshot(self, pi: int, carry) -> Checkpoint:
         return Checkpoint(phase=pi, rounds=carry[2],
-                          carry=_copy(carry, "cpu"))
+                          carry=_copy(carry, "cpu"),
+                          part=self.engine.comm.first_part)
 
     def _restore(self, ck: Checkpoint):
         return _copy(ck.carry, self.engine.device)
+
+    def _check_resume(self, ck: Checkpoint) -> None:
+        """Every rank resumes the same ``(phase, rounds)``, each from its
+        own part's checkpoint, or every rank raises."""
+        comm = self.engine.comm
+        said = comm.gather_objects((ck.phase, ck.rounds, ck.part,
+                                    comm.first_part))
+        if len({(ph, r) for ph, r, _, _ in said}) > 1 or any(
+                part != own for _, _, part, own in said):
+            raise ValueError(
+                f"{self.spec.key}: resume checkpoints disagree across "
+                "ranks: (phase, rounds, checkpoint part, rank part) = "
+                f"{said}")
 
     def _bump(self, stats: dict) -> None:
         stats["recoveries"] += 1
@@ -241,8 +270,12 @@ class CheckpointRunner:
         ``garr`` is ``engine.device_graph()``; ``inputs`` follow the
         spec's inputs as in a direct call.  ``resume_from`` restarts from
         a snapshot: the phases before it are folded into its carry, later
-        phases run from their inits.
+        phases run from their inits.  Over ``DistComm`` each rank passes
+        its own part's checkpoint, and every rank raises ``ValueError``
+        unless all of them resume the same ``(phase, rounds)``.
         """
+        if resume_from is not None:
+            self._check_resume(resume_from)
         stats = {"recoveries": 0, "detections": [], "checkpoints": 0,
                  "history": [], "wire": {}, "loop_rounds": 0}
         start = resume_from.phase if resume_from is not None else 0

@@ -29,6 +29,24 @@ killed server from that directory instead of regenerating the graph.
       --graph urand12 --device cpu --duration 2 --rate 16 --recover \\
       --wal-dir build/wal --json -
 
+Under ``torchrun`` every rank joins the process group (gloo with
+``--device cpu``, else NCCL with one card a rank, as
+``launch/graph_analytics.py`` does), builds ``make_graph_mesh(parts)``
+(``--parts`` is the world size) and holds one part; rank 0 leads the
+server (admission, coalescing, the trace, the WAL) and alone prints and
+writes ``--json``, and the other ranks follow its launches, demuxes and
+mutation batches.  ``--mutate-every``, ``--wal-dir`` and ``--recover``
+work there too (each rank snapshots its part):
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.graph_serve --graph urand12 --parts 4 \\
+      --device cpu --duration 2 --rate 16 --mutate-every 0.5 \\
+      --mutate-size 16 --wal-dir build/wal4 --json -
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.graph_serve --graph urand12 --parts 4 \\
+      --device cpu --duration 2 --rate 16 --recover \\
+      --wal-dir build/wal4 --json -
+
 ``--obs`` traces the serving path (every pipeline stage as spans in a
 bounded ring, see ``repro_torch.obs``) and prints a trace summary;
 ``--trace-out trace.json`` additionally writes the session as Chrome
@@ -50,6 +68,8 @@ from repro_torch.configs import graph_workloads
 from repro_torch.core import GraphEngine, localops, partition_graph
 from repro_torch.core.compat import runtime_fingerprint
 from repro_torch.graphs import generate_edges
+from repro_torch.launch.graph_analytics import _quiet, init_ranks
+from repro_torch.launch.mesh import make_graph_mesh
 from repro_torch.obs import SpanRecorder, chrome_trace, trace_summary, \
     write_trace
 from repro_torch.serve import GraphServer, Persistence, mutation_stream, \
@@ -68,8 +88,16 @@ def run(graph_name: str, parts: int = 1, *, device: str | None = None,
     """Serve the trace; returns the server (its metrics, its recorder).
     ``engine`` serves a graph already partitioned (``graph_name``'s, at
     ``parts``) in place of generating it; ``recover`` resumes the
-    server ``wal_dir`` holds instead."""
+    server ``wal_dir`` holds instead.  Inside a process group of
+    ``parts`` ranks every rank calls this: each holds its part, rank 0
+    leads and prints, and the others follow."""
     gcfg = graph_workloads.ALL[graph_name]
+    mesh = engine.mesh if engine is not None else make_graph_mesh(parts)
+    lead = True
+    if mesh.distributed:
+        import torch.distributed as dist
+        lead = dist.get_rank() == 0
+    say = print if lead else _quiet
     # --trace-out implies tracing; a SpanRecorder on the server records
     # every pipeline stage (admission -> ... -> demux) plus durability
     # spans and resilience events
@@ -82,26 +110,26 @@ def run(graph_name: str, parts: int = 1, *, device: str | None = None,
             raise ValueError("recover resumes the graph wal_dir holds; "
                              "it takes no engine")
         t0 = time.time()
-        server = GraphServer.recover(wal_dir, device=device, buckets=buckets,
-                                     depth=depth,
+        server = GraphServer.recover(wal_dir, mesh=mesh, device=device,
+                                     buckets=buckets, depth=depth,
                                      snapshot_every=snapshot_every, obs=rec)
         eng = server.engine
         rep = server.recovery_report
-        print(f"[serve] recovered {wal_dir} in {time.time()-t0:.1f}s: "
-              f"epoch {server.epoch} (snapshot {rep.snapshot_epoch} "
-              f"+ {rep.replayed} WAL records replayed, "
-              f"{rep.skipped} skipped, {rep.rebuilds} rebuilds)")
+        say(f"[serve] recovered {wal_dir} in {time.time()-t0:.1f}s: "
+            f"epoch {server.epoch} (snapshot {rep.snapshot_epoch} "
+            f"+ {rep.replayed} WAL records replayed, "
+            f"{rep.skipped} skipped, {rep.rebuilds} rebuilds)")
     else:
         if engine is None:
-            print(f"[serve] generating {graph_name}: 2^{gcfg.scale} "
-                  f"vertices, {gcfg.num_edges:,} edges ({gcfg.generator})")
+            say(f"[serve] generating {graph_name}: 2^{gcfg.scale} "
+                f"vertices, {gcfg.num_edges:,} edges ({gcfg.generator})")
             edges = generate_edges(gcfg, seed)
             t0 = time.time()
             g = partition_graph(edges, gcfg.num_vertices, parts)
-            print(f"[serve] partitioned over {parts} parts in "
-                  f"{time.time()-t0:.1f}s (layout={layout} "
-                  f"localops={localops.get_mode()})")
-            engine = GraphEngine(g, device=device, layout=layout)
+            say(f"[serve] partitioned over {parts} parts in "
+                f"{time.time()-t0:.1f}s (layout={layout} "
+                f"localops={localops.get_mode()})")
+            engine = GraphEngine(g, device=device, layout=layout, mesh=mesh)
         elif (engine.g.parts, engine.g.n_orig, engine.layout) != \
                 (parts, gcfg.num_vertices, layout):
             raise ValueError(
@@ -115,15 +143,15 @@ def run(graph_name: str, parts: int = 1, *, device: str | None = None,
         server = GraphServer(eng, buckets=buckets, depth=depth,
                              persistence=persistence, obs=rec)
         if persistence:
-            print(f"[serve] durable: wal-dir={wal_dir} "
-                  f"snapshot_every={snapshot_every}")
+            say(f"[serve] durable: wal-dir={wal_dir} "
+                f"snapshot_every={snapshot_every}")
 
     keys = parse_mix(mix)
     t0 = time.time()
     launches = server.warmup([k for k, _ in keys])
-    print(f"[serve] warmed {launches} (program x bucket) launches in "
-          f"{time.time()-t0:.1f}s; ladder={server.ladder.sizes} "
-          f"depth={depth} device={eng.device}")
+    say(f"[serve] warmed {launches} (program x bucket) launches in "
+        f"{time.time()-t0:.1f}s; ladder={server.ladder.sizes} "
+        f"depth={depth} device={eng.device}")
 
     trace = synthetic_trace(eng.g.n_orig, keys, rate=rate,
                             duration=duration, zipf_s=zipf_s, seed=seed)
@@ -136,12 +164,14 @@ def run(graph_name: str, parts: int = 1, *, device: str | None = None,
                                  seed=seed)
         trace = trace + events          # serve_trace sorts by time
         n_mut = len(events)
-        print(f"[serve] merged {n_mut} mutation batches "
-              f"(every {mutate_every:.1f}s, {mutate_size} edges each)")
-    print(f"[serve] replaying {len(trace)-n_mut} queries over "
-          f"{duration:.0f}s (rate={rate:.0f}/s, mix={mix}, "
-          f"zipf_s={zipf_s})")
+        say(f"[serve] merged {n_mut} mutation batches "
+            f"(every {mutate_every:.1f}s, {mutate_size} edges each)")
+    say(f"[serve] replaying {len(trace)-n_mut} queries over "
+        f"{duration:.0f}s (rate={rate:.0f}/s, mix={mix}, "
+        f"zipf_s={zipf_s})")
     results = server.serve_trace(trace)
+    if not lead:                  # the followers' part is done
+        return server
     print(f"[serve] served {len(results)} queries "
           f"({len(results)/server.metrics.window_s:.1f} q/s overall)")
     print(server.metrics.table())
@@ -244,7 +274,8 @@ def main():
                     help="write a Chrome trace-event JSON of the serve "
                          "session (implies --obs; open in ui.perfetto.dev)")
     args = ap.parse_args()
-    run(args.graph, args.parts, device=args.device, mix=args.mix,
+    device = init_ranks(args.device)
+    run(args.graph, args.parts, device=device, mix=args.mix,
         duration=args.duration, rate=args.rate,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         depth=args.depth, zipf_s=args.zipf, seed=args.seed,

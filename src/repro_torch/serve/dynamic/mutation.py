@@ -38,6 +38,21 @@ COO slack) cannot patch; ``apply`` detects this in a capacity dry-run
 BEFORE mutating anything and falls back to a full re-partition +
 re-upload (``MutationStats.rebuild=True``) — correct, just not cheap.
 
+One part a rank.  Over ``DistComm`` the engine holds its own part
+alone, and so does its planner: each rank keeps the free stacks,
+occupancy and position lists of its part and plans and patches only
+its part's cells (the out cells of ``u`` where ``u``'s part is the
+rank's, the in cells of ``v`` likewise), so each rank's mirrors equal
+the stacked planner's row of its part.  What one rank alone sees is
+agreed over the control plane before anything mutates: the capacity
+dry-run's outcome (fits, rebuild, or the ``KeyError`` of an absent
+delete, the one of the earliest such delete) and whether every rank's
+apply succeeded (if one failed, every rank replays its journal).  A
+rebuild gathers every rank's live edges in part order and
+re-partitions the whole graph, and each rank takes its part; the
+samplers gather the per-part tallies and edges they read, so they
+return the stacked planner's batch for the same generator.
+
 Invariants preserved (the ones the kernels rely on):
   * each ELL row's entries stay CONTIGUOUS from its slot base — inserts
     fill at ``base + occ``, deletes move the row's last entry into the
@@ -128,6 +143,9 @@ class DynamicGraph:
 
     def __init__(self, engine, garr=None, *, planner_state=None):
         self.engine = engine
+        # the parts this process holds: all of them stacked, one a rank
+        self._first = engine.comm.first_part
+        self._held = engine.comm.local_parts
         self.garr = dict(garr) if garr is not None else engine.device_graph()
         self.epoch = 0
         self._patch_fn = make_scatter_patch()
@@ -141,6 +159,9 @@ class DynamicGraph:
             self._restore_planner(planner_state)
         else:
             self._rebuild_index()
+
+    def _holds(self, p: int) -> bool:
+        return self._first <= p < self._first + self._held
 
     def _log_undo(self, fn) -> None:
         if self._undo is not None:
@@ -167,33 +188,36 @@ class DynamicGraph:
         # == n marks padding); position lists of the keys mutations
         # touched, the rest read off the graph (module docstring)
         self._free_out = [
-            np.flatnonzero(g.out_dst_global[p] >= g.n)[::-1].tolist()
-            for p in range(g.parts)]
+            np.flatnonzero(g.out_dst_global[lp] >= g.n)[::-1].tolist()
+            for lp in range(self._held)]
         self._free_in = [
-            np.flatnonzero(g.in_src_global[p] >= g.n)[::-1].tolist()
-            for p in range(g.parts)]
-        self._pos_out = [{} for _ in range(g.parts)]
-        self._pos_in = [{} for _ in range(g.parts)]
+            np.flatnonzero(g.in_src_global[lp] >= g.n)[::-1].tolist()
+            for lp in range(self._held)]
+        self._pos_out = [{} for _ in range(self._held)]
+        self._pos_in = [{} for _ in range(self._held)]
 
     def _graph_positions(self, side: str, p: int, u: int, v: int) -> list:
         """Live positions of edge (u, v) in partition p's out-COO
         (``side="out"``, p owns u) or in-COO (p owns v), ascending."""
         g = self.engine.g
-        lo = p * g.n_local
+        lo, lp = p * g.n_local, p - self._first
         if side == "out":
             name, row, col, want = "ell_out", u - lo, g.out_dst_global, v
         else:
             name, row, col, want = "ell_src", u, g.in_dst_local, v - lo
-        q = self._ell_row(name, p, row)
+        q = self._ell_row(name, lp, row)
         base = int(self._row_layout[name][0][q])
-        es = g.ell_arrays[f"{name}_idx"][p, base:base + self._occ[name][p, q]]
-        return sorted(es[col[p, es] == want].tolist())
+        es = g.ell_arrays[f"{name}_idx"][lp,
+                                         base:base + self._occ[name][lp, q]]
+        return sorted(es[col[lp, es] == want].tolist())
 
     def positions(self, side: str, p: int, u: int, v: int) -> list:
         """The position list of edge (u, v) (``side`` as in
         ``_graph_positions``), in the order the planner pops it from:
-        the last entry goes first."""
-        d = self._pos_out[p] if side == "out" else self._pos_in[p]
+        the last entry goes first.  ``p`` is a part this process
+        holds."""
+        lp = p - self._first
+        d = self._pos_out[lp] if side == "out" else self._pos_in[lp]
         got = d.get((u, v))
         return list(got) if got is not None \
             else self._graph_positions(side, p, u, v)
@@ -202,7 +226,8 @@ class DynamicGraph:
         """The mutable position list of (u, v), taken into the index
         of touched keys on first use (journaled, so a rolled-back batch
         leaves the index as it found it)."""
-        d = self._pos_out[p] if side == "out" else self._pos_in[p]
+        lp = p - self._first
+        d = self._pos_out[lp] if side == "out" else self._pos_in[lp]
         key = (u, v)
         lst = d.get(key)
         if lst is None:
@@ -220,7 +245,8 @@ class DynamicGraph:
         reduction order in every downstream kernel — is a function of
         this state.  ``pos_out``/``pos_in`` hold the keys mutations
         touched; every other key's list is re-read off the snapshot's
-        graph mirrors on restore.  A restored planner replays mutations
+        graph mirrors on restore.  The lists are the held parts', in
+        part order (one part's on a rank).  A restored planner replays mutations
         into the same slots the original run used, which is what makes
         recovered answers bit-identical."""
         return {
@@ -248,64 +274,93 @@ class DynamicGraph:
 
     # -- capacity ----------------------------------------------------------
 
-    def _ell_row(self, name: str, p: int, orig_row: int) -> int:
+    def _ell_row(self, name: str, lp: int, orig_row: int) -> int:
+        """The ELL row of ``orig_row`` in held part ``lp`` (an index into
+        the parts this process holds)."""
         inv = self.engine.g.ell_arrays[f"{name}_inv"]
-        return int(inv[p, orig_row])
+        return int(inv[lp, orig_row])
 
-    def _edge_rows(self, u: int, v: int):
-        """The four (name, partition, ELL row) cells edge (u, v) lives in."""
-        n_local = self.engine.g.n_local
+    def _own_row(self, name: str, p: int, orig_row: int):
+        """``_ell_row`` of global part ``p``, None for a part held
+        elsewhere."""
+        return self._ell_row(name, p - self._first, orig_row) \
+            if self._holds(p) else None
+
+    @staticmethod
+    def _cells(u: int, v: int, n_local: int, row):
+        """The four (name, partition, ELL row) cells edge (u, v) lives
+        in, ``row(name, p, orig_row)`` naming each row."""
         pu, pv = u // n_local, v // n_local
         ul, vl = u - pu * n_local, v - pv * n_local
-        return ((("ell_in", pv, self._ell_row("ell_in", pv, vl)),
-                 ("ell_out", pu, self._ell_row("ell_out", pu, ul)),
-                 ("ell_dst", pu, self._ell_row("ell_dst", pu, v)),
-                 ("ell_src", pv, self._ell_row("ell_src", pv, u))),
+        return ((("ell_in", pv, row("ell_in", pv, vl)),
+                 ("ell_out", pu, row("ell_out", pu, ul)),
+                 ("ell_dst", pu, row("ell_dst", pu, v)),
+                 ("ell_src", pv, row("ell_src", pv, u))),
                 pu, pv)
 
     def _check_capacity(self, ins: np.ndarray, dels: np.ndarray) -> None:
         """Dry-run the whole batch against the free pools; raises
         EllOverflow (or KeyError for an absent delete) BEFORE any mirror
-        mutates, so a failed batch leaves the graph untouched."""
+        mutates, so a failed batch leaves the graph untouched.  Each
+        process checks the cells of the parts it holds; the outcome is
+        agreed: the earliest absent delete in the batch, else an
+        overflow of any part's pools."""
         n_local = self.engine.g.n_local
         # deletes must all name live edge instances
+        absent = None
         cd = Counter((int(u), int(v)) for u, v in dels)
-        for (u, v), c in cd.items():
+        for i, ((u, v), c) in enumerate(cd.items()):
+            if not self._holds(u // n_local):
+                continue
             have = len(self.positions("out", u // n_local, u, v))
             if c > have:
-                raise KeyError(
-                    f"delete of edge ({u}, {v}) x{c}: only {have} "
-                    "instance(s) present")
-        # net per-cell growth vs. free width / free COO positions
+                absent = (i, f"delete of edge ({u}, {v}) x{c}: only "
+                             f"{have} instance(s) present")
+                break
+        said = self.engine.comm.gather_objects(
+            (absent, None if absent else self._overflow(ins, dels)))
+        absents = [a for a, _ in said if a is not None]
+        if absents:
+            raise KeyError(min(absents)[1])
+        for _, overflow in said:
+            if overflow is not None:
+                raise EllOverflow(overflow)
+
+    def _overflow(self, ins: np.ndarray, dels: np.ndarray):
+        """Net per-cell growth of the held parts vs. free width / free
+        COO positions: the first overflow's message, or None."""
+        n_local, first = self.engine.g.n_local, self._first
         net_rows: Counter = Counter()
         net_out: Counter = Counter()
         net_in: Counter = Counter()
         for arr, sign in ((ins, +1), (dels, -1)):
             for u, v in arr:
-                cells, pu, pv = self._edge_rows(int(u), int(v))
+                cells, pu, pv = self._cells(int(u), int(v), n_local,
+                                            self._own_row)
                 for cell in cells:
-                    net_rows[cell] += sign
-                net_out[pu] += sign
-                net_in[pv] += sign
+                    if cell[2] is not None:
+                        net_rows[cell] += sign
+                if self._holds(pu):
+                    net_out[pu] += sign
+                if self._holds(pv):
+                    net_in[pv] += sign
         for p, d in net_out.items():
-            if d > len(self._free_out[p]):
-                raise EllOverflow(
-                    f"partition {p}: out-COO needs {d} free positions, "
-                    f"has {len(self._free_out[p])}")
+            if d > len(self._free_out[p - first]):
+                return (f"partition {p}: out-COO needs {d} free positions, "
+                        f"has {len(self._free_out[p - first])}")
         for p, d in net_in.items():
-            if d > len(self._free_in[p]):
-                raise EllOverflow(
-                    f"partition {p}: in-COO needs {d} free positions, "
-                    f"has {len(self._free_in[p])}")
+            if d > len(self._free_in[p - first]):
+                return (f"partition {p}: in-COO needs {d} free positions, "
+                        f"has {len(self._free_in[p - first])}")
         for (name, p, q), d in net_rows.items():
             if d <= 0:
                 continue
             width = self._row_layout[name][1][q]
-            if self._occ[name][p, q] + d > width:
-                raise EllOverflow(
-                    f"{name} partition {p} row {q}: occupancy "
-                    f"{self._occ[name][p, q]}+{d} exceeds bucket width "
-                    f"{width}")
+            occ = self._occ[name][p - first, q]
+            if occ + d > width:
+                return (f"{name} partition {p} row {q}: occupancy "
+                        f"{occ}+{d} exceeds bucket width {width}")
+        return None
 
     # -- host-mirror mutation ---------------------------------------------
 
@@ -370,67 +425,82 @@ class DynamicGraph:
         self._touch(touched, key, p, vl)
         getattr(self.engine.g, key)[p, vl] += delta
 
+    # The mutation helpers above and below index the held parts: ``p``
+    # there is a local index (``global part - first held part``).
+
     def _insert_one(self, u, v, touched):
-        g = self.engine.g
-        n_local = g.n_local
+        n_local = self.engine.g.n_local
         pu, pv = u // n_local, v // n_local
         ul, vl = u - pu * n_local, v - pv * n_local
+        lu, lv = pu - self._first, pv - self._first
+        out, into = self._holds(pu), self._holds(pv)
         # read the key's lists before this edge changes the rows they
         # are read from
-        pos_out = self._pos_list("out", pu, u, v)
-        pos_in = self._pos_list("in", pv, u, v)
-        e_out = self._free_out[pu].pop()
-        e_in = self._free_in[pv].pop()
-        self._log_undo(lambda: self._free_out[pu].append(e_out))
-        self._log_undo(lambda: self._free_in[pv].append(e_in))
-        self._coo_set("out_src_local", pu, e_out, ul, touched)
-        self._coo_set("out_dst_global", pu, e_out, v, touched)
-        self._coo_set("in_src_global", pv, e_in, u, touched)
-        self._coo_set("in_dst_local", pv, e_in, vl, touched)
-        pos_out.append(e_out)
-        pos_in.append(e_in)
-        self._log_undo(pos_out.pop)
-        self._log_undo(pos_in.pop)
-        self._bump_degree("out_degree", pu, ul, +1, touched)
-        self._bump_degree("in_degree", pv, vl, +1, touched)
-        self._ell_fill("ell_in", pv, vl, u, touched)        # neighbor id
-        self._ell_fill("ell_out", pu, ul, e_out, touched)   # edge position
-        self._ell_fill("ell_dst", pu, v, e_out, touched)
-        self._ell_fill("ell_src", pv, u, e_in, touched)
+        if out:
+            pos_out = self._pos_list("out", pu, u, v)
+        if into:
+            pos_in = self._pos_list("in", pv, u, v)
+        if out:
+            e_out = self._free_out[lu].pop()
+            self._log_undo(lambda: self._free_out[lu].append(e_out))
+            self._coo_set("out_src_local", lu, e_out, ul, touched)
+            self._coo_set("out_dst_global", lu, e_out, v, touched)
+            pos_out.append(e_out)
+            self._log_undo(pos_out.pop)
+            self._bump_degree("out_degree", lu, ul, +1, touched)
+            self._ell_fill("ell_out", lu, ul, e_out, touched)  # position
+            self._ell_fill("ell_dst", lu, v, e_out, touched)
+        if into:
+            e_in = self._free_in[lv].pop()
+            self._log_undo(lambda: self._free_in[lv].append(e_in))
+            self._coo_set("in_src_global", lv, e_in, u, touched)
+            self._coo_set("in_dst_local", lv, e_in, vl, touched)
+            pos_in.append(e_in)
+            self._log_undo(pos_in.pop)
+            self._bump_degree("in_degree", lv, vl, +1, touched)
+            self._ell_fill("ell_in", lv, vl, u, touched)    # neighbor id
+            self._ell_fill("ell_src", lv, u, e_in, touched)
 
     def _delete_one(self, u, v, touched):
         g = self.engine.g
         n_local, n = g.n_local, g.n
         pu, pv = u // n_local, v // n_local
         ul, vl = u - pu * n_local, v - pv * n_local
-        pos_out = self._pos_list("out", pu, u, v)
-        pos_in = self._pos_list("in", pv, u, v)
-        e_out = pos_out.pop()
-        e_in = pos_in.pop()
-        self._log_undo(lambda: pos_out.append(e_out))
-        self._log_undo(lambda: pos_in.append(e_in))
-        self._ell_vacate("ell_in", pv, vl, u, touched)
-        self._ell_vacate("ell_out", pu, ul, e_out, touched)
-        self._ell_vacate("ell_dst", pu, v, e_out, touched)
-        self._ell_vacate("ell_src", pv, u, e_in, touched)
-        self._coo_set("out_src_local", pu, e_out, 0, touched)
-        self._coo_set("out_dst_global", pu, e_out, n, touched)
-        self._coo_set("in_src_global", pv, e_in, n, touched)
-        self._coo_set("in_dst_local", pv, e_in, 0, touched)
-        self._bump_degree("out_degree", pu, ul, -1, touched)
-        self._bump_degree("in_degree", pv, vl, -1, touched)
-        self._free_out[pu].append(e_out)
-        self._free_in[pv].append(e_in)
-        self._log_undo(lambda: self._free_out[pu].pop())
-        self._log_undo(lambda: self._free_in[pv].pop())
+        lu, lv = pu - self._first, pv - self._first
+        out, into = self._holds(pu), self._holds(pv)
+        if out:
+            pos_out = self._pos_list("out", pu, u, v)
+        if into:
+            pos_in = self._pos_list("in", pv, u, v)
+        if out:
+            e_out = pos_out.pop()
+            self._log_undo(lambda: pos_out.append(e_out))
+            self._ell_vacate("ell_out", lu, ul, e_out, touched)
+            self._ell_vacate("ell_dst", lu, v, e_out, touched)
+            self._coo_set("out_src_local", lu, e_out, 0, touched)
+            self._coo_set("out_dst_global", lu, e_out, n, touched)
+            self._bump_degree("out_degree", lu, ul, -1, touched)
+            self._free_out[lu].append(e_out)
+            self._log_undo(lambda: self._free_out[lu].pop())
+        if into:
+            e_in = pos_in.pop()
+            self._log_undo(lambda: pos_in.append(e_in))
+            self._ell_vacate("ell_in", lv, vl, u, touched)
+            self._ell_vacate("ell_src", lv, u, e_in, touched)
+            self._coo_set("in_src_global", lv, e_in, n, touched)
+            self._coo_set("in_dst_local", lv, e_in, 0, touched)
+            self._bump_degree("in_degree", lv, vl, -1, touched)
+            self._free_in[lv].append(e_in)
+            self._log_undo(lambda: self._free_in[lv].pop())
 
     # -- device patching ---------------------------------------------------
 
-    def _apply_patches(self, touched) -> tuple[int, int]:
+    def _apply_patches(self, touched) -> tuple[int, list]:
         """One patch per touched array that ships: its touched slots,
         as flat ``p * S + s`` positions in ascending order, with their
-        final values read off the mirror."""
-        n_slots = n_arrays = 0
+        final values read off the mirror.  Returns the slots patched and
+        the arrays' keys."""
+        n_slots, keys = 0, []
         for key, coords in sorted(touched.items()):
             if key not in self.garr:
                 # layout="coo" engines never shipped the ELL arrays;
@@ -442,8 +512,8 @@ class DynamicGraph:
                 self.garr[key], ps[:, 0] * host.shape[1] + ps[:, 1],
                 host[ps[:, 0], ps[:, 1]])
             n_slots += len(ps)
-            n_arrays += 1
-        return n_slots, n_arrays
+            keys.append(key)
+        return n_slots, keys
 
     # -- public API --------------------------------------------------------
 
@@ -455,7 +525,8 @@ class DynamicGraph:
         take the re-partition path.  Raises exactly what ``apply``
         would raise for an invalid batch (out-of-range endpoints,
         deletes of absent edges) — which is what lets the durability
-        layer reject a batch BEFORE logging it."""
+        layer reject a batch BEFORE logging it.  Over ranks every rank
+        returns, or raises, the same."""
         ins, dels = _as_pairs(inserts), _as_pairs(deletes)
         g = self.engine.g
         for arr, what in ((ins, "insert"), (dels, "delete")):
@@ -477,7 +548,9 @@ class DynamicGraph:
         ``force_rebuild=True`` takes the re-partition path even when
         the batch would fit — WAL replay uses it so a logged rebuild
         record deterministically re-takes the path the original
-        execution took."""
+        execution took.  Over ranks a batch that fails on one rank is
+        rolled back on every rank, and the stats count every rank's
+        patches."""
         t0 = time.perf_counter()
         ins, dels, overflow = self.plan(inserts, deletes)
         if overflow or force_rebuild:
@@ -486,16 +559,28 @@ class DynamicGraph:
         garr_prev = dict(self.garr)        # refs only: patches are CoW
         self._undo = []
         try:
-            for u, v in dels:             # deletes first: free the slots
-                self._delete_one(int(u), int(v), touched)
-            for u, v in ins:
-                self._insert_one(int(u), int(v), touched)
-            n_slots, n_arrays = self._apply_patches(touched)
+            err, n_slots, keys = None, 0, []
+            try:
+                for u, v in dels:         # deletes first: free the slots
+                    self._delete_one(int(u), int(v), touched)
+                for u, v in ins:
+                    self._insert_one(int(u), int(v), touched)
+                n_slots, keys = self._apply_patches(touched)
+            except Exception as e:
+                err = e
+            said = self.engine.comm.gather_objects(
+                (err is None, n_slots, keys))
+            if err is not None:
+                raise err
+            if not all(ok for ok, _, _ in said):
+                raise RuntimeError("mutation batch failed on another "
+                                   "rank; rolled back on every rank")
         except BaseException:
             # failure atomicity: an exception mid-batch (planning OR
-            # device patching) replays the journal in reverse — free
-            # stacks, position index, occupancy, mirrors and the
-            # resident device graph all return to the pre-batch epoch
+            # device patching, here or on another rank) replays the
+            # journal in reverse — free stacks, position index,
+            # occupancy, mirrors and the resident device graph all
+            # return to the pre-batch epoch
             for undo in reversed(self._undo):
                 undo()
             self.garr = garr_prev
@@ -505,16 +590,19 @@ class DynamicGraph:
         self.epoch += 1
         return MutationStats(
             epoch=self.epoch, n_insert=len(ins), n_delete=len(dels),
-            slots_patched=n_slots, arrays_patched=n_arrays, rebuild=False,
-            apply_s=time.perf_counter() - t0)
+            slots_patched=sum(n for _, n, _ in said),
+            arrays_patched=len(set().union(*(k for _, _, k in said))),
+            rebuild=False, apply_s=time.perf_counter() - t0)
 
     def _rebuild(self, ins, dels, t0) -> MutationStats:
-        g = self.engine.g
+        eng = self.engine
+        g = eng.g
         cur = drop_first_instances(self.current_edges(), dels, g.n_orig)
         if len(ins):
             cur = np.concatenate([cur, ins])
-        self.engine.g = partition_graph(cur, g.n_orig, g.parts)
-        self.garr = self.engine.device_graph()
+        whole = partition_graph(cur, g.n_orig, g.parts)
+        eng.g = whole.take_part(self._first) if eng.distributed else whole
+        self.garr = eng.device_graph()
         self._rebuild_index()
         self.epoch += 1
         return MutationStats(
@@ -526,26 +614,49 @@ class DynamicGraph:
         """(E_live, 2) int64 edge list read off the out-shard mirrors
         (partition by partition, positions ascending) — what a rebuild
         re-partitions and what an oracle referees post-mutation answers
-        against."""
+        against.  Over ranks every rank's part is gathered, in part
+        order."""
         g = self.engine.g
         out = []
-        for p in range(g.parts):
-            ee = np.flatnonzero(g.out_dst_global[p] < g.n)
-            u = g.out_src_local[p, ee].astype(np.int64) + p * g.n_local
-            v = g.out_dst_global[p, ee].astype(np.int64)
+        for lp in range(self._held):
+            ee = np.flatnonzero(g.out_dst_global[lp] < g.n)
+            u = g.out_src_local[lp, ee].astype(np.int64) \
+                + (self._first + lp) * g.n_local
+            v = g.out_dst_global[lp, ee].astype(np.int64)
             out.append(np.stack([u, v], axis=1))
-        return np.concatenate(out) if out else np.zeros((0, 2), np.int64)
+        mine = np.concatenate(out) if out else np.zeros((0, 2), np.int64)
+        parts = self.engine.comm.gather_objects(mine)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     # -- capacity-aware sampling (tests / benches) -------------------------
+
+    def _tallies(self):
+        """Every part's ``(occupancy, free out-COO count, free in-COO
+        count, ELL inverse maps)``, with a leading part dim, gathered
+        from the ranks that hold them."""
+        g = self.engine.g
+        said = self.engine.comm.gather_objects((
+            self._occ, [len(x) for x in self._free_out],
+            [len(x) for x in self._free_in],
+            {name: g.ell_arrays[f"{name}_inv"] for name in _ELL_NAMES}))
+        occ = {name: np.concatenate([s[0][name] for s in said])
+               for name in _ELL_NAMES}
+        inv = {name: np.concatenate([s[3][name] for s in said])
+               for name in _ELL_NAMES}
+        return (occ, [c for s in said for c in s[1]],
+                [c for s in said for c in s[2]], inv)
 
     def sample_insertable(self, k: int, rng) -> np.ndarray:
         """Sample k (u, v) pairs guaranteed to fit the free pools AS ONE
         BATCH — the deterministic way to exercise the patch path (random
         pairs may overflow a hot row, which is the rebuild path's job)."""
         g = self.engine.g
+        occ, free_out, free_in, inv = self._tallies()
+
+        def row(name, p, orig_row):
+            return int(inv[name][p, orig_row])
+
         taken: Counter = Counter()         # cells this sample has filled
-        free_out = [len(x) for x in self._free_out]
-        free_in = [len(x) for x in self._free_in]
         out: list[tuple[int, int]] = []
         tries = 0
         while len(out) < k:
@@ -556,10 +667,10 @@ class DynamicGraph:
                     "exhausted")
             u = int(rng.integers(0, g.n_orig))
             v = int(rng.integers(0, g.n_orig))
-            cells, pu, pv = self._edge_rows(u, v)
+            cells, pu, pv = self._cells(u, v, g.n_local, row)
             if free_out[pu] < 1 or free_in[pv] < 1:
                 continue
-            if any(self._occ[name][p, q] + taken[(name, p, q)]
+            if any(occ[name][p, q] + taken[(name, p, q)]
                    >= self._row_layout[name][1][q]
                    for name, p, q in cells):
                 continue

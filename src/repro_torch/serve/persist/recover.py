@@ -22,17 +22,29 @@ failure so a dead store is diagnosable from the exception alone.
 
 The recovered engine lives on the card unless the caller names another
 device (``device="cpu"``).
+
+Over ranks (``mesh=make_graph_mesh(P)`` inside a group of P ranks,
+every rank calling) the loop runs over the manifests instead, newest
+first: each rank checks its own file against the manifest's digest and
+the ranks agree; each loads its part, and every rank replays the WAL
+that rank 0 keeps (rank 0 truncates a torn tail before the others read
+it).  A directory written by ranks refuses a stacked recovery, and one
+written stacked refuses a rank recovery, each with ``ValueError``.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 from repro_torch.core.api import GraphEngine
+from repro_torch.core.partitioned import gather_objects
 from repro_torch.serve.dynamic.mutation import DynamicGraph
-from repro_torch.serve.persist.snapshot import SnapshotCorrupt, find_snapshots, \
-    load_snapshot
-from repro_torch.serve.persist.wal import WriteAheadLog, edge_digest, wal_path
+from repro_torch.serve.persist.snapshot import SnapshotCorrupt, \
+    file_digest, find_manifests, find_snapshots, load_manifest, \
+    load_snapshot, unpack_snapshot
+from repro_torch.serve.persist.wal import WriteAheadLog, edge_digest, \
+    read_records, wal_path
 
 
 class RecoveryFailed(RuntimeError):
@@ -63,7 +75,7 @@ class RecoveredState:
     epoch: int
     seeds: dict
     mutation_log: list
-    wal: WriteAheadLog
+    wal: WriteAheadLog | None            # rank 0's alone over ranks
     digest: int
     count: int
     batch_id: int
@@ -71,11 +83,27 @@ class RecoveredState:
     report: RecoveryReport
 
 
-def recover_state(dir_: str, *, device=None) -> RecoveredState:
+def recover_state(dir_: str, *, device=None, mesh=None) -> RecoveredState:
     """Recover the serving state from a durability directory onto
     ``device`` (default: the card, or raise without one); raises
-    :class:`RecoveryFailed` when no snapshot validates end to end."""
+    :class:`RecoveryFailed` when no snapshot validates end to end.
+    ``mesh`` over ranks recovers a directory the ranks wrote, this
+    rank's part (module docstring)."""
     snaps = find_snapshots(dir_)
+    manifests = find_manifests(dir_)
+    if mesh is not None and mesh.distributed:
+        if snaps and not manifests:
+            raise ValueError(
+                f"{dir_!r} holds one process's snapshots (a stacked "
+                "server's), not ranks' manifests; recover it without a "
+                "distributed mesh")
+        return _recover_ranks(dir_, device, mesh, manifests)
+    if manifests:
+        world = load_manifest(manifests[0][1])["world"]
+        raise ValueError(
+            f"{dir_!r} was written by {world} ranks (rank snapshots under "
+            f"manifests); recover it on {world} ranks with "
+            f"mesh=make_graph_mesh({world})")
     if not snaps:
         raise RecoveryFailed(f"{dir_!r}: no snapshots to recover from")
     wal = WriteAheadLog(wal_path(dir_))   # truncates any torn tail
@@ -86,7 +114,7 @@ def recover_state(dir_: str, *, device=None) -> RecoveredState:
             if epoch != snap_epoch:
                 raise SnapshotCorrupt(
                     f"header epoch {epoch} != filename epoch {snap_epoch}")
-            return _recover_from(state, wal, device, tried)
+            return _recover_from(state, wal, wal.records, device, tried)
         except (SnapshotCorrupt, RecoveryFailed) as e:
             errors.append(f"  {path}: {e}")
     wal.close()
@@ -95,13 +123,74 @@ def recover_state(dir_: str, *, device=None) -> RecoveredState:
         + "\n".join(errors))
 
 
-def _recover_from(state: dict, wal: WriteAheadLog, device,
-                  tried: int) -> RecoveredState:
+def _load_rank_part(dir_: str, man: dict, epoch: int, rank: int) -> dict:
+    """This rank's state under a manifest, checked against its digest,
+    its epoch, its part and the layout signature."""
+    entry = man["files"][rank]
+    try:
+        with open(os.path.join(str(dir_), entry["name"]), "rb") as f:
+            data = f.read()
+    except OSError as e:
+        raise SnapshotCorrupt(f"unreadable: {e}") from e
+    if file_digest(data) != entry["sha256"]:
+        raise SnapshotCorrupt(f"{entry['name']}: digest differs from the "
+                              "manifest's")
+    got, state = unpack_snapshot(data)
+    if (got, state.get("part")) != (epoch, rank):
+        raise SnapshotCorrupt(f"{entry['name']}: epoch {got} part "
+                              f"{state.get('part')}, not {epoch} {rank}")
+    if state["graph"].layout_signature() != state["layout_signature"]:
+        raise SnapshotCorrupt(
+            "pickled mirrors disagree with the recorded layout signature")
+    return state
+
+
+def _recover_ranks(dir_: str, device, mesh, manifests) -> RecoveredState:
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    if not manifests:
+        raise RecoveryFailed(f"{dir_!r}: no manifests to recover from")
+    # rank 0 keeps the log (and truncates a torn tail) before the
+    # others read it
+    wal = WriteAheadLog(wal_path(dir_)) if rank == 0 else None
+    gather_objects(None)
+    records = wal.records if wal is not None \
+        else read_records(wal_path(dir_))
+    errors = []
+    for tried, (epoch, path) in enumerate(manifests, start=1):
+        man = load_manifest(path)
+        if man["world"] != mesh.parts:
+            raise ValueError(
+                f"{path}: written by {man['world']} ranks, recovered on "
+                f"{mesh.parts}")
+        state, err = None, None
+        try:
+            state = _load_rank_part(dir_, man, epoch, rank)
+        except SnapshotCorrupt as e:
+            err = f"rank {rank}: {e}"
+        said = gather_objects(err)
+        if any(said):
+            errors.append(f"  {path}: " + "; ".join(e for e in said if e))
+            continue
+        try:
+            return _recover_from(state, wal, records, device, tried, mesh)
+        except RecoveryFailed as e:   # raised on every rank alike
+            errors.append(f"  {path}: {e}")
+    if wal is not None:
+        wal.close()
+    raise RecoveryFailed(
+        f"{dir_!r}: no manifest whose rank files all validate (tried "
+        f"{len(manifests)}):\n" + "\n".join(errors))
+
+
+def _recover_from(state: dict, wal: WriteAheadLog | None, records: list,
+                  device, tried: int, mesh=None) -> RecoveredState:
     g = state["graph"]
     if g.layout_signature() != state["layout_signature"]:
         raise RecoveryFailed(
             "pickled mirrors disagree with the recorded layout signature")
-    engine = GraphEngine(g, device=device, layout=state["layout"])
+    engine = GraphEngine(g, device=device, layout=state["layout"],
+                         mesh=mesh)
     dyn = DynamicGraph(engine, planner_state=state["planner"])
     dyn.epoch = int(state["epoch"])
 
@@ -109,7 +198,7 @@ def _recover_from(state: dict, wal: WriteAheadLog, device,
     batch_id = int(state["batch_id"])
     mutation_log = [dict(m) for m in state["mutation_log"]]
     replayed = skipped = rebuilds = 0
-    for rec in wal.records:
+    for rec in records:
         if rec.batch_id <= batch_id:
             skipped += 1                    # already folded into the snapshot
             continue
@@ -139,7 +228,7 @@ def _recover_from(state: dict, wal: WriteAheadLog, device,
     report = RecoveryReport(
         snapshot_epoch=int(state["epoch"]), epoch=dyn.epoch,
         batch_id=batch_id, replayed=replayed, skipped=skipped,
-        rebuilds=rebuilds, wal_records=wal.n_records,
+        rebuilds=rebuilds, wal_records=len(records),
         snapshots_tried=tried)
     return RecoveredState(
         engine=engine, dynamic=dyn, epoch=dyn.epoch,

@@ -28,10 +28,21 @@ classes, so the two packages' snapshot files are not interchangeable.
 
 No device tensor is ever pickled: mirrors and warm seeds are numpy,
 and recovery re-uploads them.
+
+Ranks.  A server over P ranks (one part a rank) snapshots in the same
+envelope, one file a rank (``rank<r>-snapshot-<epoch>.bin``, each
+rank's part of the state), and rank 0 commits the epoch with a
+manifest (``manifest-<epoch>.json``: the world size, each rank file's
+name, bytes and SHA-256) written by the same temp + fsync + rename +
+directory-fsync recipe, once every rank's file is durable.  An epoch
+without a manifest was never committed: a crash between two ranks'
+writes recovers the previous one.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 import pickle
 import re
@@ -46,6 +57,9 @@ SNAP_MAGIC = b"RSNAP001"
 _SNAP_HEADER = struct.Struct("<QII")    # epoch, crc32, payload length
 FORMAT_VERSION = 1
 _NAME_RE = re.compile(r"^snapshot-(\d{10})\.bin$")
+_RANK_RE = re.compile(r"^rank(\d{3})-snapshot-(\d{10})\.bin$")
+_MANIFEST_RE = re.compile(r"^manifest-(\d{10})\.json$")
+MANIFEST_FORMAT = 1
 
 
 class SnapshotCorrupt(RuntimeError):
@@ -105,10 +119,27 @@ def find_snapshots(dir_: str) -> list[tuple[int, str]]:
 def write_snapshot(dir_: str, epoch: int, state: dict,
                    fsync: bool = True) -> str:
     head, payload = _envelope(epoch, state)
-    chunks = (memoryview(head), memoryview(payload))
+    return _publish(snapshot_path(dir_, epoch), (head, payload), fsync)
+
+
+def _fsync_dir(dir_: str) -> None:
+    fd = os.open(str(dir_), os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _publish(final: str, parts, fsync: bool,
+             crash_points: bool = True) -> str:
+    """Write ``parts`` (bytes, in order) as ``final`` by the atomic
+    recipe (temp ``.<stem>.tmp`` beside it, fsync, rename, directory
+    fsync); the snapshot crash points fire inside unless
+    ``crash_points`` is off."""
+    chunks = tuple(memoryview(m) for m in parts)
 
     def write_span(f, lo: int, hi: int) -> None:
-        """Bytes [lo, hi) of head + payload, without joining them."""
+        """Bytes [lo, hi) of the parts, without joining them."""
         off = 0
         for m in chunks:
             a, b = max(lo - off, 0), min(hi - off, len(m))
@@ -116,29 +147,94 @@ def write_snapshot(dir_: str, epoch: int, state: dict,
                 f.write(m[a:b])
             off += len(m)
 
-    total = len(head) + len(payload)
-    tmp = os.path.join(str(dir_), f".snapshot-{epoch:010d}.tmp")
+    total = sum(len(m) for m in chunks)
+    dir_, name = os.path.split(final)
+    tmp = os.path.join(dir_, "." + name.rsplit(".", 1)[0] + ".tmp")
     with open(tmp, "wb") as f:
         half = total // 2
         write_span(f, 0, half)
         f.flush()
         if fsync:
             os.fsync(f.fileno())
-        maybe_crash("mid-snapshot-temp-write")
+        if crash_points:
+            maybe_crash("mid-snapshot-temp-write")
         write_span(f, half, total)
         f.flush()
         if fsync:
             os.fsync(f.fileno())
-    final = snapshot_path(dir_, epoch)
     os.replace(tmp, final)           # the atomic publish
     if fsync:
-        fd = os.open(str(dir_), os.O_RDONLY)
-        try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
-    maybe_crash("post-rename")
+        _fsync_dir(dir_)
+    if crash_points:
+        maybe_crash("post-rename")
     return final
+
+
+# -- one file a rank, committed by a manifest ---------------------------------
+
+def rank_snapshot_name(epoch: int, rank: int) -> str:
+    return f"rank{rank:03d}-snapshot-{epoch:010d}.bin"
+
+
+def find_manifests(dir_: str) -> list[tuple[int, str]]:
+    """Committed rank epochs' manifests, newest epoch first."""
+    out = []
+    for name in os.listdir(dir_):
+        m = _MANIFEST_RE.match(name)
+        if m:
+            out.append((int(m.group(1)), os.path.join(str(dir_), name)))
+    return sorted(out, reverse=True)
+
+
+def load_manifest(path: str) -> dict:
+    try:
+        with open(path, "rb") as f:
+            man = json.loads(f.read())
+        if man.get("format") != MANIFEST_FORMAT:
+            raise ValueError(f"format {man.get('format')!r}")
+        return man
+    except (OSError, ValueError) as e:
+        raise SnapshotCorrupt(f"{path}: bad manifest: {e}") from e
+
+
+def file_digest(data) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def write_rank_snapshot(dir_: str, epoch: int, state: dict, comm, *,
+                        fsync: bool = True, retain: int = 2) -> dict:
+    """One rank's part of a rank server's snapshot: every rank writes
+    its file, rank 0 commits the epoch's manifest once every file is
+    durable (the gather of the files' digests is the barrier) and drops
+    manifests past ``retain``, and each rank then drops its files that
+    no manifest names.  Every rank calls this; returns this rank's
+    manifest entry."""
+    rank = comm.first_part
+    head, payload = _envelope(epoch, state)
+    name = rank_snapshot_name(epoch, rank)
+    _publish(os.path.join(str(dir_), name), (head, payload), fsync)
+    h = hashlib.sha256(head)
+    h.update(payload)
+    entry = {"rank": rank, "name": name, "bytes": len(head) + len(payload),
+             "sha256": h.hexdigest()}
+    files = comm.gather_objects(entry)
+    if comm.leader:
+        man = {"format": MANIFEST_FORMAT, "epoch": int(epoch),
+               "world": comm.parts, "files": files}
+        _publish(os.path.join(str(dir_), f"manifest-{epoch:010d}.json"),
+                 (json.dumps(man, indent=1).encode(),), fsync,
+                 crash_points=False)
+        for _, path in find_manifests(dir_)[retain:]:
+            os.unlink(path)
+    comm.agree(True)                  # the manifest is committed
+    keep = {e for e, _ in find_manifests(dir_)}
+    for name in os.listdir(dir_):
+        m = _RANK_RE.match(name)
+        stale = m and int(m.group(1)) == rank and int(m.group(2)) not in keep
+        torn = name.startswith(f".rank{rank:03d}-") and name.endswith(".tmp")
+        if stale or torn:
+            os.unlink(os.path.join(str(dir_), name))
+    return entry
 
 
 def load_snapshot(path: str) -> tuple[int, dict]:
@@ -164,10 +260,11 @@ def prune_snapshots(dir_: str, retain: int) -> None:
 
 def capture_state(server, durability) -> dict:
     """Everything a restart needs for bit-identical serving, read off
-    the live server (duck-typed: any GraphServer-shaped object works)."""
+    the live server (duck-typed: any GraphServer-shaped object works);
+    on a rank, its part's mirrors and planner, and its part index."""
     dyn = server.dynamic_graph()
     cfg = durability.cfg
-    return {
+    state = {
         "format": FORMAT_VERSION,
         "epoch": int(server.epoch),
         "batch_id": int(durability.batch_id),
@@ -185,3 +282,7 @@ def capture_state(server, durability) -> dict:
         "persist": {"snapshot_every": cfg.snapshot_every,
                     "retain": cfg.retain, "fsync": cfg.fsync},
     }
+    if server.ranks:                  # this rank's part of the state
+        state["part"] = server.engine.comm.first_part
+        state["world"] = server.engine.comm.parts
+    return state

@@ -240,5 +240,15 @@ class WriteAheadLog:
         self._f.close()
 
 
+def read_records(path) -> list[WalRecord]:
+    """The valid record prefix of a log, read without opening it for
+    append (a rank other than 0 replays the WAL that rank 0 keeps)."""
+    with open(str(path), "rb") as f:
+        data = f.read()
+    if not data.startswith(FILE_MAGIC):
+        raise WalError(f"{path}: not a WAL (bad file magic)")
+    return scan_records(data, len(FILE_MAGIC))[0]
+
+
 def wal_path(dir_: str) -> str:
     return os.path.join(str(dir_), "wal.log")

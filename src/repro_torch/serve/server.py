@@ -72,11 +72,31 @@ query and never lets one bad query take the pipeline down:
     ``failed`` result carrying the exception.  The executor itself never
     wedges — a failed launch cannot orphan its in-flight peers
     (``serve.executor``).
+
+**One part a rank.**  Over a ``DistComm`` engine every rank holds a
+server, and rank 0 leads: admission, validation, coalescing,
+deadlines, shedding, retry, quarantine and the seed store's choices are
+its alone, and so are the results.  The programs and the demux's
+gathers are collectives, so every rank runs them in the same order:
+before each launch, each demux and each mutation batch the leader
+broadcasts a plain message over the control plane (key, bucket, roots,
+epoch and the seed's source; the demuxed lanes; the batch), and the
+other ranks follow it.  A launch that fails on any rank fails on every
+rank, through one agreed verdict before it runs and one after, so the
+retry or the bisection runs everywhere.  The other ranks call the same
+public methods (``warmup``, ``serve``, ``serve_trace``, ``mutate``,
+``drain``, ``pump``), which follow the leader's call to its end and
+return no results (``mutate`` their own ``MutationStats``), or
+:meth:`GraphServer.follow` until the leader's :meth:`GraphServer.close`.
+A leader's call that raises raises on every rank at its end.
 """
 
 from __future__ import annotations
 
+import contextlib
+import pickle
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -96,6 +116,33 @@ from repro_torch.serve.query import Query, QueryKey, QueryResult, \
     make_key, validate_query
 
 
+class LaunchFailed(RuntimeError):
+    """A launch that failed on another rank: every rank treats it as
+    failed, and the leader retries or bisects it."""
+
+
+def _picklable(err):
+    """``err`` itself if it pickles (to re-raise on every rank), else a
+    RuntimeError that names it."""
+    try:
+        pickle.dumps(err)
+        return err
+    except Exception:
+        return RuntimeError(repr(err))
+
+
+def _settled(out) -> bool:
+    """Wait for a launch's device work; False if the wait raised."""
+    try:
+        for o in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                torch.cuda.synchronize(o.device)
+                break
+        return True
+    except Exception:
+        return False
+
+
 def _host_scalar(value):
     """A scalar output as the host value a demuxed field holds."""
     if isinstance(value, torch.Tensor):
@@ -112,11 +159,14 @@ class GraphServer:
                  persistence: Persistence | str | None = None, obs=None):
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
-        if engine.distributed:
-            raise ValueError(
-                "GraphServer serves from one process; serving over a "
-                "DistComm engine is ROADMAP.md item L6c")
         self.engine = engine
+        # over ranks (DistComm) rank 0 leads and the others follow its
+        # messages (module docstring); stacked, this process is both
+        self.ranks = engine.distributed
+        self.leader = engine.comm.leader
+        self._depth = 0                  # the leader's nested public calls
+        self._followed: deque = deque()  # a follower's launches to demux
+        self._stopped = False            # a follower the leader released
         # serving-path observability: an obs.SpanRecorder records every
         # pipeline stage (admission -> validate -> coalesce_wait ->
         # dispatch -> device -> demux -> query) plus durability and
@@ -175,6 +225,7 @@ class GraphServer:
                   deadline_s=deadline_s))
 
     def submit_query(self, q: Query, t_submit: float | None = None) -> int:
+        self._leads("submit")
         if q.qid != -1:
             # admission stamps the object in place; re-submitting it
             # would re-stamp it and orphan the first qid's result
@@ -238,6 +289,89 @@ class GraphServer:
         self.results[q.qid] = res
         return res
 
+    # -- ranks: the leader's messages and the followers' loop ---------------
+    def _leads(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(
+                f"{what}: rank 0 leads a rank server; the other ranks "
+                "follow it (follow(), or the same public call)")
+
+    def _tell(self, *msg) -> None:
+        """Broadcast one message of the leader to the followers."""
+        if self.ranks:
+            self.engine.comm.broadcast_object(msg)
+
+    @contextlib.contextmanager
+    def _call(self, what: str):
+        """The leader's public call: at its end (the outermost one) the
+        followers, which follow it, are told it is done, with its error
+        if it raised."""
+        self._leads(what)
+        self._depth += 1
+        err = None
+        try:
+            yield
+        except BaseException as e:
+            err = _picklable(e)
+            raise
+        finally:
+            self._depth -= 1
+            if self._depth == 0:
+                self._tell("done", err)
+
+    def follow(self, until: str = "stop") -> dict:
+        """A follower's loop: run the leader's messages in order until
+        ``until`` arrives (``"stop"`` from the leader's :meth:`close`,
+        ``"done"`` at the end of a public call; a stop ends either).
+        Returns the launches and the last mutation's stats it ran; at
+        the "done" of a leader's call that raised, raises its error."""
+        got = {"launches": 0, "mutation": None}
+        while True:
+            op, *args = self.engine.comm.broadcast_object(None)
+            if op == "dispatch":
+                self._follow_dispatch(*args)
+                got["launches"] += 1
+            elif op == "demux":
+                self._follow_demux(*args)
+            elif op == "mutate":
+                got["mutation"] = self._follow_mutate(*args)
+            elif op == "stop" or until == "done":
+                self._stopped = op == "stop"
+                if op == "done" and args[0] is not None:
+                    raise args[0]
+                return got
+
+    def _follow_dispatch(self, key, bucket, roots, source) -> None:
+        try:
+            out = self._run_launch(key, bucket, roots, source)
+        except Exception:
+            out = None       # failed on every rank: the leader decides
+        if out is not None:
+            self._followed.append((key, bucket, out))
+
+    def _follow_demux(self, n_real: int, epoch: int) -> None:
+        key, bucket, out = self._followed.popleft()
+        if self.engine.comm.agree(_settled(out)) and n_real:
+            self._gather(key, bucket, n_real, out, epoch)
+
+    def _follow_mutate(self, inserts, deletes):
+        try:
+            return self._apply_mutation(inserts, deletes)
+        except Exception:
+            return None      # raised on every rank; the leader's "done"
+                             # carries the error to the caller
+
+    def close(self) -> None:
+        """End serving, on every rank: the leader's stop releases a
+        follower from :meth:`follow` (or from its own ``close``), and
+        every rank closes its WAL."""
+        if self.leader:
+            self._tell("stop")
+        elif not self._stopped:
+            self.follow()
+        if self.durability is not None:
+            self.durability.close()
+
     # -- warmup --------------------------------------------------------------
     def warmup(self, keys) -> int:
         """Build and run once every (key x ladder rung) so serving never
@@ -245,21 +379,24 @@ class GraphServer:
         count.  Source keys warm every bucket; refresh keys warm the
         single unbatched program.  Warmup launches bypass the metrics
         window."""
+        if not self.leader:
+            return self.follow("done")["launches"]
         launches = 0
-        for key in keys:
-            if isinstance(key, str):
-                key = make_key(key)
-            buckets = self.ladder.sizes if key.rooted else (0,)
-            for b in buckets:
-                batch = Batch(key, [], b, [0] * b)
-                out = self._dispatch(batch)
-                # warming mid-serving may retire REAL in-flight
-                # launches to free slots: demux them, don't drop them
-                for launch in self.executor.push(batch, out):
-                    self._demux(launch)
-                launches += 1
-        for launch in self.executor.drain():
-            self._demux(launch)
+        with self._call("warmup"):
+            for key in keys:
+                if isinstance(key, str):
+                    key = make_key(key)
+                buckets = self.ladder.sizes if key.rooted else (0,)
+                for b in buckets:
+                    batch = Batch(key, [], b, [0] * b)
+                    out = self._dispatch(batch)
+                    # warming mid-serving may retire REAL in-flight
+                    # launches to free slots: demux them, don't drop them
+                    for launch in self.executor.push(batch, out):
+                        self._demux(launch)
+                    launches += 1
+            for launch in self.executor.drain():
+                self._demux(launch)
         return launches
 
     # -- dynamic graphs ------------------------------------------------------
@@ -290,49 +427,65 @@ class GraphServer:
         any instruction leaves the log a superset of the applied
         epochs, never the reverse — and every ``snapshot_every`` epochs
         a crash-consistent snapshot pumps after the apply.
+
+        Over ranks the leader sends the batch after the flush and every
+        rank applies its part of it; a follower's call returns its own
+        stats (equal to the leader's).
         """
+        if not self.leader:
+            return self.follow("done")["mutation"]
+        with self._call("mutate"):
+            if self.durability is not None:
+                maybe_crash("between-batches")
+            with self.obs.span("mutation", "server") as msp:
+                while True:
+                    batch = self.coalescer.next_batch()
+                    if batch is None:
+                        break
+                    self._launch(batch)   # results wait in the mailbox
+                self._tell("mutate", inserts, deletes)
+                stats = self._apply_mutation(inserts, deletes)
+                msp.args.update(epoch=stats.epoch, n_insert=stats.n_insert,
+                                n_delete=stats.n_delete,
+                                rebuild=bool(stats.rebuild))
+        return stats
+
+    def _apply_mutation(self, inserts, deletes) -> MutationStats:
+        """What every rank does with a mutation batch: apply (logged,
+        on a durable server), open the epoch, snapshot when due."""
+        dyn = self.dynamic_graph()
         if self.durability is not None:
-            maybe_crash("between-batches")
-        with self.obs.span("mutation", "server") as msp:
-            while True:
-                batch = self.coalescer.next_batch()
-                if batch is None:
-                    break
-                self._launch(batch)       # results wait in the mailbox
-            dyn = self.dynamic_graph()
-            if self.durability is not None:
-                stats = self.durability.logged_apply(dyn, inserts, deletes)
-            else:
-                stats = dyn.apply(inserts, deletes)
-            self.garr = dyn.garr
-            self.epoch = dyn.epoch
-            self.metrics.epoch = self.epoch
-            self.mutation_log.append({
-                "epoch": stats.epoch, "n_insert": stats.n_insert,
-                "n_delete": stats.n_delete, "rebuild": stats.rebuild})
-            msp.args.update(epoch=stats.epoch, n_insert=stats.n_insert,
-                            n_delete=stats.n_delete,
-                            rebuild=bool(stats.rebuild))
-            if self.durability is not None:
-                self.metrics.wal_records = self.durability.wal_records
-                self.durability.maybe_snapshot(self)
+            stats = self.durability.logged_apply(dyn, inserts, deletes)
+        else:
+            stats = dyn.apply(inserts, deletes)
+        self.garr = dyn.garr
+        self.epoch = dyn.epoch
+        self.metrics.epoch = self.epoch
+        self.mutation_log.append({
+            "epoch": stats.epoch, "n_insert": stats.n_insert,
+            "n_delete": stats.n_delete, "rebuild": stats.rebuild})
+        if self.durability is not None:
+            self.metrics.wal_records = self.durability.wal_records
+            self.durability.maybe_snapshot(self)
         return stats
 
     @classmethod
-    def recover(cls, dir, *, device=None, snapshot_every=None, retain=None,
-                fsync=None, **kwargs) -> "GraphServer":
+    def recover(cls, dir, *, mesh=None, device=None, snapshot_every=None,
+                retain=None, fsync=None, **kwargs) -> "GraphServer":
         """Resume serving from a durability directory: newest
         digest-valid snapshot + WAL-suffix replay, bit-identical to the
         uninterrupted server at the recovered epoch, on ``device``
-        (default: the card).  ``kwargs`` pass through to the constructor
-        (buckets, depth, deadlines, ...); the persistence knobs default
-        to what the snapshot recorded.  The recovered server keeps
-        appending to the same WAL; what it did is on
-        ``server.recovery_report``."""
+        (default: the card).  ``mesh`` (``make_graph_mesh(P)`` inside a
+        process group of P ranks) recovers a directory that P ranks
+        wrote, each rank its part; every rank calls this.  ``kwargs``
+        pass through to the constructor (buckets, depth, deadlines,
+        ...); the persistence knobs default to what the snapshot
+        recorded.  The recovered server keeps appending to the same WAL;
+        what it did is on ``server.recovery_report``."""
         from repro_torch.serve.persist.recover import recover_state
         rec = kwargs.get("obs") or NULL_RECORDER
         with rec.span("recovery", "server", dir=str(dir)) as rsp:
-            rs = recover_state(dir, device=device)
+            rs = recover_state(dir, device=device, mesh=mesh)
             rsp.args.update(epoch=rs.epoch,
                             wal_records=rs.report.wal_records,
                             replayed=rs.report.replayed)
@@ -351,10 +504,12 @@ class GraphServer:
                     else stored.get("retain", 2)),
             fsync=(fsync if fsync is not None
                    else stored.get("fsync", True)))
-        rs.wal.fsync = cfg.fsync
+        if rs.wal is not None:               # the WAL is rank 0's
+            rs.wal.fsync = cfg.fsync
         server.durability = DurabilityState.resume(
             cfg, rs.wal, rs.digest, rs.count, rs.batch_id,
-            last_snapshot_epoch=rs.report.snapshot_epoch)
+            last_snapshot_epoch=rs.report.snapshot_epoch,
+            comm=rs.engine.comm if server.ranks else None)
         server.durability.obs = server.obs
         server.recovery_report = rs.report
         server.metrics.epoch = rs.epoch
@@ -412,21 +567,25 @@ class GraphServer:
         pending (retiring the oldest launch when the pipeline is full),
         else retire one in-flight launch.  Returns completed results —
         including typed shed / timed-out / failed dispositions."""
-        done = self._oob
-        self._oob = []
-        while True:
-            batch = self.coalescer.next_batch()
-            if batch is None:
-                launch = self.executor.complete_one()
-                if launch is not None:
-                    done.extend(self._demux(launch))
-                return done
-            batch, expired = self._check_deadlines(batch)
-            done.extend(expired)
-            if batch is not None:
-                done.extend(self._launch(batch))
-                return done
-            # every member had expired in the queue: try the next batch
+        if not self.leader:
+            self.follow("done")
+            return []
+        with self._call("pump"):
+            done = self._oob
+            self._oob = []
+            while True:
+                batch = self.coalescer.next_batch()
+                if batch is None:
+                    launch = self.executor.complete_one()
+                    if launch is not None:
+                        done.extend(self._demux(launch))
+                    return done
+                batch, expired = self._check_deadlines(batch)
+                done.extend(expired)
+                if batch is not None:
+                    done.extend(self._launch(batch))
+                    return done
+                # every member had expired in the queue: try the next one
 
     def _check_deadlines(self, batch: Batch):
         """Expire batch members already over budget BEFORE the launch
@@ -503,18 +662,27 @@ class GraphServer:
     def drain(self) -> list[QueryResult]:
         """Run the pipeline dry: every pending query dispatched, every
         in-flight launch demuxed."""
-        done = self._oob
-        self._oob = []
-        while self.coalescer.has_pending() or len(self.executor):
-            done.extend(self.pump())
-        self.metrics.stop()
+        if not self.leader:
+            self.follow("done")
+            return []
+        with self._call("drain"):
+            done = self._oob
+            self._oob = []
+            while self.coalescer.has_pending() or len(self.executor):
+                done.extend(self.pump())
+            self.metrics.stop()
         return done
 
     def serve(self, queries) -> list[QueryResult]:
         """Closed loop: admit everything, drain, return (and collect
-        from the mailbox) results in submission order."""
-        qids = [self.submit_query(q) for q in queries]
-        self.drain()
+        from the mailbox) results in submission order (a follower: none,
+        and ``queries`` unread)."""
+        if not self.leader:
+            self.follow("done")
+            return []
+        with self._call("serve"):
+            qids = [self.submit_query(q) for q in queries]
+            self.drain()
         return [self.results.pop(qid) for qid in qids]
 
     def serve_trace(self, trace) -> list[QueryResult]:
@@ -528,7 +696,15 @@ class GraphServer:
         ``serve.dynamic.mutation_stream``): the batch applies when its
         time passes, flushing pending queries against their own epoch
         first — so a trace interleaves queries and mutations exactly as
-        an online service would see them."""
+        an online service would see them.  A follower follows the
+        leader's replay and returns no results (``trace`` unread)."""
+        if not self.leader:
+            self.follow("done")
+            return []
+        with self._call("serve_trace"):
+            return self._replay(trace)
+
+    def _replay(self, trace) -> list[QueryResult]:
         trace = sorted(trace, key=lambda e: e[0])
         t0 = time.perf_counter()
         done, i = [], 0
@@ -558,25 +734,118 @@ class GraphServer:
             key.algo, key.variant, batch=bucket or None, **dict(key.params))
 
     def _dispatch(self, batch: Batch):
-        prog = self._program(batch.key, batch.bucket)
-        if batch.key.seeded:
-            # one seeded launch per query; warmup batches (no queries)
-            # resolve a cold seed just to run the right program
-            explicit = batch.queries[0].seed if batch.queries else None
-            seed = explicit if explicit is not None \
-                else self.resolve_seed(batch.key)[0]
-            args = tuple(
-                self.engine.scatter_vertex_field(a, KIND_DTYPES[kind])
-                for a, kind in zip(seed, batch.key.spec.input_kinds))
+        source = self._seed_source(batch)
+        roots = [int(r) for r in batch.roots]
+        self._tell("dispatch", batch.key, batch.bucket, roots, source)
+        return self._run_launch(batch.key, batch.bucket, roots, source)
+
+    def _seed_source(self, batch: Batch):
+        """Where a seeded launch's seed comes from, as the leader
+        decides it: ``("explicit", arrays)`` pinned by the query,
+        ``("store", epoch)`` a stored warm seed, ``("cold",)``.  Warmup
+        batches (no queries) resolve a cold seed just to run the right
+        program; None for an unseeded launch."""
+        if not batch.key.seeded:
+            return None
+        explicit = batch.queries[0].seed if batch.queries else None
+        if explicit is not None:
+            return ("explicit", explicit)
+        if self.resolve_seed(batch.key)[1]:
+            inc = batch.key.spec.incremental
+            return ("store", self._seeds[(batch.key.algo,
+                                          inc.seed_output)][0])
+        return ("cold",)
+
+    def _seed(self, key: QueryKey, source) -> tuple:
+        """The seed arrays ``source`` names (every rank keeps the same
+        store: the demux's gathers give each the whole field)."""
+        if source[0] == "explicit":
+            return source[1]
+        if source[0] == "store":
+            epoch, arr = self._seeds[(key.algo,
+                                      key.spec.incremental.seed_output)]
+            if epoch != source[1]:
+                raise LaunchFailed(f"{key.label}: the stored seed is of "
+                                   f"epoch {epoch}, not {source[1]}")
+            return (arr,)
+        return cold_seed(key.spec, self.engine.g)
+
+    def _run_launch(self, key: QueryKey, bucket: int, roots: list, source):
+        """Build the program and its inputs, then run it; over ranks a
+        failure on any rank, before the run or in it, fails it on
+        every rank (one agreed verdict each)."""
+        comm = self.engine.comm
+        err = None
+        try:
+            prog = self._program(key, bucket)
+            if key.seeded:
+                # one seeded launch per query
+                args = tuple(
+                    self.engine.scatter_vertex_field(a, KIND_DTYPES[kind])
+                    for a, kind in zip(self._seed(key, source),
+                                       key.spec.input_kinds))
+            elif bucket:
+                # host values: the batched runner reads each lane's
+                # root on the host, and a device tensor would cost a
+                # sync a lane
+                args = (roots,)
+            else:
+                args = ()
+        except Exception as e:
+            err = e
+        if self.ranks and not comm.agree(err is None):
+            raise err or LaunchFailed(f"{key.label}: the launch failed on "
+                                      "another rank before it ran")
+        if err is not None:
+            raise err
+        if not self.ranks:
             return prog(self.garr, *args)
-        if batch.bucket:
-            # host values: the batched runner reads each lane's root on
-            # the host, and a device tensor would cost a sync a lane
-            return prog(self.garr, [int(r) for r in batch.roots])
-        return prog(self.garr)
+        out = None
+        try:
+            out = prog(self.garr, *args)
+        except Exception as e:
+            err = e
+        if not comm.agree(err is None):
+            raise err or LaunchFailed(f"{key.label}: the launch failed on "
+                                      "another rank")
+        return out
+
+    def _gather(self, key: QueryKey, bucket: int, k: int, out,
+                epoch: int) -> list:
+        """The collective part of a demux, the same on every rank: each
+        of the ``k`` real lanes' ``(fields, rounds)``, vertex fields
+        gathered to the host; a refresh's fields also become warm seeds
+        of the incremental variants."""
+        prog = self._program(key, bucket)
+        names = prog.program.output_names
+        is_vertex = prog.program.output_is_vertex
+        *outs, rounds = out
+        eng = self.engine
+        if bucket:
+            # drop padded dup-root lanes ON DEVICE so the host copy in
+            # this (only) synchronous section is proportional to real
+            # queries, not the bucket width
+            gathered = [eng.gather_batched_vertex_field(o[:, :k]) if v
+                        else [_host_scalar(x) for x in o[:k]]
+                        for o, v in zip(outs, is_vertex)]
+            return [({n: g[i] for n, g in zip(names, gathered)},
+                     int(rounds[i])) for i in range(k)]
+        shared = {n: (eng.gather_vertex_field(o) if v else _host_scalar(o))
+                  for n, (o, v) in zip(names, zip(outs, is_vertex))}
+        # refresh outputs double as warm seeds for the incremental
+        # variants of the same algorithm
+        self._harvest_seeds(key, shared, epoch)
+        return [(shared, int(rounds))] * k
 
     def _demux(self, launch: Launch) -> list[QueryResult]:
         batch = launch.payload
+        if self.ranks:
+            self._tell("demux", batch.n_real, batch.epoch)
+            settled = self.engine.comm.agree(launch.error is None)
+            if not settled and launch.error is None:
+                launch.error = LaunchFailed(
+                    f"{batch.key.label}: the launch failed on another "
+                    "rank at its wait")
         if self.obs.enabled and batch.queries:
             # in-flight interval stamped by the executor (push -> its
             # wait returned); warmup launches stay un-traced
@@ -593,31 +862,8 @@ class GraphServer:
             return []
         with self.obs.span("demux", "server", label=batch.key.label,
                            bucket=batch.bucket, n=batch.n_real):
-            prog = self._program(batch.key, batch.bucket)
-            names = prog.program.output_names
-            is_vertex = prog.program.output_is_vertex
-            *outs, rounds = launch.out
-            eng = self.engine
-            if batch.bucket:
-                # drop padded dup-root lanes ON DEVICE so the host copy
-                # in this (only) synchronous section is proportional to
-                # real queries, not the bucket width
-                k = batch.n_real
-                gathered = [eng.gather_batched_vertex_field(o[:, :k]) if v
-                            else [_host_scalar(x) for x in o[:k]]
-                            for o, v in zip(outs, is_vertex)]
-                per_query = [
-                    ({n: g[i] for n, g in zip(names, gathered)},
-                     int(rounds[i]))
-                    for i in range(k)]
-            else:
-                shared = {n: (eng.gather_vertex_field(o) if v
-                              else _host_scalar(o))
-                          for n, (o, v) in zip(names, zip(outs, is_vertex))}
-                per_query = [(shared, int(rounds))] * batch.n_real
-                # refresh outputs double as warm seeds for the
-                # incremental variants of the same algorithm
-                self._harvest_seeds(batch.key, shared, batch.epoch)
+            per_query = self._gather(batch.key, batch.bucket, batch.n_real,
+                                     launch.out, batch.epoch)
             results = []
             for q, (fields, r) in zip(batch.queries, per_query):
                 if launch.t_done > q.deadline_abs:

@@ -167,9 +167,14 @@ def test_dist_phase_rehearses(cs, tmp_path, monkeypatch, capsys):
     one gloo rank at parts 1 running every program and four at parts 4
     (rank processes of chip_smoke.py itself) running DIST_PROGRAMS, each
     with the guarded runs, equal to StackedComm, nothing staged, no
-    kernel launched; compression at one layer's shapes."""
+    kernel launched; then, in the same ranks, DIST_RECOVERY's
+    checkpointed runs under the chaos schedule, a rank server's answers
+    and a durable rank server on urand12's parts (its WAL, mirrors and
+    recovery) equal to the stacked ones; compression at one layer's
+    shapes."""
     monkeypatch.setattr(cs, "DIST_DIR", tmp_path / "dist")
     monkeypatch.setattr(cs, "TRI_N", 512)
+    monkeypatch.setattr(cs, "DIST_DURABLE_GRAPH", "urand12")
     port = cs.Port()
     out = cs.run_dist(port, _urand_engines(cs, port), "cpu")
     assert out["launches"] == {"spmv_ell": 0, "bfs_pull": 0}
@@ -179,6 +184,13 @@ def test_dist_phase_rehearses(cs, tmp_path, monkeypatch, capsys):
     assert text.count("[dist] gloo world=4 parts=4 ") == \
         len(cs.DIST_PROGRAMS) + 2
     assert "bfs/fast chaos" in text and "ok=0" in text
+    assert text.count("[dist-recovery] gloo world=4 ") == \
+        len(cs.DIST_RECOVERY)
+    assert "resumed from its round-" in text
+    assert text.count("[dist-serve] gloo world=4 ") == \
+        2 * len(cs.DIST_SERVED) + 1
+    assert text.count("[dist-durable] gloo world=4 urand12: ") == 1
+    assert "equal to the stacked server's" in text
     assert "part_sums equals the one-row sums (cpu)" in text
     assert "ops staged through pinned host memory (gloo on CUDA " \
         "tensors): none" in text
