@@ -1,0 +1,7 @@
+"""Share of the traced bfs window in which no device operation runs."""
+
+from graphbench import readers
+
+
+def read(record):
+    return readers.idle_pct(record, "bfs")

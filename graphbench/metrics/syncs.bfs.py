@@ -1,0 +1,7 @@
+"""Blocking host-device synchronisations inside a bfs call, from the traced window's CUDA runtime events."""
+
+from graphbench import readers
+
+
+def read(record):
+    return readers.syncs_per_call(record, "bfs")
