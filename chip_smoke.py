@@ -240,9 +240,10 @@ prints no result):
            one fault_detection and one rollback event each and a
            checkpoint event a snapshot, ``telemetry["rounds"]`` the clean
            rounds, outputs bit-identical to the clean run, the program's
-           kernel launched.  Then one Chrome trace of every telemetry run
-           (a track per part) and the runner's spans and events, validated
-           and written to build/obs/chip_smoke.json.  ``[obs]`` lines:
+           kernel launched.  Then one Chrome trace of the layer spans
+           every telemetry run and recovered run recorded (a track per
+           layer) and the runner's spans and events, validated and
+           written to build/obs/chip_smoke.json.  ``[obs]`` lines:
            rounds, wall ms and mean round ms of the telemetry run, ms with
            telemetry off and on (median of 3 each), syncs, launches, wire
            bytes a round by op; the recovered runs' events; the trace's
@@ -3475,8 +3476,9 @@ def run_obs(port: Port, engines: dict, main: dict, chaos: dict) -> dict:
     ``telemetry=True``, on the main path's partitions (triangles on its
     TRI_N-vertex graph) in mode auto; then CheckpointRunner(telemetry=True,
     obs=SpanRecorder()) recovered runs of OBS_RECOVERED under the chaos
-    phase's schedules; then one Chrome trace of every engine track and
-    the runner's spans and events, written to OBS_TRACE and validated.
+    phase's schedules; then one Chrome trace of the layer spans those runs
+    recorded and the runner's spans and events, written to OBS_TRACE and
+    validated.
     Returns the launches of the telemetry runs (counters zeroed at the
     start of the phase; each equal to its plain run's)."""
     torch = port.torch
@@ -3490,7 +3492,8 @@ def run_obs(port: Port, engines: dict, main: dict, chaos: dict) -> dict:
         targets[parts] = (g, eng, garr, eng_t, eng_t.device_graph())
     port.reset_launches()
     total = {"spmv_ell": 0, "bfs_pull": 0}
-    tracks, cells = [], {}
+    cells = {}
+    recorder = obs.SpanRecorder()   # the telemetry runs' layer spans
     for parts, (g, eng, garr, eng_t, garr_t) in targets.items():
         for algo, variant in port.registry.available():
             key = f"{algo}/{variant}"
@@ -3516,7 +3519,7 @@ def run_obs(port: Port, engines: dict, main: dict, chaos: dict) -> dict:
                 outs, rounds = port.run_program(rec, ga, *args)
                 _sync(torch, e.device)
             mid = port.launches()
-            with SyncCounter(torch) as s_on:
+            with SyncCounter(torch) as s_on, obs.recording(recorder):
                 *touts, trounds, series = tprog(ga, *args)
                 _sync(torch, e.device)
             after = port.launches()
@@ -3550,7 +3553,6 @@ def run_obs(port: Port, engines: dict, main: dict, chaos: dict) -> dict:
             ms = median_ms(torch, e.device, lambda: plain(ga, *args))
             tel_ms = median_ms(torch, e.device, lambda: tprog(ga, *args))
             summ = tel.summary()
-            tracks.append((f"{key} parts={parts}", tel, parts))
             cells[f"{key}/parts={parts}"] = cell = {
                 "rounds": rounds, "wall_ms": summ["wall_ms"],
                 "round_ms_mean": summ.get("round_ms_mean"),
@@ -3571,7 +3573,6 @@ def run_obs(port: Port, engines: dict, main: dict, chaos: dict) -> dict:
     # -- traced recovery: events against the chaos phase's counts ---------
     parts = CHAOS_PARTS
     _, eng, garr = engines[parts]
-    recorder = obs.SpanRecorder()
     for algo, variant in OBS_RECOVERED:
         key = f"{algo}/{variant}"
         want = chaos[key]
@@ -3585,7 +3586,8 @@ def run_obs(port: Port, engines: dict, main: dict, chaos: dict) -> dict:
         n_ev = len(recorder.events())
         before = port.launches()
         t0 = time.perf_counter()
-        rep = runner.run(garr, *args)
+        with obs.recording(recorder):
+            rep = runner.run(garr, *args)
         _sync(torch, eng.device)
         rec_ms = (time.perf_counter() - t0) * 1e3
         after = port.launches()
@@ -3628,8 +3630,7 @@ def run_obs(port: Port, engines: dict, main: dict, chaos: dict) -> dict:
 
     # -- one Chrome trace of every engine track and the runner's spans ----
     t0 = time.perf_counter()
-    trace = obs.chrome_trace(recorder.spans(), recorder.events(),
-                             engine=tracks)
+    trace = obs.chrome_trace(recorder.spans(), recorder.events())
     counts = obs.validate_chrome_trace(trace)
     validate_s = time.perf_counter() - t0
     written = obs.write_trace(OBS_TRACE, trace)
@@ -3637,9 +3638,10 @@ def run_obs(port: Port, engines: dict, main: dict, chaos: dict) -> dict:
           and counts.get("i", 0) > 0,
           f"obs trace: counts {counts} / {written}")
     chunks = sum(sp.kind == "chunk" for sp in recorder.spans())
+    calls = sum(sp.kind == "call" for sp in recorder.spans())
     log(f"[obs] trace {OBS_TRACE.relative_to(HERE)}: "
-        f"{sum(counts.values())} events {counts} ({len(tracks)} engine "
-        f"runs, {chunks} chunk spans, {len(recorder.events())} events of "
+        f"{sum(counts.values())} events {counts} ({calls} engine "
+        f"calls, {chunks} chunk spans, {len(recorder.events())} events of "
         f"the runner), built and validated in {validate_s:.3f} s")
     secs = time.perf_counter() - t_phase
     log("[times] " + json.dumps({"obs": cells, "trace": counts,

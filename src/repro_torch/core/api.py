@@ -48,6 +48,7 @@ from repro_torch.core.partitioned import GraphMesh, StackedComm
 from repro_torch.core.superstep import AsyncSuperstepProgram, \
     PhasedProgram, SuperstepProgram, run_program, run_program_batched
 from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.obs.spans import spanned
 
 
 class CompiledProgram:
@@ -69,6 +70,8 @@ class CompiledProgram:
     measurement mode: on a card it synchronizes the device before it
     starts the clock and before it stops it, so the wall time is the
     device's (two drains a call, none a round).
+
+    Every call is the layer site ``engine.call`` (``obs/spans.py``).
     """
 
     def __init__(self, spec: registry.ProgramSpec,
@@ -90,6 +93,7 @@ class CompiledProgram:
         self.wire = obs_telemetry.WireRecord() if telemetry else None
         self.last_wall_s = 0.0
 
+    @spanned("call", "engine")
     def __call__(self, garr: dict, *inputs):
         if self.telemetry:
             return self._measured(garr, *inputs)

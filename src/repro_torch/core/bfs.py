@@ -35,6 +35,7 @@ from repro_torch.core.partitioned import StackedComm, pack_bits, \
     unpack_bits
 from repro_torch.core.superstep import AsyncSuperstepProgram, \
     SuperstepProgram
+from repro_torch.obs.spans import spanned
 
 INT_INF = 2 ** 30
 
@@ -167,6 +168,7 @@ def bfs_fast_program(shards, comm: StackedComm, max_levels: int = 64,
     ``pull_threshold * n``), ``"pull"``, or ``"push"``.  All three give
     identical parents (both branches derive parents with the same min-id
     ``frontier_pull``); they differ only in work and wire per level.
+    Each level is a layer site, ``bfs.push`` or ``bfs.pull``.
     """
     n, n_local = shards.n, shards.n_local
     ell_in = shards.ell("ell_in")
@@ -181,10 +183,12 @@ def bfs_fast_program(shards, comm: StackedComm, max_levels: int = 64,
         gf0 = comm.broadcast_global(pack_bits(frontier0), words=True)
         return parents0, frontier0, gf0, 1
 
+    @spanned("push", "bfs")
     def push(g, parents, frontier, gf):
         return _fast_level_push(comm, g, ell_in, ell_dst, n, parents,
                                 frontier, gf)
 
+    @spanned("pull", "bfs")
     def pull(g, parents, gf):
         p, g2, c = _fast_level(comm, g, ell_in, parents, gf)
         # recover the local frontier from my slice of the packed bitmap

@@ -33,6 +33,9 @@ Each primitive has THREE implementations:
                 it gives the ell path's bits (both add a row's slots left
                 to right).
 
+Each primitive is a layer site, ``localops.<name>`` (``obs/spans.py``),
+around every route.
+
 Mode resolution: the ``REPRO_LOCALOPS`` env var (or :func:`set_mode`)
 picks ``auto`` (default: the kernels for CUDA tensors, ``ell`` for CPU
 tensors), ``ref``, ``ell`` or ``kernel``.  ``kernel`` on a CPU tensor
@@ -52,6 +55,7 @@ from repro_torch.kernels._ell import bucket_views
 # row sums slot by slot, left to right: the order the JAX package's CPU
 # row reduction adds in (the same bits), and the SpMV kernel's
 from repro_torch.kernels.spmv.ref import sum_slots as _sum_slots
+from repro_torch.obs.spans import spanned
 
 INT_INF = 2 ** 30
 
@@ -147,6 +151,7 @@ def _with_pad(x: torch.Tensor, value) -> torch.Tensor:
 # spmv_pull
 # ---------------------------------------------------------------------------
 
+@spanned("spmv_pull", "localops")
 def spmv_pull(g: dict, ell: EllMeta, x: torch.Tensor, *,
               mode: str | None = None) -> torch.Tensor:
     """y[p, row] = sum of x[p, neighbor] over the row's ELL slots, f32.
@@ -189,6 +194,7 @@ def spmv_pull(g: dict, ell: EllMeta, x: torch.Tensor, *,
 # frontier_pull
 # ---------------------------------------------------------------------------
 
+@spanned("frontier_pull", "localops")
 def frontier_pull(g: dict, ell: EllMeta, bits: torch.Tensor,
                   unvisited: torch.Tensor, *,
                   mode: str | None = None) -> torch.Tensor:
@@ -242,6 +248,7 @@ def frontier_pull(g: dict, ell: EllMeta, bits: torch.Tensor,
 # pull_min_eq
 # ---------------------------------------------------------------------------
 
+@spanned("pull_min_eq", "localops")
 def pull_min_eq(g: dict, ell: EllMeta, xg: torch.Tensor,
                 target: torch.Tensor, *,
                 mode: str | None = None) -> torch.Tensor:
@@ -302,6 +309,7 @@ _REDUCERS = {
 _SCATTER = {"min": "amin", "max": "amax"}
 
 
+@spanned("scatter_combine", "localops")
 def scatter_combine(g: dict, ell: EllMeta, vals: torch.Tensor, op: str, *,
                     identity, mode: str | None = None) -> torch.Tensor:
     """Combine per-edge ``vals`` (P, E) into a (P, n_rows) accumulator

@@ -15,7 +15,8 @@ exchange contexts give the programs the same primitives:
 
 A comm names both counts: ``parts`` is P, the global count the payloads
 are cut by, and ``local_parts`` the L rows held here; ``first_part`` is
-the global index of local row 0.  The primitives:
+the global index of local row 0.  Each collective below, in both comms,
+is a layer site ``comm.<method>`` (``obs/spans.py``).  The primitives:
 
   * exchange_sum -- each part holds a full-length (n,) accumulator of
       proposed updates; the reduce-scatter delivers the combined slice
@@ -73,6 +74,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import faults
+from repro_torch.obs.spans import spanned
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -197,6 +199,7 @@ class StackedComm:
             acc |= rows[p]
         return acc
 
+    @spanned("exchange_sum", "comm")
     def exchange_sum(self, acc_global: torch.Tensor) -> torch.Tensor:
         """(P, n) proposed updates -> (P, n_local) owner sums.
 
@@ -208,6 +211,7 @@ class StackedComm:
         acc_global = self._tap("sum", acc_global)
         return self._source_sum(self._blocks(acc_global))
 
+    @spanned("exchange_or", "comm")
     def exchange_or(self, mask_global: torch.Tensor) -> torch.Tensor:
         """(P, n) bool -> (P, n_local) bool OR over all parts, shipped
         bit-packed (n/32 words per part)."""
@@ -215,11 +219,13 @@ class StackedComm:
         packed = self._tap("or", pack_bits(mask_global), words=True)
         return unpack_bits(self._source_or(self._blocks(packed)), n_local)
 
+    @spanned("exchange_min_int", "comm")
     def exchange_min_int(self, val_global: torch.Tensor) -> torch.Tensor:
         """(P, n) proposals -> (P, n_local) element-wise MIN."""
         val_global = self._tap("min", val_global)
         return self._blocks(val_global).amin(dim=0)
 
+    @spanned("broadcast_global", "comm")
     def broadcast_global(self, local_vals: torch.Tensor,
                          words: bool = False) -> torch.Tensor:
         """(P, n_local) -> (P, n): each part holds the full replica
@@ -227,6 +233,7 @@ class StackedComm:
         local_vals = self._tap("bcast", local_vals, words)
         return local_vals.reshape(1, -1).expand(self.parts, -1)
 
+    @spanned("shift", "comm")
     def shift(self, x: torch.Tensor, words: bool = False) -> torch.Tensor:
         """(P, ...) per-part payloads -> the same with part i's payload
         at part (i + 1) mod P: one step of the ring (``words``: the
@@ -244,23 +251,28 @@ class StackedComm:
         in place, at :meth:`own_slice`'s index."""
         self._blocks(x_global)[self.own_index()] = 0
 
+    @spanned("psum_scalar", "comm")
     def psum_scalar(self, x: torch.Tensor):
         """(P,) per-part scalars -> their sum as a host number."""
         return x.sum().item()
 
+    @spanned("sum_parts", "comm")
     def sum_parts(self, x: torch.Tensor) -> torch.Tensor:
         """(P,) per-part values -> their sum, a device scalar (no sync)."""
         return x.sum()
 
+    @spanned("all_parts", "comm")
     def all_parts(self, verdict: torch.Tensor) -> bool:
         """A bool tensor of per-part or global verdicts -> True when every
         part's holds: the guarded round's one sync."""
         return bool(verdict.all().item())
 
+    @spanned("max_scalar", "comm")
     def max_scalar(self, x: torch.Tensor) -> int:
         """(P,) per-part integer maxima -> the global maximum."""
         return int(x.max())
 
+    @spanned("gather_parts", "comm")
     def gather_parts(self, x: torch.Tensor) -> torch.Tensor:
         """(L, ...) held parts -> (P, ...) every part, for the caller that
         collects a result (not an exchange: untapped)."""
@@ -311,6 +323,7 @@ class StackedComm:
                              device=blocks.device)
         return torch.cat([blocks, col], dim=2)
 
+    @spanned("exchange_min_start", "comm")
     def exchange_min_start(self, val_global: torch.Tensor, scalar):
         """Ship the MIN-combine proposals ``(P, n)`` with ``scalar`` (a
         number, or one per part as ``(P,)``) piggybacked in the proposal
@@ -319,12 +332,16 @@ class StackedComm:
         return self._tap("min", self._stamped(self._blocks(val_global),
                                               scalar))
 
+    @spanned("exchange_min_finish", "comm")
     def exchange_min_finish(self, handle: torch.Tensor):
         """``((P, n_local) combined minima, (P,) global scalar sum)``:
         every part's sum is the same."""
-        return handle[:, :, :-1].amin(dim=0), self._source_sum(
-            handle[:, :, -1])
+        return self._min_rows(handle)
 
+    def _min_rows(self, rows: torch.Tensor):
+        return rows[:, :, :-1].amin(dim=0), self._source_sum(rows[:, :, -1])
+
+    @spanned("exchange_sum_start", "comm")
     def exchange_sum_start(self, acc_global: torch.Tensor, scalar):
         """Ship the SUM-combine proposals ``(P, n)`` with a piggybacked
         scalar column.  The reduce-scatter combines on the wire, so the
@@ -333,10 +350,16 @@ class StackedComm:
         return self._source_sum(self._tap(
             "sum", self._stamped(self._blocks(acc_global), scalar)))
 
+    @spanned("exchange_sum_finish", "comm")
     def exchange_sum_finish(self, handle: torch.Tensor):
         """``((P, n_local) combined sums, (P,) global scalar sum)``."""
-        return handle[:, :-1], handle[:, -1]
+        return self._sum_rows(handle)
 
+    @staticmethod
+    def _sum_rows(sums: torch.Tensor):
+        return sums[:, :-1], sums[:, -1]
+
+    @spanned("exchange_or_start", "comm")
     def exchange_or_start(self, mask_global: torch.Tensor, scalar):
         """Ship the bit-packed OR of a ``(P, n)`` bool mask with a
         piggybacked count word (an int32 word, the JAX package's uint32
@@ -345,11 +368,15 @@ class StackedComm:
         return self._tap("or", self._stamped(
             self._blocks(pack_bits(mask_global)), scalar), words=True)
 
+    @spanned("exchange_or_finish", "comm")
     def exchange_or_finish(self, handle: torch.Tensor, n_local: int):
         """``((P, n_local) bool OR-combined mask, (P,) int32 global scalar
         sum)``."""
-        return unpack_bits(self._source_or(handle[:, :, :-1]), n_local), \
-            self._source_sum(handle[:, :, -1])
+        return self._or_rows(handle, n_local)
+
+    def _or_rows(self, rows: torch.Tensor, n_local: int):
+        return unpack_bits(self._source_or(rows[:, :, :-1]), n_local), \
+            self._source_sum(rows[:, :, -1])
 
 
 # ---------------------------------------------------------------------------
@@ -503,6 +530,7 @@ class DistComm(StackedComm):
 
     # -- blocking exchanges -------------------------------------------------
 
+    @spanned("exchange_sum", "comm")
     def exchange_sum(self, acc_global: torch.Tensor) -> torch.Tensor:
         """(1, n) proposed updates -> (1, n_local) owner sums, added in
         source order as :meth:`StackedComm.exchange_sum` adds them."""
@@ -510,6 +538,7 @@ class DistComm(StackedComm):
         rows = self._a2a("sum", self._blocks(acc_global)[0]).wait()
         return self._source_sum(rows[:, None])
 
+    @spanned("exchange_or", "comm")
     def exchange_or(self, mask_global: torch.Tensor) -> torch.Tensor:
         """(1, n) bool -> (1, n_local) bool OR over all parts, shipped
         bit-packed."""
@@ -518,18 +547,21 @@ class DistComm(StackedComm):
         rows = self._a2a("or", self._blocks(packed)[0]).wait()
         return unpack_bits(self._source_or(rows[:, None]), n_local)
 
+    @spanned("exchange_min_int", "comm")
     def exchange_min_int(self, val_global: torch.Tensor) -> torch.Tensor:
         """(1, n) proposals -> (1, n_local) element-wise MIN."""
         val_global = self._tap("min", val_global)
         rows = self._a2a("min", self._blocks(val_global)[0]).wait()
         return rows[:, None].amin(dim=0)
 
+    @spanned("broadcast_global", "comm")
     def broadcast_global(self, local_vals: torch.Tensor,
                          words: bool = False) -> torch.Tensor:
         """(1, n_local) -> (1, n): the full replica on this rank."""
         local_vals = self._tap("bcast", local_vals, words)
         return self._gather("bcast", local_vals).reshape(1, -1)
 
+    @spanned("shift", "comm")
     def shift(self, x: torch.Tensor, words: bool = False) -> torch.Tensor:
         """(1, ...) this part's payload -> part (rank - 1) mod P's."""
         import torch.distributed as dist
@@ -543,22 +575,27 @@ class DistComm(StackedComm):
                 r, s, recvs, sends, async_op=a),
             torch.empty_like(x), x, False).wait()
 
+    @spanned("psum_scalar", "comm")
     def psum_scalar(self, x: torch.Tensor):
         """(1,) this part's scalar -> the sum over all parts, a host
         number."""
         return self._gather("psum", x.reshape(1)).sum().item()
 
+    @spanned("sum_parts", "comm")
     def sum_parts(self, x: torch.Tensor) -> torch.Tensor:
         return self._gather("psum", x.reshape(1)).sum()
 
+    @spanned("all_parts", "comm")
     def all_parts(self, verdict: torch.Tensor) -> bool:
         local = torch.as_tensor(verdict, device=self.device).all() \
             .to(torch.int32).reshape(1)
         return bool(self._gather("psum", local).all().item())
 
+    @spanned("max_scalar", "comm")
     def max_scalar(self, x: torch.Tensor) -> int:
         return int(self._gather("psum", x.reshape(1)).max())
 
+    @spanned("gather_parts", "comm")
     def gather_parts(self, x: torch.Tensor) -> torch.Tensor:
         return self._gather("gather", x)
 
@@ -580,28 +617,33 @@ class DistComm(StackedComm):
     # stamped rows; its finish waits, views the received (P_src, w + 1)
     # rows as StackedComm's (P_src, 1, w + 1) handle and reduces them.
 
+    @spanned("exchange_min_start", "comm")
     def exchange_min_start(self, val_global: torch.Tensor, scalar):
         return self._a2a("min", self._tap("min", self._stamped(
             self._blocks(val_global), scalar))[0], async_op=True)
 
+    @spanned("exchange_min_finish", "comm")
     def exchange_min_finish(self, handle: Pending):
-        return super().exchange_min_finish(handle.wait()[:, None])
+        return self._min_rows(handle.wait()[:, None])
 
+    @spanned("exchange_sum_start", "comm")
     def exchange_sum_start(self, acc_global: torch.Tensor, scalar):
         return self._a2a("sum", self._tap("sum", self._stamped(
             self._blocks(acc_global), scalar))[0], async_op=True)
 
+    @spanned("exchange_sum_finish", "comm")
     def exchange_sum_finish(self, handle: Pending):
-        return super().exchange_sum_finish(
-            self._source_sum(handle.wait()[:, None]))
+        return self._sum_rows(self._source_sum(handle.wait()[:, None]))
 
+    @spanned("exchange_or_start", "comm")
     def exchange_or_start(self, mask_global: torch.Tensor, scalar):
         return self._a2a("or", self._tap("or", self._stamped(
             self._blocks(pack_bits(mask_global)), scalar), words=True)[0],
             async_op=True)
 
+    @spanned("exchange_or_finish", "comm")
     def exchange_or_finish(self, handle: Pending, n_local: int):
-        return super().exchange_or_finish(handle.wait()[:, None], n_local)
+        return self._or_rows(handle.wait()[:, None], n_local)
 
 
 # ---------------------------------------------------------------------------

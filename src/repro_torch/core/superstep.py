@@ -38,6 +38,10 @@ into a ``(max_rounds, 2 + K)`` float32 array on the host and returns it
 last (``obs/telemetry.py``).  Every value of a row is a host number the
 loop already holds, so a telemetry run makes the syncs and launches of
 a plain one; the off path is the plain loop.
+
+Every loop marks its init, each round and its outputs with the layer
+spans ``engine.init``, ``engine.round`` and ``engine.outputs``
+(``obs/spans.py``): one flag read each when nothing records.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 
 from repro_torch.core import faults
 from repro_torch.core.partitioned import StackedComm
+from repro_torch.obs.spans import span
 
 
 @dataclass(frozen=True)
@@ -273,25 +278,29 @@ def run_program_async(prog: AsyncSuperstepProgram, g: dict, *inputs,
     comm = prog.comm
     comm.phase = "init"
     faults.set_round(0)
-    state, handle = prog.init(g, *inputs)
+    with span("init", "engine"):
+        state, handle = prog.init(g, *inputs)
     comm.phase = "round"
     rounds = 0
     series = _series_init(prog) if telemetry else None
     if static_iters:
         for _ in range(static_iters):
             faults.set_round(rounds + 1)
-            state, handle = prog.fold(g, prog.local(g, state), handle)
+            with span("round", "engine"):
+                state, handle = prog.fold(g, prog.local(g, state), handle)
             rounds += 1
     else:
         while rounds < prog.max_rounds and not prog.halt(state):
             faults.set_round(rounds + 1)
-            state, handle = prog.fold(g, prog.local(g, state), handle)
+            with span("round", "engine"):
+                state, handle = prog.fold(g, prog.local(g, state), handle)
             if series is not None:
                 _series_write(prog, series, rounds, state)
             rounds += 1
     faults.set_round(-1)
     comm.phase = "outputs"
-    out = prog.outputs(g, state)
+    with span("outputs", "engine"):
+        out = prog.outputs(g, state)
     comm.phase = "round"
     return (out, rounds) if series is None else (out, rounds, series)
 
@@ -391,25 +400,29 @@ def run_program(prog: SuperstepProgram, g: dict, *inputs,
     comm = prog.comm
     comm.phase = "init"
     faults.set_round(0)
-    state = prog.init(g, *inputs)
+    with span("init", "engine"):
+        state = prog.init(g, *inputs)
     comm.phase = "round"
     rounds = 0
     series = _series_init(prog) if telemetry else None
     if static_iters:
         for _ in range(static_iters):
             faults.set_round(rounds)
-            state = prog.step(g, state)
+            with span("round", "engine"):
+                state = prog.step(g, state)
             rounds += 1
     else:
         while rounds < prog.max_rounds and not prog.halt(state):
             faults.set_round(rounds)
-            state = prog.step(g, state)
+            with span("round", "engine"):
+                state = prog.step(g, state)
             if series is not None:
                 _series_write(prog, series, rounds, state)
             rounds += 1
     faults.set_round(-1)
     comm.phase = "outputs"
-    out = prog.outputs(state)
+    with span("outputs", "engine"):
+        out = prog.outputs(state)
     comm.phase = "round"
     return (out, rounds) if series is None else (out, rounds, series)
 
@@ -486,12 +499,14 @@ def init_carry(prog, g: dict, *inputs, telemetry: bool = False):
     comm = prog.comm
     comm.phase = "init"
     faults.set_round(0)
-    if isinstance(prog, AsyncSuperstepProgram):
-        state, handle = prog.init(g, *inputs)
-    else:
-        state, handle = prog.init(g, *inputs), ()
-    comm.phase = "round"
-    carry = state, handle, 0, _round_ok(prog, g, state, state)
+    with span("init", "engine"):
+        if isinstance(prog, AsyncSuperstepProgram):
+            state, handle = prog.init(g, *inputs)
+        else:
+            state, handle = prog.init(g, *inputs), ()
+        comm.phase = "round"
+        ok = _round_ok(prog, g, state, state)
+    carry = state, handle, 0, ok
     return carry + (_series_init(prog),) if telemetry else carry
 
 
@@ -508,11 +523,12 @@ def run_chunk(prog, g: dict, carry, chunk: int):
             and r < prog.max_rounds:
         faults.set_round(r + 1 if is_async else r)
         prev = state
-        if is_async:
-            state, handle = prog.fold(g, prog.local(g, state), handle)
-        else:
-            state = prog.step(g, state)
-        ok = _round_ok(prog, g, prev, state)
+        with span("round", "engine"):
+            if is_async:
+                state, handle = prog.fold(g, prog.local(g, state), handle)
+            else:
+                state = prog.step(g, state)
+            ok = _round_ok(prog, g, prev, state)
         if series:
             _series_write(prog, series[0], r, state)
         r, i = r + 1, i + 1
@@ -525,7 +541,9 @@ def carry_outputs(prog, g: dict, carry) -> tuple:
     comm = prog.comm
     faults.set_round(-1)
     comm.phase = "outputs"
-    out = prog.outputs(g, carry[0]) \
-        if isinstance(prog, AsyncSuperstepProgram) else prog.outputs(carry[0])
+    with span("outputs", "engine"):
+        out = prog.outputs(g, carry[0]) \
+            if isinstance(prog, AsyncSuperstepProgram) \
+            else prog.outputs(carry[0])
     comm.phase = "round"
     return out

@@ -18,8 +18,10 @@ further overrides the local-ops dispatch.  ``--obs`` also runs each
 program's ``telemetry=True`` build after its timed run (so the headline
 ms stays the plain number) and prints ``[obs]`` lines: rounds, wall
 time and wire bytes a round by op; ``--trace-out PATH`` (implies
-``--obs``) writes those runs as a validated Chrome trace, one track per
-part, to open in ui.perfetto.dev.
+``--obs``) records those runs' layer spans (``obs/spans.py``: each call,
+its init, rounds and outputs, BFS levels, local ops and exchanges, as
+measured on the host clock) and writes them as a validated Chrome
+trace, one track per layer, to open in ui.perfetto.dev.
 
 Under ``torchrun`` the P parts are P ranks (``DistComm``): each rank
 generates and partitions the graph with the same seed, keeps its own
@@ -54,7 +56,8 @@ from repro_torch.graphs import generate_edges
 from repro_torch.kernels.frontier.kernel import bfs_pull
 from repro_torch.kernels.spmv.kernel import spmv_ell
 from repro_torch.launch.mesh import make_graph_mesh
-from repro_torch.obs import chrome_trace, write_trace
+from repro_torch.obs import SpanRecorder, chrome_trace, recording, \
+    write_trace
 
 INT_INF = 2 ** 30
 
@@ -128,7 +131,7 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
     root = 0
     results = {}
     obs = obs or bool(trace_out)
-    engine_tracks = []     # (label, RunTelemetry, parts) for the export
+    rec = SpanRecorder()   # the telemetry runs' layer spans
     for algo, variant in registry.available():
         spec = registry.get_spec(algo, variant)
         name = program_label(algo, variant)
@@ -154,8 +157,8 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
             # a separate telemetry build, run after the timed one so the
             # headline ms stays the plain number
             tprog = eng.program(algo, variant, telemetry=True, **params)
-            tel = tprog.run_telemetry(tprog(*args)[-1])
-            engine_tracks.append((name, tel, parts))
+            with recording(rec):
+                tel = tprog.run_telemetry(tprog(*args)[-1])
             s = tel.summary()
             wire = s["wire_bytes_per_round"]
             say(f"[obs]   {name:14s} rounds={s['rounds']:3d} "
@@ -238,8 +241,8 @@ def run(graph_name: str, parts: int, *, device: str | None = None,
                     for b, s in zip(out[:-1], single[:-1]))
                 say(f"[verify] multi-source {label} root0 == "
                     f"single-source: {same}")
-    if trace_out and engine_tracks and eng.comm.first_part == 0:
-        counts = write_trace(trace_out, chrome_trace(engine=engine_tracks))
+    if trace_out and eng.comm.first_part == 0:
+        counts = write_trace(trace_out, chrome_trace(rec.spans()))
         say(f"[graph] wrote {trace_out} (chrome trace, "
             f"{sum(counts.values())} events; open in ui.perfetto.dev)")
     return results
@@ -274,8 +277,8 @@ def main():
                          "round by op")
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome trace-event JSON of the "
-                         "telemetry runs (implies --obs; open in "
-                         "ui.perfetto.dev)")
+                         "telemetry runs' measured layer spans (implies "
+                         "--obs; open in ui.perfetto.dev)")
     ap.add_argument("--no-verify", action="store_true")
     args = ap.parse_args()
     device = init_ranks(args.device)

@@ -1,4 +1,4 @@
-"""Declared observability vocabulary + the runtime instrument registry.
+"""Declared observability vocabulary.
 
 Everything the subsystem can emit is declared HERE, statically:
 
@@ -9,22 +9,18 @@ Everything the subsystem can emit is declared HERE, statically:
     Chrome export shape (``complete`` -> one "X" event; ``async`` ->
     "b"/"e" pairs, used for kinds that OVERLAP on one track: a query's
     lifetime brackets many nested server spans, device launches
-    double-buffer), and a one-line description.
+    double-buffer), and a one-line description.  The analytics path's
+    layer sites (``obs/spans.py``) record the kinds of the ``engine``,
+    ``bfs``, ``localops`` and ``comm`` components; their profiler range
+    is ``repro_torch.<component>.<kind>``.
   * ``EVENT_KINDS`` — instant events ("i" in the export).
-  * ``INSTRUMENTS`` — the counters/gauges/histograms the roll-up
-    report knows about.  ``Registry`` refuses undeclared names, so an
-    instrumentation site cannot silently invent a metric the docs
-    table doesn't list.
 
-``docs/API.md``'s Observability tables are generated by
-``spans_markdown_table()`` / ``instruments_markdown_table()`` and
-drift-tested with the same ``table in docs`` idiom as the algorithm
-and crash-point tables.
+``docs/API.md``'s table of the port's spans is generated by
+``spans_markdown_table()`` and drift-tested with the same ``table in
+docs`` idiom as the algorithm and crash-point tables.
 """
 
 from __future__ import annotations
-
-import numpy as np
 
 # component -> description (declaration order = exported tid order)
 COMPONENTS = {
@@ -33,8 +29,11 @@ COMPONENTS = {
     "executor": "double-buffered executor host side",
     "device": "device launches (dispatch -> done)",
     "durability": "WAL appends and snapshot writes",
-    "engine": "superstep rounds from engine telemetry",
+    "engine": "the engine's calls and the superstep loop",
     "recovery": "checkpoint runner (chunks, detections, rollbacks)",
+    "bfs": "bfs/fast's direction-optimizing levels",
+    "localops": "local edge work between the exchanges",
+    "comm": "the exchanges and collectives of StackedComm / DistComm",
 }
 
 # kind -> (component, export, description); export in {complete, async}
@@ -62,11 +61,30 @@ SPAN_KINDS = {
                  "crash-consistent snapshot write"),
     "recovery": ("server", "complete",
                  "GraphServer.recover(): snapshot load + WAL replay"),
-    "engine_round": ("engine", "complete",
-                     "one superstep (engine telemetry; rounds splay "
-                     "the measured wall-time uniformly)"),
     "chunk": ("recovery", "complete",
               "one checkpointed chunk of rounds in CheckpointRunner"),
+    "call": ("engine", "complete",
+             "CompiledProgram.__call__: one call of a built program"),
+    "init": ("engine", "complete",
+             "the superstep loop's init (the seed state, its exchanges)"),
+    "round": ("engine", "complete",
+              "one superstep round: step, or local + fold"),
+    "outputs": ("engine", "complete",
+                "the program's outputs after the loop"),
+    "push": ("bfs", "complete",
+             "a bfs/fast push level: OR-combine over ell_dst, parents"),
+    "pull": ("bfs", "complete",
+             "a bfs/fast pull level: parents over ell_in"),
+    **{fn: ("localops", "complete", f"localops.{fn}, every route")
+       for fn in ("scatter_combine", "frontier_pull", "spmv_pull",
+                  "pull_min_eq")},
+    **{op: ("comm", "complete", f"the comm's {op}")
+       for op in ("exchange_sum", "exchange_or", "exchange_min_int",
+                  "broadcast_global", "shift", "psum_scalar", "sum_parts",
+                  "all_parts", "max_scalar", "gather_parts",
+                  "exchange_min_start", "exchange_min_finish",
+                  "exchange_sum_start", "exchange_sum_finish",
+                  "exchange_or_start", "exchange_or_finish")},
 }
 
 # instant events: kind -> (component, description)
@@ -81,68 +99,6 @@ EVENT_KINDS = {
     "launch_failure": ("executor", "device launch raised; batch failed"),
 }
 
-# name -> (type, unit, description); type in {counter, gauge, histogram}
-INSTRUMENTS = {
-    "queries_submitted": ("counter", "1", "queries accepted at admission"),
-    "queries_resolved": ("counter", "1", "query futures resolved (any "
-                                         "status)"),
-    "mutations_applied": ("counter", "1", "mutation batches applied"),
-    "wal_appends": ("counter", "1", "WAL records appended"),
-    "snapshots_written": ("counter", "1", "snapshots written"),
-    "faults_detected": ("counter", "1", "checkpoint-runner detections"),
-    "rollbacks": ("counter", "1", "checkpoint-runner rollbacks"),
-    "spans_dropped": ("counter", "1", "spans lost to the ring bound"),
-    "epoch": ("gauge", "1", "current snapshot epoch"),
-    "wal_records": ("gauge", "1", "records in the live WAL"),
-    "query_latency_ms": ("histogram", "ms", "submit -> resolve latency"),
-    "batch_fill": ("histogram", "1", "queries per dispatched batch"),
-    "device_ms": ("histogram", "ms", "device launch wall-time"),
-    "wal_append_ms": ("histogram", "ms", "WAL append wall-time"),
-}
-
-
-class Registry:
-    """Runtime counters/gauges/histograms over the declared names."""
-
-    def __init__(self):
-        self._counters: dict[str, int] = {}
-        self._gauges: dict[str, float] = {}
-        self._hists: dict[str, list[float]] = {}
-
-    @staticmethod
-    def _check(name: str, typ: str) -> None:
-        decl = INSTRUMENTS.get(name)
-        if decl is None or decl[0] != typ:
-            raise KeyError(f"{name!r} is not a declared {typ} "
-                           "(add it to obs.registry.INSTRUMENTS)")
-
-    def count(self, name: str, n: int = 1) -> None:
-        self._check(name, "counter")
-        self._counters[name] = self._counters.get(name, 0) + n
-
-    def gauge(self, name: str, value: float) -> None:
-        self._check(name, "gauge")
-        self._gauges[name] = float(value)
-
-    def observe(self, name: str, value: float) -> None:
-        self._check(name, "histogram")
-        self._hists.setdefault(name, []).append(float(value))
-
-    def snapshot(self) -> dict:
-        """JSON-friendly state; histograms roll up to count/mean/p99."""
-        hists = {}
-        for name, vals in sorted(self._hists.items()):
-            arr = np.asarray(vals, dtype=np.float64)
-            hists[name] = {
-                "count": int(arr.size),
-                "mean": float(arr.mean()) if arr.size else 0.0,
-                "p99": float(np.percentile(arr, 99)) if arr.size else 0.0,
-            }
-        return {"counters": dict(sorted(self._counters.items())),
-                "gauges": dict(sorted(self._gauges.items())),
-                "histograms": hists}
-
-
 def spans_markdown_table() -> str:
     """Span + event kinds as one markdown table (docs-drift-tested)."""
     lines = ["| kind | component | shape | description |",
@@ -151,13 +107,4 @@ def spans_markdown_table() -> str:
         lines.append(f"| `{kind}` | {comp} | span ({export}) | {desc} |")
     for kind, (comp, desc) in EVENT_KINDS.items():
         lines.append(f"| `{kind}` | {comp} | event | {desc} |")
-    return "\n".join(lines)
-
-
-def instruments_markdown_table() -> str:
-    """The instrument registry as a markdown table."""
-    lines = ["| instrument | type | unit | description |",
-             "|------------|------|------|-------------|"]
-    for name, (typ, unit, desc) in INSTRUMENTS.items():
-        lines.append(f"| `{name}` | {typ} | {unit} | {desc} |")
     return "\n".join(lines)

@@ -1,6 +1,5 @@
 """Derived views over a ``SpanRecorder``: the ``trace_summary`` block a
-traced run publishes, the latency cells derived from ``query`` spans,
-and the plain-text roll-up report.
+traced run publishes and the latency cells derived from ``query`` spans.
 
 ``derive_latency_cells`` keeps the reference's contract with its
 serving metrics (the serving layer is not ported yet): every resolved
@@ -62,40 +61,3 @@ def derive_latency_cells(rec) -> dict:
         key = (s.args.get("label"), s.args.get("bucket"))
         cells.setdefault(key, []).append(s.args["latency_s"])
     return cells
-
-
-def rollup(registry, rec=None) -> str:
-    """Plain-text roll-up: the instrument registry, then (with a
-    recorder) span counts and the p99 ranking."""
-    snap = registry.snapshot()
-    lines = ["== obs roll-up =="]
-    if snap["counters"]:
-        lines.append("-- counters --")
-        for name, val in snap["counters"].items():
-            lines.append(f"  {name:24s} {val:>10d}")
-    if snap["gauges"]:
-        lines.append("-- gauges --")
-        for name, val in snap["gauges"].items():
-            lines.append(f"  {name:24s} {val:>10.3f}")
-    if snap["histograms"]:
-        lines.append("-- histograms --")
-        lines.append(f"  {'name':24s} {'count':>7s} {'mean':>10s} "
-                     f"{'p99':>10s}")
-        for name, cell in snap["histograms"].items():
-            lines.append(f"  {name:24s} {cell['count']:>7d} "
-                         f"{cell['mean']:>10.3f} {cell['p99']:>10.3f}")
-    if rec is not None:
-        summ = trace_summary(rec)
-        lines.append("-- spans --")
-        for comp, n in summ["spans_per_component"].items():
-            lines.append(f"  {comp:24s} {n:>10d}")
-        if summ["top_p99_ms"]:
-            lines.append("-- top p99 --")
-            for row in summ["top_p99_ms"]:
-                lines.append(f"  {row['kind']:24s} {row['count']:>7d} "
-                             f"{row['p99_ms']:>10.3f} ms")
-        if summ["dropped_spans"] or summ["dropped_events"]:
-            lines.append(f"  (ring truncated: {summ['dropped_spans']} "
-                         f"spans, {summ['dropped_events']} events "
-                         "dropped)")
-    return "\n".join(lines)

@@ -1,7 +1,7 @@
 """Span/event model of traced runs: a bounded ring buffer of
-monotonic-timestamped spans (the checkpoint runner's chunks and
-checkpoint / detection / rollback events; the serving path's spans
-when it is ported).
+monotonic-timestamped spans (the serving path's spans, the checkpoint
+runner's chunks and checkpoint / detection / rollback events, and the
+analytics path's layer spans) and the layer sites that record them.
 
 A ``Span`` is a named interval on a component track (``t0``..``t1`` in
 ``time.perf_counter()`` seconds); an ``Event`` is an instant.  The
@@ -27,13 +27,32 @@ Design points (cheap when off, as ``core/faults.py`` is):
 Span kinds, components, and which kinds export as Chrome *async*
 events (they overlap on one track: ``query``, ``device``,
 ``coalesce_wait``) are declared in ``obs/registry.py``.
+
+Layer sites.  The analytics path (``core/``) marks its layer boundaries
+with ``with span(kind, component):``, or ``@spanned(kind, component)``
+around a whole function: the engine's call, the superstep loop's init,
+rounds and outputs, bfs/fast's push and pull levels, the local ops and
+the exchanges.  A site reads the recorder made current by
+:func:`recording` (nothing is plumbed through the programs) and torch's
+profiler state, through the hook ``core`` installs with
+:func:`install_profiler` (this package imports no torch):
+
+  * a current, enabled recorder gets a ``Span`` on ``perf_counter``;
+  * while torch's profiler records, the site also opens the profiler
+    range ``repro_torch.<component>.<kind>``, so the span lands in the
+    profiler's trace on the device trace's clock and each kernel can
+    be put down to the span that launched it;
+  * with neither, a site reads the two flags and returns: it enters no
+    profiler range, allocates nothing and runs no tensor op.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 
@@ -182,3 +201,88 @@ class SpanRecorder:
 
 
 NULL_RECORDER = SpanRecorder(maxlen=1, enabled=False)
+
+
+# -- layer sites ----------------------------------------------------------
+
+class _NoProfiler:
+    """The profiler state before ``core`` installs torch's."""
+
+    _is_profiler_enabled = False
+
+
+_recorder = NULL_RECORDER      # the recorder ``recording`` made current
+_profiler_state = _NoProfiler  # ``._is_profiler_enabled``: torch records
+_open_range = None             # name -> a profiler range context manager
+
+
+def install_profiler(state, open_range) -> None:
+    """Hand the layer sites torch's profiler: ``state`` is the object whose
+    ``_is_profiler_enabled`` is True while torch's profiler records
+    (``torch.autograd.profiler``), ``open_range(name)`` the context
+    manager that opens a named range under it (``record_function``)."""
+    global _profiler_state, _open_range
+    _profiler_state, _open_range = state, open_range
+
+
+@contextmanager
+def recording(rec: SpanRecorder):
+    """Make ``rec`` the recorder the layer sites record into for the
+    block, restoring the previous one after it."""
+    global _recorder
+    prev, _recorder = _recorder, rec
+    try:
+        yield rec
+    finally:
+        _recorder = prev
+
+
+class _LayerSpan:
+    """A layer site while a recorder or the profiler is on: the profiler
+    range, then the recorder's span, whichever is on."""
+
+    __slots__ = ("_parts",)
+
+    def __init__(self, kind: str, component: str):
+        parts = []
+        if _profiler_state._is_profiler_enabled:
+            parts.append(_open_range(f"repro_torch.{component}.{kind}"))
+        if _recorder.enabled:
+            parts.append(_recorder.span(kind, component))
+        self._parts = parts
+
+    def __enter__(self):
+        for part in self._parts:
+            part.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        for part in reversed(self._parts):
+            part.__exit__(exc_type, exc, tb)
+        return False
+
+
+def span(kind: str, component: str):
+    """``with span("round", "engine"): ...``: a layer site (see the
+    module's notes); the shared no-op when nothing records."""
+    if not (_recorder.enabled or _profiler_state._is_profiler_enabled):
+        return _NULL_SPAN
+    return _LayerSpan(kind, component)
+
+
+def spanned(kind: str, component: str):
+    """A layer site around a whole function: ``span(kind, component)``
+    over each call, the function called directly when nothing records."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def site(*args, **kwargs):
+            if not (_recorder.enabled
+                    or _profiler_state._is_profiler_enabled):
+                return fn(*args, **kwargs)
+            with _LayerSpan(kind, component):
+                return fn(*args, **kwargs)
+
+        return site
+
+    return wrap

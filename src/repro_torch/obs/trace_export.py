@@ -1,19 +1,15 @@
 """Chrome trace-event (Perfetto-loadable) JSON export + schema check.
 
-``chrome_trace`` turns recorder spans/events (and optionally engine
-telemetry) into the Trace Event Format dict ``chrome://tracing`` and
-https://ui.perfetto.dev load directly:
+``chrome_trace`` turns recorder spans/events into the Trace Event
+Format dict ``chrome://tracing`` and https://ui.perfetto.dev load
+directly:
 
-  * the SERVER is pid 1 with one track (tid) per declared component
+  * one process (pid 1) with one track (tid) per declared component
     (``registry.COMPONENTS`` order), so admission/validate/demux nest
     on the "server" track while batch formation and device launches
-    read on their own lanes;
-  * ENGINE telemetry is pid 2 with one track per PART — a run's
-    measured wall-time is splayed uniformly over its rounds and the
-    resulting ``engine_round`` spans are emitted on every part's track
-    (each part executes every BSP round; per-part skew is not
-    observable from the host), with the halt scalar and probe values
-    in ``args``;
+    read on their own lanes, and the analytics path's measured layer
+    spans nest on theirs (a call's init, rounds and outputs on
+    "engine", its exchanges on "comm");
   * span kinds declared ``complete`` export as "X" events; kinds
     declared ``async`` (query / device / coalesce_wait — they overlap
     on their track) export as "b"/"e" pairs keyed by the recorder
@@ -36,8 +32,7 @@ import pathlib
 
 from repro_torch.obs.registry import COMPONENTS, SPAN_KINDS
 
-_PID_SERVE = 1
-_PID_ENGINE = 2
+_PID = 1
 _COMPONENT_TID = {name: i for i, name in enumerate(COMPONENTS)}
 
 
@@ -48,14 +43,8 @@ def _meta(pid: int, name: str, tid: int = 0, thread: str | None = None):
     return ev
 
 
-def chrome_trace(spans=(), events=(), engine=()) -> dict:
-    """Build the trace dict.
-
-    ``spans`` / ``events`` come from ``SpanRecorder.spans()`` /
-    ``.events()``.  ``engine`` is an iterable of ``(label, telemetry,
-    parts)`` with ``telemetry`` a ``RunTelemetry``; each run's rounds
-    are laid end to end after the previous run's on every part track.
-    """
+def chrome_trace(spans=(), events=()) -> dict:
+    """Build the trace dict of ``SpanRecorder.spans()`` / ``.events()``."""
     spans = list(spans)
     events = list(events)
     stamps = [s.t0 for s in spans] + [e.t for e in events]
@@ -66,55 +55,29 @@ def chrome_trace(spans=(), events=(), engine=()) -> dict:
 
     out = []
     if spans or events:
-        out.append(_meta(_PID_SERVE, "repro-serve"))
+        out.append(_meta(_PID, "repro_torch"))
         for comp, tid in _COMPONENT_TID.items():
-            out.append(_meta(_PID_SERVE, "", tid, thread=comp))
+            out.append(_meta(_PID, "", tid, thread=comp))
     for span in spans:
         tid = _COMPONENT_TID.get(span.component, len(_COMPONENT_TID))
         decl = SPAN_KINDS.get(span.kind)
         if decl is not None and decl[1] == "async":
             common = {"name": span.kind, "cat": span.component,
-                      "pid": _PID_SERVE, "tid": tid, "id": span.seq}
+                      "pid": _PID, "tid": tid, "id": span.seq}
             out.append({"ph": "b", "ts": us(span.t0),
                         "args": dict(span.args), **common})
             out.append({"ph": "e", "ts": us(span.t1), **common})
         else:
             out.append({"ph": "X", "name": span.kind,
-                        "cat": span.component, "pid": _PID_SERVE,
+                        "cat": span.component, "pid": _PID,
                         "tid": tid, "ts": us(span.t0),
                         "dur": round(span.dur * 1e6, 3),
                         "args": dict(span.args)})
     for ev in events:
         tid = _COMPONENT_TID.get(ev.component, len(_COMPONENT_TID))
         out.append({"ph": "i", "s": "t", "name": ev.kind,
-                    "cat": ev.component, "pid": _PID_SERVE, "tid": tid,
+                    "cat": ev.component, "pid": _PID, "tid": tid,
                     "ts": us(ev.t), "args": dict(ev.args)})
-
-    engine = list(engine)
-    if engine:
-        out.append(_meta(_PID_ENGINE, "repro-engine"))
-        parts_max = max(parts for _, _, parts in engine)
-        for part in range(parts_max):
-            out.append(_meta(_PID_ENGINE, "", part,
-                             thread=f"part{part}"))
-        cursor = 0.0
-        for label, tel, parts in engine:
-            rounds = tel.series.rounds
-            total_us = max(tel.wall_s, 1e-6) * 1e6
-            dur = total_us / max(rounds, 1)
-            for r in range(rounds):
-                row = tel.series.rows[r]
-                args = {"run": label, "round": r,
-                        "halt": float(row[1])}
-                for name in tel.series.probe_names:
-                    args[name] = float(tel.series.probe(name)[r])
-                for part in range(parts):
-                    out.append({"ph": "X", "name": "engine_round",
-                                "cat": "engine", "pid": _PID_ENGINE,
-                                "tid": part,
-                                "ts": round(cursor + r * dur, 3),
-                                "dur": round(dur, 3), "args": args})
-            cursor += total_us
     out.sort(key=lambda e: (e["ph"] == "M" and -1, e["ts"]))
     return {"traceEvents": out, "displayTimeUnit": "ms"}
 

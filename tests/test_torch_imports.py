@@ -96,17 +96,18 @@ import sys
 import repro_torch.obs
 from repro_torch.core import CheckpointRunner, GraphEngine, partition_graph
 from repro_torch.graphs import urand_edges
-from repro_torch.obs import SpanRecorder, chrome_trace, validate_chrome_trace
+from repro_torch.obs import SpanRecorder, chrome_trace, recording, \
+    validate_chrome_trace
 eng = GraphEngine(partition_graph(urand_edges(128, 512, seed=3), 128, 2),
                   device="cpu")
 garr = eng.device_graph()
 prog = eng.program("bfs", "fast", telemetry=True)
-tel = prog.run_telemetry(prog(garr, 0)[-1])
 rec = SpanRecorder()
-rep = CheckpointRunner(eng, "pagerank", "fast", telemetry=True,
-                       obs=rec).run(garr)
-validate_chrome_trace(chrome_trace(rec.spans(), rec.events(),
-                                   engine=[("bfs", tel, 2)]))
+with recording(rec):
+    tel = prog.run_telemetry(prog(garr, 0)[-1])
+    rep = CheckpointRunner(eng, "pagerank", "fast", telemetry=True,
+                           obs=rec).run(garr)
+validate_chrome_trace(chrome_trace(rec.spans(), rec.events()))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

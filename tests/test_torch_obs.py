@@ -5,22 +5,26 @@ in the engine, on the CPU:
     span ring bound and drop counts, the context manager's error stamp,
     the inert ``NULL_RECORDER``; ``PhaseSeries`` trimming and width
     check, ``WireRecord`` phases (measured from ``StackedComm``
-    tallies here), ``RunTelemetry.summary``; registry refusals,
-    ``rollup``; the Chrome export's shapes and engine tracks, the
-    validator's rejections, ``write_trace``'s round trip;
-    ``trace_summary``, ``derive_latency_cells``, and both registry
-    tables against ``docs/API.md``;
+    tallies here), ``RunTelemetry.summary``; the Chrome export's
+    shapes, the validator's rejections, ``write_trace``'s round trip;
+    ``trace_summary``, ``derive_latency_cells``, and the port's span
+    table against ``docs/API.md``;
   * the port against the JAX package's ``repro.obs`` on the same
-    inputs: registry declarations, Chrome trace dicts, summaries and
-    roll-ups equal;
+    inputs: the reference's declarations within the port's, Chrome
+    trace dicts and summaries equal;
+  * the layer sites (``obs.span`` / ``obs.spanned``): spans on against
+    off bit for bit for every registered program, no profiler range
+    entered when nothing records, the profiler ranges' names and
+    counts of bfs/fast and pagerank/fast, and the launcher's
+    ``--trace-out`` of measured rounds;
   * the engine (urand N=256, 2048 edges, seed 11, root 3): telemetry on
     against off bit for bit for every registered program at parts {1, 2,
     4}, with the same ``Tensor.item`` count; telemetry as a cache
     dimension and its composition rules; the measured wire against the
     exchanges' tallies; guard with telemetry; phased probe layouts;
   * ``CheckpointRunner(telemetry=True, obs=...)``: checkpoint, detection
-    and rollback events matching the report, chunk spans, and a
-    recovered series equal to the clean run's rows.
+    and rollback events matching the report, chunk spans, the run's
+    layer spans, and a recovered series equal to the clean run's rows.
 """
 
 import dataclasses
@@ -40,26 +44,26 @@ from repro_torch.core.superstep import PhasedProgram, run_program
 from repro_torch.graphs import urand_edges
 from repro_torch.obs import (
     COMPONENTS,
-    INSTRUMENTS,
     NULL_RECORDER,
     SPAN_KINDS,
     Event,
     PhaseSeries,
-    Registry,
     RunTelemetry,
     Span,
     SpanRecorder,
     WireRecord,
     chrome_trace,
     derive_latency_cells,
-    instruments_markdown_table,
-    rollup,
+    recording,
+    span,
+    spanned,
     spans_markdown_table,
     trace_summary,
     validate_chrome_trace,
     write_trace,
 )
 from repro_torch.obs import registry as obs_registry
+from repro_torch.obs import spans as obs_spans
 from repro_torch.obs import telemetry as obs_tel
 
 N, E, ROOT = 256, 2048, 3
@@ -231,33 +235,6 @@ def test_run_telemetry_summary_math():
     assert tel.summary()["wire_bytes_total"] == 290 + 7
 
 
-# -- instrument registry + roll-up ---------------------------------------
-
-
-def test_registry_refuses_undeclared_instruments():
-    reg = Registry()
-    reg.count("queries_submitted", 3)
-    reg.gauge("epoch", 2)
-    reg.observe("query_latency_ms", 12.5)
-    with pytest.raises(KeyError):
-        reg.count("made_up_counter")
-    with pytest.raises(KeyError):
-        reg.gauge("queries_submitted", 1)  # declared, but not a gauge
-    snap = reg.snapshot()
-    assert snap["counters"]["queries_submitted"] == 3
-    assert snap["histograms"]["query_latency_ms"]["count"] == 1
-
-
-def test_rollup_smoke():
-    reg = Registry()
-    reg.count("wal_appends", 2)
-    rec = SpanRecorder()
-    rec.add_span("admission", "server", 0.0, 0.001)
-    text = rollup(reg, rec)
-    assert "== obs roll-up ==" in text
-    assert "wal_appends" in text and "server" in text
-
-
 # -- Chrome trace export + schema validator ------------------------------
 
 
@@ -280,16 +257,6 @@ def _spanset(mod=None):
     return spans, events
 
 
-def _series(mod=None):
-    arr = np.zeros((4, 3), np.float32)
-    arr[:3, 0] = 1.0
-    arr[2, 1] = 1.0
-    arr[:3, 2] = [4, 2, 0]
-    m = mod or obs_tel
-    return m.RunTelemetry(
-        series=m.PhaseSeries.from_array(arr, ("frontier",)), wall_s=0.012)
-
-
 def test_chrome_trace_export_shapes():
     spans, events = _spanset()
     trace = chrome_trace(spans, events)
@@ -303,17 +270,6 @@ def test_chrome_trace_export_shapes():
     assert all(e["ts"] >= 0 for e in evs)   # relative to earliest stamp
     b_ids = {e["id"] for e in evs if e["ph"] == "b"}
     assert b_ids == {3, 4, 5}               # async pairs keyed by seq
-
-
-def test_chrome_trace_engine_tracks():
-    trace = chrome_trace(engine=[("bfs_fast", _series(), 2)])
-    counts = validate_chrome_trace(trace)
-    assert counts["X"] == 3 * 2             # rounds x parts
-    rounds = [e for e in trace["traceEvents"]
-              if e.get("name") == "engine_round"]
-    assert {e["pid"] for e in rounds} == {2}
-    assert {e["tid"] for e in rounds} == {0, 1}
-    assert rounds[0]["args"]["frontier"] == 4.0
 
 
 def test_validator_rejects_malformed_traces():
@@ -350,7 +306,12 @@ def test_validator_rejects_malformed_traces():
 
 def test_write_trace_round_trip(tmp_path):
     spans, events = _spanset()
-    trace = chrome_trace(spans, events, engine=[("bfs", _series(), 2)])
+    rec = SpanRecorder()
+    with recording(rec), span("call", "engine"):
+        for _ in range(2):
+            with span("round", "engine"), span("exchange_or", "comm"):
+                pass
+    trace = chrome_trace(spans + rec.spans(), events)
     path = tmp_path / "sub" / "trace.json"
     counts = write_trace(path, trace)
     assert counts == validate_chrome_trace(trace)
@@ -396,8 +357,7 @@ def test_derive_latency_cells_counts_only_ok_queries():
 # -- docs drift: the registry tables in docs/API.md ----------------------
 
 
-@pytest.mark.parametrize("table", [spans_markdown_table,
-                                   instruments_markdown_table])
+@pytest.mark.parametrize("table", [spans_markdown_table])
 def test_docs_observability_tables_are_current(table):
     content = open(os.path.join(REPO, "docs", "API.md")).read()
     assert table() in content, (
@@ -408,40 +368,74 @@ def test_docs_observability_tables_are_current(table):
 # -- the port against repro.obs on the same inputs -----------------------
 
 
+# what the port declares beyond the reference: the analytics path's
+# layer spans (the reference's splayed ``engine_round`` is gone)
+PORT_COMPONENTS = ("bfs", "localops", "comm")
+PORT_KINDS = {
+    "engine": ("call", "init", "round", "outputs"),
+    "bfs": ("push", "pull"),
+    "localops": ("scatter_combine", "frontier_pull", "spmv_pull",
+                 "pull_min_eq"),
+    "comm": ("exchange_sum", "exchange_or", "exchange_min_int",
+             "broadcast_global", "shift", "psum_scalar", "sum_parts",
+             "all_parts", "max_scalar", "gather_parts",
+             "exchange_min_start", "exchange_min_finish",
+             "exchange_sum_start", "exchange_sum_finish",
+             "exchange_or_start", "exchange_or_finish"),
+}
+
+
 def test_registry_declarations_equal_reference():
     ref = ref_obs.registry
-    assert COMPONENTS == ref.COMPONENTS
-    assert list(COMPONENTS) == list(ref.COMPONENTS)   # tid order
-    assert SPAN_KINDS == ref.SPAN_KINDS
+    # the reference's components first, in its tid order, with its
+    # descriptions but the engine's (measured layer spans, not telemetry)
+    assert list(COMPONENTS) == list(ref.COMPONENTS) + list(PORT_COMPONENTS)
+    assert {k: v for k, v in COMPONENTS.items()
+            if k in ref.COMPONENTS and k != "engine"} \
+        == {k: v for k, v in ref.COMPONENTS.items() if k != "engine"}
+    ref_kinds = {k: v for k, v in ref.SPAN_KINDS.items()
+                 if k != "engine_round"}
+    assert {k: SPAN_KINDS[k] for k in ref_kinds} == ref_kinds
+    port_only = {k: v[0] for k, v in SPAN_KINDS.items()
+                 if k not in ref.SPAN_KINDS}
+    assert port_only == {k: comp for comp, kinds in PORT_KINDS.items()
+                         for k in kinds}
+    assert "engine_round" not in SPAN_KINDS
     assert obs_registry.EVENT_KINDS == ref.EVENT_KINDS
-    assert INSTRUMENTS == ref.INSTRUMENTS
-    assert spans_markdown_table() == ref.spans_markdown_table()
-    assert instruments_markdown_table() == ref.instruments_markdown_table()
     assert obs_tel.SERIES_FIXED_COLS == ref_obs.telemetry.SERIES_FIXED_COLS
     import repro_torch.obs as port_obs
-    assert port_obs.__all__ == ref_obs.__all__
+    removed = {"INSTRUMENTS", "Registry", "instruments_markdown_table",
+               "rollup"}
+    added = {"recording", "span", "spanned"}
+    assert set(port_obs.__all__) \
+        == (set(ref_obs.__all__) - removed) | added
 
 
 def test_chrome_trace_equals_reference():
+    """The same spans and events export to the reference's events; the
+    metadata differs only by the process's name and the port's own
+    components' tracks."""
     spans, events = _spanset()
     rspans, revents = _spanset(ref_obs)
-    engine = [("bfs_fast", _series(), 2), ("pr", _series(), 4)]
-    rengine = [("bfs_fast", _series(ref_obs.telemetry), 2),
-               ("pr", _series(ref_obs.telemetry), 4)]
-    for args, rargs in (((spans, events), (rspans, revents)),
-                        (((), (), engine), ((), (), rengine)),
-                        ((spans, events, engine),
-                         (rspans, revents, rengine))):
-        got, want = chrome_trace(*args), ref_obs.chrome_trace(*rargs)
-        assert got == want
-        assert validate_chrome_trace(got) \
-            == ref_obs.validate_chrome_trace(want)
+    got, want = chrome_trace(spans, events), ref_obs.chrome_trace(
+        rspans, revents)
+
+    def body(trace):
+        return [e for e in trace["traceEvents"] if e["ph"] != "M"
+                or e["args"]["name"] in ref_obs.registry.COMPONENTS]
+
+    assert body(got) == body(want)
+    assert [e["args"]["name"] for e in got["traceEvents"]
+            if e["name"] == "process_name"] == ["repro_torch"]
+    counts, rcounts = validate_chrome_trace(got), \
+        ref_obs.validate_chrome_trace(want)
+    assert counts["M"] == rcounts["M"] + len(PORT_COMPONENTS)
+    assert {**counts, "M": 0} == {**rcounts, "M": 0}
 
 
 def test_summaries_and_rollup_equal_reference():
     recs = (SpanRecorder(), ref_obs.SpanRecorder())
-    regs = (Registry(), ref_obs.Registry())
-    for rec, reg in zip(recs, regs):
+    for rec in recs:
         for i in range(5):
             rec.add_span("admission", "server", 0.0, 0.001 * (i + 1))
             rec.add_span("query", "server", 0.0, 0.1, label="bfs",
@@ -449,15 +443,9 @@ def test_summaries_and_rollup_equal_reference():
                          latency_s=0.01 * i)
         rec.add_span("chunk", "recovery", 0.0, 0.25, phase=0)
         rec.event("rollback", "recovery", phase=0)
-        reg.count("rollbacks", 2)
-        reg.gauge("epoch", 3)
-        reg.observe("device_ms", 1.5)
-        reg.observe("device_ms", 4.0)
     assert trace_summary(recs[0]) == ref_obs.trace_summary(recs[1])
     assert derive_latency_cells(recs[0]) \
         == ref_obs.derive_latency_cells(recs[1])
-    assert regs[0].snapshot() == regs[1].snapshot()
-    assert rollup(regs[0], recs[0]) == ref_obs.rollup(regs[1], recs[1])
     arr = np.zeros((5, 3), np.float32)
     arr[:4, 0] = 1.0
     arr[3, 1] = 1.0
@@ -641,7 +629,8 @@ def test_checkpoint_runner_obs_events_and_telemetry(engines, algo, variant,
     rec = SpanRecorder()
     runner = CheckpointRunner(eng, algo, variant, checkpoint_every=2,
                               faults=sched, telemetry=True, obs=rec)
-    rep = runner.run(garr, *args)
+    with recording(rec):
+        rep = runner.run(garr, *args)
     assert rep.recoveries >= 1
     events = rec.events()
     kinds = [e.kind for e in events]
@@ -665,8 +654,13 @@ def test_checkpoint_runner_obs_events_and_telemetry(engines, algo, variant,
             assert rep.telemetry[key] == summ[key], key
     assert all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
                for a, b in zip(rep.outputs, outs))
-    validate_chrome_trace(chrome_trace(rec.spans(), rec.events(),
-                                       engine=[(algo, clean, 2)]))
+    # the run's measured rounds: at least the clean run's (rolled-back
+    # rounds run again), each inside a chunk
+    rounds_run = [s for s in rec.spans() if s.kind == "round"]
+    assert len(rounds_run) >= rounds
+    assert all(any(c.t0 <= s.t0 and s.t1 <= c.t1 for c in chunks)
+               for s in rounds_run)
+    validate_chrome_trace(chrome_trace(rec.spans(), rec.events()))
 
 
 def test_checkpoint_runner_series_equals_clean_rows(engines):
@@ -697,3 +691,173 @@ def test_checkpoint_runner_untraced_records_nothing(eng):
     rep = runner.run(eng.device_graph(), ROOT)
     assert rep.telemetry is None
     assert NULL_RECORDER.spans() == [] and NULL_RECORDER.events() == []
+
+
+# -- layer spans: the analytics path's sites -----------------------------
+
+
+def test_recording_nests_and_restores():
+    outer, inner = SpanRecorder(), SpanRecorder()
+    with recording(outer):
+        with span("call", "engine"):
+            with recording(inner), span("round", "engine"):
+                pass
+        with span("outputs", "engine"):
+            pass
+    with span("init", "engine"):        # nothing current: not recorded
+        pass
+    assert [s.kind for s in outer.spans()] == ["call", "outputs"]
+    assert [(s.kind, s.component) for s in inner.spans()] == [
+        ("round", "engine")]
+    assert obs_spans._recorder is NULL_RECORDER
+
+
+def test_spanned_wraps_the_function():
+    @spanned("exchange_or", "comm")
+    def exchange(x, *, words=False):
+        """doc"""
+        if x is None:
+            raise ZeroDivisionError
+        return x + 1, words
+
+    rec = SpanRecorder()
+    assert exchange(1, words=True) == (2, True)
+    with recording(rec):
+        assert exchange(2) == (3, False)
+        with pytest.raises(ZeroDivisionError):
+            exchange(None)
+    assert exchange.__name__ == "exchange" and exchange.__doc__ == "doc"
+    ok, failed = rec.spans()
+    assert (ok.kind, ok.component) == ("exchange_or", "comm")
+    assert ok.args == {} and failed.args == {"error": "ZeroDivisionError"}
+
+
+@pytest.mark.parametrize("algo,variant", registry.available())
+def test_spans_on_are_bit_identical_to_off(engines, algo, variant):
+    """A call with a recorder on gives the off call's outputs and rounds
+    bit for bit, with the same ``Tensor.item`` count, and records one
+    ``call`` span and a ``round`` span a round."""
+    spec = registry.get_spec(algo, variant)
+    for parts, eng in engines.items():
+        what = f"{algo}/{variant} parts={parts}"
+        garr = eng.device_graph()
+        args = _args(eng, spec)
+        prog = eng.program(algo, variant)
+        with _Items() as s_off:
+            *outs, rounds = prog(garr, *args)
+        rec = SpanRecorder()
+        with _Items() as s_on, recording(rec):
+            *touts, trounds = prog(garr, *args)
+        assert trounds == rounds, what
+        for a, b in zip(outs, touts):
+            if isinstance(a, torch.Tensor):
+                assert a.dtype == b.dtype and torch.equal(a, b), what
+            else:
+                assert a == b, what
+        assert s_on.count == s_off.count, what
+        kinds = [s.kind for s in rec.spans()]
+        assert kinds.count("call") == 1, what
+        assert kinds.count("round") == rounds, what
+        assert set(kinds) <= set(SPAN_KINDS), what
+        assert rec.dropped_spans == 0, what
+
+
+class _Ranges:
+    """Counts the profiler ranges entered while active, through the hook
+    the sites call and torch's own ``record_function``."""
+
+    def __enter__(self):
+        self.names, self._prev = [], obs_spans._open_range
+        self._rf = torch.profiler.record_function
+        prev = self._prev
+
+        def counted(name):
+            self.names.append(name)
+            return prev(name)
+
+        def counted_rf(name, *a, **k):
+            self.names.append(name)
+            return self._rf(name, *a, **k)
+
+        obs_spans._open_range = counted
+        torch.profiler.record_function = counted_rf
+        torch.autograd.profiler.record_function = counted_rf
+        return self
+
+    def __exit__(self, *exc):
+        obs_spans._open_range = self._prev
+        torch.profiler.record_function = self._rf
+        torch.autograd.profiler.record_function = self._rf
+
+
+def test_sites_enter_no_profiler_range_when_off(engines):
+    """With no recorder and no profiler, a call enters no profiler range:
+    the sites read their flags and return."""
+    eng = engines[4]
+    garr = eng.device_graph()
+    for algo, args in (("bfs", (ROOT,)), ("pagerank", ())):
+        prog = eng.program(algo, "fast")
+        with _Ranges() as off:
+            prog(garr, *args)
+        assert off.names == [], algo
+        with _Ranges() as on, torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            prog(garr, *args)
+        assert "repro_torch.engine.call" in on.names, algo
+
+
+@pytest.mark.parametrize("algo,kinds", [
+    ("bfs", {"engine.call", "engine.init", "engine.round",
+             "engine.outputs", "bfs.push", "bfs.pull",
+             "localops.scatter_combine", "localops.frontier_pull",
+             "comm.exchange_or", "comm.broadcast_global",
+             "comm.psum_scalar"}),
+    ("pagerank", {"engine.call", "engine.init", "engine.round",
+                  "engine.outputs", "localops.scatter_combine",
+                  "comm.exchange_sum", "comm.psum_scalar"})])
+def test_profiler_ranges_of_the_fast_programs(engines, algo, kinds):
+    """Under ``torch.profiler`` on the CPU, bfs/fast and pagerank/fast
+    name their layers ``repro_torch.<component>.<kind>``: one
+    ``engine.round`` a round, and in BFS a push or a pull level each."""
+    from collections import Counter
+    eng = engines[4]
+    garr = eng.device_graph()
+    prog = eng.program(algo, "fast", direction="adaptive") \
+        if algo == "bfs" else eng.program(algo, "fast")
+    args = (ROOT,) if algo == "bfs" else ()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        *_, rounds = prog(garr, *args)
+    names = Counter(e.name[len("repro_torch."):] for e in prof.events()
+                    if e.name.startswith("repro_torch."))
+    assert set(names) == kinds
+    assert names["engine.call"] == names["engine.init"] \
+        == names["engine.outputs"] == 1
+    assert names["engine.round"] == rounds > 0
+    if algo == "bfs":
+        assert names["bfs.push"] + names["bfs.pull"] == rounds
+        assert names["bfs.push"] >= 1 and names["bfs.pull"] >= 1
+
+
+def test_launcher_trace_out_measures_rounds(tmp_path, capsys):
+    """``--trace-out``: the telemetry runs' measured layer spans, a
+    ``round`` span a round of every program, validated on disk."""
+    from repro_torch.launch import graph_analytics
+    path = tmp_path / "engine.json"
+    results = graph_analytics.run("urand12", 2, device="cpu", pr_iters=20,
+                                  verify=False, trace_out=str(path))
+    out = capsys.readouterr().out
+    trace = json.loads(path.read_text())
+    counts = validate_chrome_trace(trace)
+    evs = trace["traceEvents"]
+    rounds = [e for e in evs if e["ph"] == "X" and e["name"] == "round"]
+    calls = [e for e in evs if e["ph"] == "X" and e["name"] == "call"]
+    assert len(calls) == len(results) > 0
+    assert len(rounds) == sum(r[0][-1] for r in results.values())
+    # measured, not splayed: the rounds of a call are not all one length
+    assert len({e["dur"] for e in rounds}) > 1
+    assert all(e["tid"] == list(COMPONENTS).index("engine") for e in rounds)
+    assert "engine_round" not in {e.get("name") for e in evs}
+    assert f"wrote {path}" in out and counts["X"] == sum(
+        e["ph"] == "X" for e in evs)
+
